@@ -1,0 +1,68 @@
+"""Concept extractor Psi, NCHW.
+
+Counterpart of ``viscoin_tpu/models/concept_extractor.py``: the three last
+ResNet hidden states are projected to a common 7x7 (at 224², 8x8 at 256²)
+space by conv1 (5x5/4), conv2 (3x3/2) and conv3 (3x3/1), concatenated, mixed
+by conv4 (3x3), then split into two heads:
+
+  * ``Phi``  — conv5 (1x1 -> n_concepts) + adaptive average pool to 3x3:
+               (B, n_concepts, 3, 3) concept maps;
+  * ``Phi'`` — pool(conv4 output) -> channel-major flatten (the natural NCHW
+               flatten) -> linear1 -> linear2 (no bias): (B, 9 * n_concepts).
+
+All activations are ReLU. ``F.adaptive_avg_pool2d`` is the torch semantics
+the JAX package reproduces with its pooling matrices.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from viscoin_tpu_torch.models.resnet import lecun_normal_
+
+
+class ConceptExtractor(nn.Module):
+    def __init__(self, *, n_concepts: int = 256, latent_channels: int = 512,
+                 input_channels1: int = 512, input_channels2: int = 1024,
+                 input_channels3: int = 2048, device="cuda"):
+        super().__init__()
+        lc = latent_channels
+        self.conv1 = nn.Conv2d(input_channels1, lc, 5, stride=4, padding=2, device=device)
+        self.conv2 = nn.Conv2d(input_channels2, lc, 3, stride=2, padding=1, device=device)
+        self.conv3 = nn.Conv2d(input_channels3, lc, 3, stride=1, padding=1, device=device)
+        self.conv4 = nn.Conv2d(3 * lc, 3 * lc, 3, padding=1, device=device)
+        self.conv5 = nn.Conv2d(3 * lc, n_concepts, 1, device=device)
+        self.linear1 = nn.Linear(9 * 3 * lc, 9 * n_concepts, device=device)
+        self.linear2 = nn.Linear(9 * n_concepts, 9 * n_concepts, bias=False, device=device)
+
+    def init_weights(self, generator: torch.Generator):
+        for m in (self.conv1, self.conv2, self.conv3, self.conv4, self.conv5,
+                  self.linear1, self.linear2):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+
+    def forward(self, latent_layers) -> tuple[torch.Tensor, torch.Tensor]:
+        """latent_layers: the classifier's hidden_states[-3:] (NCHW).
+
+        Returns (Phi (B, K, 3, 3), Phi' (B, 9K))."""
+        if len(latent_layers) != 3:
+            raise ValueError(f"expected 3 latent layers, got {len(latent_layers)}")
+        x1 = torch.relu(self.conv1(latent_layers[0]))
+        x2 = torch.relu(self.conv2(latent_layers[1]))
+        x3 = torch.relu(self.conv3(latent_layers[2]))
+        x = torch.relu(self.conv4(torch.cat([x1, x2, x3], dim=1)))
+
+        phi = F.adaptive_avg_pool2d(torch.relu(self.conv5(x)), 3)
+
+        y = F.adaptive_avg_pool2d(x, 3).reshape(x.shape[0], -1)
+        y = torch.relu(self.linear1(y))
+        y = torch.relu(self.linear2(y))
+        return phi, y
+
+
+def max_pool_concepts(phi: torch.Tensor) -> torch.Tensor:
+    """(B, K, 3, 3) -> (B, K): per-concept max over the 3x3 map."""
+    return phi.amax(dim=(2, 3))

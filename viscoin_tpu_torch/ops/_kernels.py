@@ -1,0 +1,148 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` into its own
+shared library with a plain C interface (``-gencode arch=compute_90a,
+code=sm_90a``, Hopper) and loaded with :mod:`ctypes`. The libraries land in
+``viscoin_tpu_torch/csrc/build/`` (listed in ``.gitignore``) under a name
+that carries a hash of the source and flags, so an edited source is rebuilt
+and a stale library is never loaded. All sources build in parallel, one
+``nvcc`` process each. A failed build raises; nothing falls back.
+
+Every wrapper calls :func:`count_launch` right after its kernel launched
+successfully, and nowhere else, so a run can show that the main path went
+through the kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+
+Nothing here runs at import: this module imports on machines without
+``nvcc`` or a card, where only the plain versions of the ops run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+KERNELS = ("bias_act", "upfirdn2d")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_c_void_p = ctypes.c_void_p
+_c_int = ctypes.c_int
+_c_ll = ctypes.c_longlong
+_c_float = ctypes.c_float
+_float_p = ctypes.POINTER(ctypes.c_float)
+
+# C signatures of the entry points (see the .cu sources).
+_SIGNATURES = {
+    "bias_act": ("viscoin_bias_act", [
+        _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_ll, _c_int,
+        _c_float, _c_float, _c_float, _c_int, _c_void_p]),
+    "upfirdn2d": ("viscoin_upfirdn2d", [
+        _c_void_p, _c_void_p, _c_ll, _c_int, _c_int, _c_int, _c_int,
+        _float_p, _c_int, _float_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_int, _c_int, _c_float, _c_int, _c_void_p]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_launches = {name: 0 for name in KERNELS}
+build_log: dict[str, str] = {}
+
+
+def count_launch(name: str) -> None:
+    with _lock:
+        _launches[name] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    with _lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME, /usr/local/cuda and PATH); "
+                           "the CUDA kernels of viscoin_tpu_torch cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str) -> tuple[Path, Path, subprocess.Popen | None]:
+    out = _lib_path(name)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    if out.exists():
+        return out, tmp, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+
+
+def build_all() -> float:
+    """Build (in parallel) and load every kernel not loaded yet; returns
+    the wall seconds it took. Raises if any build or load fails."""
+    t0 = time.perf_counter()
+    with _lock:
+        todo = [n for n in KERNELS if n not in _libs]
+        started = {}
+        try:
+            for name in todo:
+                started[name] = _start_build(name)
+        finally:
+            errors = []
+            for name, (out, tmp, proc) in started.items():
+                if proc is None:
+                    continue
+                log, _ = proc.communicate()
+                build_log[name] = log
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+                    tmp.unlink(missing_ok=True)
+                else:
+                    os.replace(tmp, out)
+            if errors:
+                raise RuntimeError("\n".join(errors))
+        for name, (out, _, _) in started.items():
+            lib = ctypes.CDLL(str(out))
+            fn_name, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+    return time.perf_counter() - t0
+
+
+def entry(name: str):
+    """The C entry point of kernel ``name``, building everything on first use."""
+    if name not in _libs:
+        build_all()
+    return getattr(_libs[name], _SIGNATURES[name][0])
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a C entry point reported a CUDA error; count the launch otherwise."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    count_launch(name)

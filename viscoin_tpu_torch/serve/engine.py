@@ -1,0 +1,154 @@
+"""Inference endpoints over a VisCoIN bundle, on the card.
+
+Counterpart of ``viscoin_tpu/serve/engine.py``. Requests of any size are
+chunked into fixed device batches; a short last chunk is padded by repeating
+its first row, and the padded rows are dropped on the host. Outputs are
+numpy arrays with the JAX engine's keys, shapes and layouts (the
+reconstruction is (N, H, W, 3) uint8).
+
+The engine runs on ``device`` ("cuda" by default) and raises at
+construction when that device is a CUDA device and none is present; it
+never carries on on the CPU unless asked for ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from viscoin_tpu_torch.data.transforms import denormalize, device_preprocess, host_test_transform
+from viscoin_tpu_torch.models.bundle import VisCoINModels
+from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def pad_to_multiple(batch: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
+    """Pad the leading dim up to a multiple by repeating the first row;
+    returns (padded, real_count)."""
+    n = batch.shape[0]
+    rem = (-n) % multiple
+    if rem == 0:
+        return batch, n
+    return np.concatenate([batch, np.repeat(batch[:1], rem, axis=0)], axis=0), n
+
+
+def prepare_image(img_u8: np.ndarray, resolution: int) -> np.ndarray:
+    """Arbitrary-size HWC u8 -> the model resolution with the eval geometry
+    (Resize(short = size / 0.875) + CenterCrop)."""
+    img_u8 = np.asarray(img_u8, np.uint8)
+    if img_u8.shape[:2] != (resolution, resolution):
+        img_u8 = host_test_transform(img_u8, size=resolution, resize_to=int(resolution / 0.875))
+    return img_u8
+
+
+def run_padded(call, images_u8: np.ndarray, batch_size: int) -> dict:
+    """Chunk a u8 batch to ``batch_size``, pad the last chunk, drop the
+    padding rows from each output and concatenate. ``call(chunk) -> dict``
+    runs one fixed-size device batch and returns numpy arrays."""
+    images_u8 = np.asarray(images_u8, np.uint8)
+    if images_u8.ndim == 3:
+        images_u8 = images_u8[None]
+    n = images_u8.shape[0]
+    if n == 0:
+        raise ValueError("empty image batch")
+    chunks: list[dict] = []
+    for start in range(0, n, batch_size):
+        chunk, rows = pad_to_multiple(images_u8[start: start + batch_size], batch_size)
+        out = call(chunk)
+        chunks.append({k: v[:rows] for k, v in out.items()})
+    return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+
+
+class InferenceEngine:
+    """Padded fixed-batch inference over a bundle.
+
+    Args:
+        models: a VisCoINModels with weights loaded. The engine keeps its own
+            copy, moved to ``device`` and cast once to ``compute_dtype``.
+        batch_size: the device batch; requests are chunked and padded to it.
+        compute_dtype: "float32" or "bfloat16". Logits, probabilities and
+            concept activations always come out fp32.
+        device: "cuda" (default) or "cpu".
+    """
+
+    def __init__(self, models: VisCoINModels, batch_size: int = 8,
+                 compute_dtype: str = "float32", device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("InferenceEngine(device='cuda'): no CUDA device is available; "
+                               "pass device='cpu' to run the plain versions on the CPU")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}")
+        self.batch_size = int(batch_size)
+        self.compute_dtype = compute_dtype
+        self.dtype = COMPUTE_DTYPES[compute_dtype]
+        self.resolution = models.gan.img_resolution
+        self.models = copy.deepcopy(models).to(device=self.device, dtype=self.dtype)
+        self.models.eval().requires_grad_(False)
+
+    def prepare_image(self, img_u8: np.ndarray) -> np.ndarray:
+        return prepare_image(img_u8, self.resolution)
+
+    # ------------------------------ device side ----------------------------- #
+
+    def _encode(self, chunk: np.ndarray):
+        images = torch.from_numpy(chunk).to(self.device)
+        x = device_preprocess(images).to(self.dtype)
+        m = self.models
+        logits, hidden = m.classify(x)
+        phi, phi_prime = m.extract_concepts(hidden)
+        return logits.float(), phi, phi_prime, m.explain(phi).float()
+
+    @torch.inference_mode()
+    def _classify(self, chunk: np.ndarray) -> dict:
+        logits, phi, _, expl_logits = self._encode(chunk)
+        out = {
+            "logits": logits,
+            "probas": torch.softmax(logits, dim=-1),
+            "expl_logits": expl_logits,
+            "expl_probas": torch.softmax(expl_logits, dim=-1),
+            "concepts": max_pool_concepts(phi).float(),
+        }
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    @torch.inference_mode()
+    def _reconstruct(self, chunk: np.ndarray) -> dict:
+        logits, phi, phi_prime, expl_logits = self._encode(chunk)
+        recon = self.models.reconstruct(phi, phi_prime, noise_mode="const")
+        # The generator reconstructs in ImageNet-normalized space; invert to
+        # display range and quantize on the device (3 bytes/px to the host).
+        img01 = denormalize(recon.float()).clamp(0.0, 1.0)
+        recon_u8 = torch.round(img01 * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
+        out = {"reconstruction_u8": recon_u8, "preds": logits.argmax(dim=-1),
+               "expl_preds": expl_logits.argmax(dim=-1)}
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    # ------------------------------- endpoints ------------------------------ #
+
+    def classify(self, images_u8: np.ndarray) -> dict:
+        """u8 batch -> classifier and explainer logits/probas, pooled concepts."""
+        return run_padded(self._classify, images_u8, self.batch_size)
+
+    def reconstruct(self, images_u8: np.ndarray) -> dict:
+        """u8 batch -> u8 reconstructions G(Psi(f(x))) and both predictions."""
+        return run_padded(self._reconstruct, images_u8, self.batch_size)
+
+    def explain(self, images_u8: np.ndarray) -> dict:
+        raise NotImplementedError(
+            "explain (GradCAM over Psi) is not ported yet: ROADMAP.md, queue 1, "
+            "'Analytics' (utils/gradcam.py)")
+
+    def amplify(self, image_u8: np.ndarray, selection, multipliers, seed: int = 0):
+        raise NotImplementedError(
+            "amplify is not ported yet: ROADMAP.md, queue 1, 'Eval on the main path' "
+            "(eval/viscoin.py::make_amplify_fns, amplify_concepts)")
+
+    def warmup(self):
+        """Run every endpoint once on a dummy batch."""
+        dummy = np.zeros((self.batch_size, self.resolution, self.resolution, 3), np.uint8)
+        self.classify(dummy)
+        self.reconstruct(dummy)
+        return self
