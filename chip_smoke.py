@@ -11,7 +11,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   2. build     nvcc builds every kernel of csrc/ in parallel;
   3. kernels   each kernel against its plain torch version on the card, at
                every shape the serving path gives it (fp32 and bf16) and on
-               the test configurations;
+               the test configurations: ragged tiles, 70000 planes, the
+               runtime-K instantiation (K = 2, 3, 5, 16), misaligned views;
+               bias_act bit-equal, upfirdn2d within 1e-5 (fp32) or 2e-2
+               (bf16) of the output's scale;
   4. slice     the flagship bundle (ResNet-50, 256 concepts, 200 classes,
                256² GeneratorAdapted, channel_base 16384) from a seed, served
                by InferenceEngine(device="cuda", batch_size=8): classify and
@@ -23,7 +26,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                reconstruct requests, /healthz and /v1/stats;
   7. timings   per kernel (CUDA events at the path's shapes, summed over one
                device batch) beside its plain version, a one-call PyTorch
-               yardstick where one exists, and its memory/compute bound; per
+               yardstick where one exists, and its memory/compute bound; for
+               the largest shapes the profiler's device time, GB/s and share
+               of the bound; the per-batch device sum by the profiler; each
+               wrapper's host time per call at its smallest path shape; per
                endpoint latency, img/s and peak memory, and a torch.profiler
                breakdown of reconstruct's device time;
   8. the ``{"kernels": [...]}`` line, then the device line, last.
@@ -150,7 +156,9 @@ class PathRecorder:
         orig_ba, orig_up = self._orig
 
         def rec_ba(x, b, **kw):
-            self.calls.append(("bias_act", tuple(x.shape), x.dtype, b is not None,
+            offset = x.data_ptr() % 16 // x.element_size()  # elements past 16-byte alignment
+            self.calls.append(("bias_act", tuple(x.shape), x.dtype,
+                               (None if b is None else b.dtype, offset),
                                tuple(sorted(kw.items()))))
             return orig_ba(x, b, **kw)
 
@@ -176,10 +184,14 @@ class PathRecorder:
 
 def make_inputs(call: tuple, gen: torch.Generator):
     op, shape, dtype, extra, kw = call
-    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
     if op == "bias_act":
-        b = torch.randn(shape[1], device="cuda", generator=gen) if extra else None
+        b_dtype, offset = extra  # x is a view `offset` elements into its storage
+        x = torch.randn(math.prod(shape) + offset, device="cuda", generator=gen).to(dtype)
+        x = x[offset:].view(shape)
+        b = None if b_dtype is None else \
+            torch.randn(shape[1], device="cuda", generator=gen).to(b_dtype)
         return x, b, dict(kw)
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
     return x, torch.tensor(extra), dict(kw)
 
 
@@ -221,25 +233,44 @@ def run_library(call, x, arg, kw):
 # --------------------------------- phase 3 ---------------------------------- #
 
 
+FIR_CASES = (  # the configurations of tests/test_torch_ops.py::UPFIRDN_CASES
+    dict(up=2, down=1, padding=(3, 2, 3, 2), gain=4.0),
+    dict(up=2, down=1, padding=(2, 1, 2, 1), gain=4.0),
+    dict(up=1, down=2, padding=(1, 1, 1, 1), gain=1.0),
+    dict(up=1, down=1, padding=2, gain=1.0),
+    dict(up=1, down=1, padding=(-1, 2, 0, -2), gain=1.0),
+    dict(up=1, down=1, padding=1, gain=4.0))
+RUNTIME_K = (  # tap counts other than 4: the runtime instantiation
+    ((1.0, 1.0), dict(up=2, down=1, padding=(1, 0, 1, 0), gain=1.0)),
+    ((1.0, 2.0, 1.0), dict(up=1, down=2, padding=1, gain=1.0)),
+    ((1.0, 4.0, 6.0, 4.0, 1.0), dict(up=2, down=1, padding=(2, 2, 2, 2), gain=4.0)),
+    (tuple(float(t) for t in range(1, 17)), dict(up=1, down=1, padding=(8, 7, 8, 7), gain=1.0)))
+
+
+def fir_call(shape, dtype, taps, flip=False, **kw) -> tuple:
+    taps = tuple(float(t) for t in setup_filter(list(taps)))
+    return ("upfirdn2d", shape, dtype, taps, tuple(sorted(dict(kw, flip_filter=flip).items())))
+
+
 def test_configurations() -> list[tuple]:
-    """The configurations of tests/test_torch_ops.py, as recorded calls."""
+    """The configurations of tests/test_torch_ops.py and tests/test_torch_gpu.py,
+    as recorded calls: the five Pallas test cases and the path's FIR on toy and
+    ragged tiles (3, 5, 37, 41), asymmetric taps, odd channels, 70000 planes,
+    the runtime-K instantiation (K = 2, 3, 5, 16), and bias_act with each
+    activation on aligned and misaligned views."""
     calls = []
     f = (1.0, 3.0, 3.0, 1.0)
-    taps = tuple(float(t) for t in setup_filter(f))
     for dtype in (torch.float32, torch.bfloat16):
-        for kw in (dict(up=2, down=1, padding=(3, 2, 3, 2), gain=4.0),
-                   dict(up=2, down=1, padding=(2, 1, 2, 1), gain=4.0),
-                   dict(up=1, down=2, padding=(1, 1, 1, 1), gain=1.0),
-                   dict(up=1, down=1, padding=2, gain=1.0),
-                   dict(up=1, down=1, padding=(-1, 2, 0, -2), gain=1.0)):
-            kw = dict(kw, flip_filter=False)
-            calls.append(("upfirdn2d", (2, 8, 8, 12), dtype, taps, tuple(sorted(kw.items()))))
-        asym = tuple(float(t) for t in setup_filter([1.0, 2.0, 4.0, 8.0]))
+        for kw in FIR_CASES:
+            calls.append(fir_call((2, 8, 8, 12), dtype, f, **kw))
+            calls.append(fir_call((3, 5, 37, 41), dtype, f, **kw))
         for flip in (False, True):
-            kw = dict(up=2, down=1, padding=(3, 2, 3, 2), gain=4.0, flip_filter=flip)
-            calls.append(("upfirdn2d", (1, 4, 10, 10), dtype, asym, tuple(sorted(kw.items()))))
-        kw = dict(up=2, down=1, padding=(2, 1, 2, 1), gain=4.0, flip_filter=False)
-        calls.append(("upfirdn2d", (1, 3, 6, 7), dtype, taps, tuple(sorted(kw.items()))))
+            calls.append(fir_call((1, 4, 10, 10), dtype, (1.0, 2.0, 4.0, 8.0), flip,
+                                  up=2, down=1, padding=(3, 2, 3, 2), gain=4.0))
+        calls.append(fir_call((1, 3, 6, 7), dtype, f, up=2, down=1, padding=(2, 1, 2, 1),
+                              gain=4.0))
+        for taps, kw in RUNTIME_K:
+            calls.append(fir_call((2, 6, 23, 19), dtype, taps, **kw))
         for act in ("linear", "relu", "lrelu"):
             for extra in (dict(), dict(gain=0.5, clamp=0.3), dict(alpha=0.05, clamp=-1.0)):
                 if "alpha" in extra and act != "lrelu":
@@ -249,7 +280,12 @@ def test_configurations() -> list[tuple]:
                           clamp=extra.get("clamp"))
                 if kw["clamp"] is not None and kw["clamp"] < 0:
                     kw["clamp"] = None
-                calls.append(("bias_act", (2, 5, 4, 3), dtype, True, tuple(sorted(kw.items()))))
+                kw = tuple(sorted(kw.items()))
+                calls.append(("bias_act", (2, 5, 4, 3), dtype, (torch.float32, 0), kw))
+                for offset in (0, 1):
+                    calls.append(("bias_act", (8, 64, 32, 32), dtype, (dtype, offset), kw))
+                    calls.append(("bias_act", (8, 512), dtype, (dtype, offset), kw))
+    calls.append(fir_call((1, 70000, 3, 3), torch.float32, f, up=1, down=1, padding=1, gain=1.0))
     return calls
 
 
@@ -265,6 +301,8 @@ def phase_kernels(path_calls: dict[str, dict[tuple, int]]) -> dict:
         want = run_plain(call, x, arg, kw)
         torch.cuda.synchronize()
         err, scale = max_err(got, want)
+        if call[0] == "bias_act":  # the plain version's fp32 operations, rounded once
+            assert err == 0.0, (call, err)
         assert err <= TOL[call[2]] * scale, (call, err, scale)
         w = worst[(call[0], call[2])]
         w[0], w[1] = max(w[0], err), max(w[1], err / scale)
@@ -273,7 +311,8 @@ def phase_kernels(path_calls: dict[str, dict[tuple, int]]) -> dict:
             lerr, lscale = max_err(lib(), want)
             assert lerr <= TOL[call[2]] * lscale, ("library", call, lerr, lscale)
     say("kernels", f"{len(checks)} kernel-vs-plain comparisons passed (the path's shapes in "
-        "fp32 and bf16, and the test configurations); max |kernel - plain| (relative to "
+        "fp32 and bf16, and the test configurations; bias_act bit-equal); max |kernel - "
+        "plain| (relative to "
         "max(1, max|plain|)): " + "; ".join(
             f"{name} {str(dt).removeprefix('torch.')} {a:.3e} ({r:.3e})"
             for (name, dt), (a, r) in worst.items())
@@ -468,18 +507,19 @@ def phase_server(models) -> dict:
 # --------------------------------- phase 7 ---------------------------------- #
 
 
-def bound_ms(call: tuple) -> tuple[float, float]:
+def bound_ms(call: tuple) -> tuple[float, float, int]:
     """The two floors of the least time the card could take, in ms: bytes
     moved once (input, bias, output) over HBM bandwidth, and the operations
-    on these inputs over the fp32 peak of the CUDA cores."""
+    on these inputs over the fp32 peak of the CUDA cores; and those bytes."""
     op, shape, dtype, extra, kw = call
     kw = dict(kw)
     esize = torch.tensor([], dtype=dtype).element_size()
     n_in = math.prod(shape)
     if op == "bias_act":
+        has_bias = extra[0] is not None
         n_out = n_in
-        nbytes = (n_in + n_out) * esize + (shape[1] * esize if extra else 0)
-        flops = n_in * (2 + (1 if extra else 0) + (2 if kw["clamp"] is not None else 0))
+        nbytes = (n_in + n_out) * esize + (shape[1] * esize if has_bias else 0)
+        flops = n_in * (2 + (1 if has_bias else 0) + (2 if kw["clamp"] is not None else 0))
     else:
         b, c, h, w = shape
         (upy, upx), (dny, dnx) = up._pair(kw["up"]), up._pair(kw["down"])
@@ -493,7 +533,52 @@ def bound_ms(call: tuple) -> tuple[float, float]:
         # sample: about k/up rows times k/up columns, plus the row sums.
         ty, tx = math.ceil(k / upy), math.ceil(k / upx)
         flops = n_out * 2 * (ty * tx + ty)
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3, nbytes
+
+
+KERNEL_SYMBOLS = {"bias_act": "bias_act_kernel", "upfirdn2d": "upfirdn2d_tiled"}
+TOP_SHAPES = {"upfirdn2d": 4, "bias_act": 3}  # per-shape rows reported in full
+
+
+def device_ms(fn, symbol: str | None, iters: int = 20, launches: int = 1) -> float | None:
+    """Device time per call of ``fn`` by torch.profiler: the kernels whose
+    name holds ``symbol`` (every kernel when None). Unlike back-to-back CUDA
+    events, this does not count the host's pace between launches. The
+    profiler's tracer can miss part of a window, so a session counts only if
+    it recorded all ``launches`` kernels of each call (at least one per call
+    when ``symbol`` is None); else it runs again, twice at most, and then
+    the time is None, "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and (symbol is None or symbol in e.key)]
+        if sum(e.count for e in mine) >= iters * launches:
+            return sum(e.self_device_time_total for e in mine) / 1e3 / iters
+    return None
+
+
+def fmt_ms(t: float | None) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time per call over ``calls`` back-to-back calls, then one
+    synchronise: at a tiny shape this is the wrapper's own cost."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def phase_timings(models, path_calls: dict[str, dict[tuple, int]], launches: dict,
@@ -502,19 +587,22 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], launches: dic
     torch.backends.cudnn.allow_tf32 = device["cudnn_tf32_default"]
     torch.backends.cuda.matmul.allow_tf32 = device["matmul_tf32_default"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    card = device["nvidia_smi"]
     kernels = {}
     detail = {}
     for dtype_name, calls in path_calls.items():
         sums = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, lib_all=True,
-                           bytes_ms=0.0, ops_ms=0.0) for name in KERNELS}
+                           bytes_ms=0.0, ops_ms=0.0, device_ms=0.0) for name in KERNELS}
         rows = []
+        inputs = {}
         for call, mult in calls.items():
             x, arg, kw = make_inputs(call, gen)
+            inputs[call] = (x, arg, kw)
             t_k = cuda_ms(lambda: run_kernel(call, x, arg, kw))
             t_p = cuda_ms(lambda: run_plain(call, x, arg, kw))
             lib = run_library(call, x, arg, kw)
             t_l = cuda_ms(lib) if lib is not None else None
-            t_bytes, t_ops = bound_ms(call)
+            t_bytes, t_ops, nbytes = bound_ms(call)
             t_b, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
             s = sums[call[0]]
             s["ms"] += mult * t_k
@@ -527,12 +615,41 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], launches: dic
             else:
                 s["library_ms"] += mult * t_l
             rows.append(dict(op=call[0], shape=list(call[1]), args=dict(call[4]), calls=mult,
-                             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by))
-        for r in sorted(rows, key=lambda r: -r["ms"] * r["calls"])[:8]:
-            say("timings", f"{dtype_name} {r['op']} {tuple(r['shape'])} x{r['calls']}: kernel "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-                f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
+                             bytes=nbytes, gb_per_s=nbytes / t_k / 1e6, share=t_b / t_k))
+        # The largest shapes of each kernel: device time by the profiler beside
+        # the events, for the kernel and for the one-call yardstick.
+        for name, top in TOP_SHAPES.items():
+            mine = sorted((r for r in rows if r["op"] == name), key=lambda r: -r["bytes"])
+            for r in mine[:top]:
+                call = next(c for c in calls if c[0] == name and list(c[1]) == r["shape"]
+                            and dict(c[4]) == r["args"])
+                x, arg, kw = inputs[call]
+                r["device_ms"] = device_ms(lambda: run_kernel(call, x, arg, kw),
+                                           KERNEL_SYMBOLS[name])
+                lib = run_library(call, x, arg, kw)
+                r["library_device_ms"] = device_ms(lib, None) if lib is not None else None
+                if r["device_ms"]:
+                    r["device_gb_per_s"] = r["bytes"] / r["device_ms"] / 1e6
+                    r["device_share"] = r["bound_ms"] / r["device_ms"]
+                    rate = (f"{r['device_gb_per_s']:.0f} GB/s, {100 * r['device_share']:.1f}% of "
+                            "the bound")
+                else:
+                    rate = "GB/s and share of the bound not measured"
+                say("timings", f"{dtype_name} {name} {tuple(r['shape'])} x{r['calls']}: kernel "
+                    f"{r['ms']:.4f} ms by events, {fmt_ms(r['device_ms'])} device (profiler); "
+                    f"{rate}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); plain "
+                    f"{r['plain_ms']:.4f} ms; "
+                    + (f"library {fmt_ms(r['library_ms'])} by events, "
+                       f"{fmt_ms(r['library_device_ms'])} device" if lib is not None
+                       else "library none (no one-call equivalent)") + f"; {card}")
+        # Per-batch device sum of each kernel: every path call, as often as
+        # one device batch makes it, under one profiler session.
+        for name in KERNELS:
+            mine = [(c, m) for c, m in calls.items() if c[0] == name]
+            sums[name]["device_ms"] = device_ms(
+                lambda: [run_kernel(c, *inputs[c]) for c, m in mine for _ in range(m)],
+                KERNEL_SYMBOLS[name], iters=5, launches=sum(m for _, m in mine))
         detail[dtype_name] = {"rows": rows, "sums": sums}
         if dtype_name == "float32":
             for name, s in sums.items():
@@ -544,10 +661,22 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], launches: dic
                     "library_ms": s["library_ms"] if s["lib_all"] else None}
         say("timings", f"{dtype_name} per device batch of {BATCH} (sum over the path's "
             "calls): " + "; ".join(
-                f"{n}: kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bound "
-                f"{s['bound_ms']:.4f} ms, library "
-                f"{format(s['library_ms'], '.4f') if s['lib_all'] else 'none'}"
-                for n, s in sums.items()))
+                f"{n}: kernel {s['ms']:.4f} ms by events, {fmt_ms(s['device_ms'])} device "
+                f"(profiler), plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms, "
+                f"library {format(s['library_ms'], '.4f') if s['lib_all'] else 'none'}"
+                for n, s in sums.items()) + f"; {card}")
+        # The wrappers' host cost at their smallest path shape.
+        host = {}
+        for name in KERNELS:
+            call = min((c for c in calls if c[0] == name), key=lambda c: math.prod(c[1]))
+            x, arg, kw = inputs[call]
+            host[name] = dict(shape=list(call[1]),
+                              us=host_us(lambda: run_kernel(call, x, arg, kw)))
+            say("timings", f"{dtype_name} {name} wrapper at {call[1]}: "
+                f"{host[name]['us']:.2f} us of host time per call (1000 calls, one "
+                f"synchronise); {card}")
+        detail[f"host_{dtype_name}"] = host
+        inputs.clear()  # so the endpoints' peak memory holds none of them
 
     endpoints = {}
     for dtype in ("float32", "bfloat16"):
@@ -571,26 +700,38 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], launches: dic
             say("timings", f"{name} {dtype} batch {BATCH}: median {med:.2f} ms "
                 f"(min {min(times):.2f}), {BATCH / med * 1e3:.1f} img/s, peak memory "
                 f"{peak:.0f} MiB")
-        detail[f"profile_{dtype}"] = profile_reconstruct(engine, imgs, dtype)
+        per_batch = {name: sum(m for c, m in path_calls[dtype].items() if c[0] == name)
+                     for name in KERNELS}
+        detail[f"profile_{dtype}"] = profile_reconstruct(engine, imgs, dtype, per_batch)
         del engine
         torch.cuda.empty_cache()
     return {"kernels": kernels, "endpoints": endpoints, "detail": detail}
 
 
-def profile_reconstruct(engine, imgs, dtype: str) -> dict:
+def profile_reconstruct(engine, imgs, dtype: str, per_batch: dict[str, int]) -> dict:
     """Device time by kernel over 5 reconstruct batches (kernel events only,
-    so an operator's time is not counted twice)."""
+    so an operator's time is not counted twice). A session counts only if it
+    recorded every launch of the port's kernels (``per_batch`` each batch):
+    the profiler's tracer can miss part of a window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            engine.reconstruct(imgs)
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                engine.reconstruct(imgs)
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if all(sum(e.count for e in events if KERNEL_SYMBOLS[name] in e.key) >= 5 * n
+               for name, n in per_batch.items()):
+            break
+    else:
+        say("profile", f"{dtype}: not measured (torch.profiler missed launches in three "
+            "sessions)")
+        return {"wall_ms": wall, "device_ms": None, "ours_ms": None, "top": []}
     total = sum(e.self_device_time_total for e in events) / 1e3
-    ours = {name: sum(e.self_device_time_total for e in events if f"{name}_kernel" in e.key)
+    ours = {name: sum(e.self_device_time_total for e in events if KERNEL_SYMBOLS[name] in e.key)
             / 1e3 for name in KERNELS}
     say("profile", f"{dtype}: 5 reconstruct batches: wall {wall:.1f} ms, device busy "
         f"{total:.1f} ms ({100 * total / wall:.1f}%), "

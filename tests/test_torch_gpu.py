@@ -10,6 +10,8 @@ that has a card but no JAX:
 Without a card every test skips (the check is made inside a fixture).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,17 @@ UPFIRDN_CASES = [
     dict(up=1, down=1, padding=2, gain=1.0),
     dict(up=1, down=1, padding=(-1, 2, 0, -2), gain=1.0),
     dict(up=1, down=1, padding=1, gain=4.0),
+]
+PATH_FIR = [  # the serving path's largest and smallest up-conv FIR, and a skip upsample
+    ((8, 64, 257, 257), dict(up=1, down=1, padding=1, gain=4.0)),
+    ((8, 512, 9, 9), dict(up=1, down=1, padding=1, gain=4.0)),
+    ((8, 3, 4, 4), dict(up=2, down=1, padding=(2, 1, 2, 1), gain=4.0)),
+]
+RUNTIME_K = [  # tap counts other than 4 take the runtime instantiation
+    ([1.0, 1.0], dict(up=2, padding=(1, 0, 1, 0))),
+    ([1.0, 2.0, 1.0], dict(down=2, padding=1)),
+    ([1.0, 4.0, 6.0, 4.0, 1.0], dict(up=2, padding=(2, 2, 2, 2), gain=4.0)),
+    (list(range(1, 17)), dict(padding=(8, 7, 8, 7))),
 ]
 
 
@@ -72,6 +85,82 @@ def test_upfirdn2d_kernel_matches_plain(cuda, dtype, case):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), upfirdn2d_plain(x.float(), f, **case),
                                rtol=tol, atol=tol)
+
+
+def assert_fir_close(got, want, dtype):
+    """fp32 within 1e-5, bf16 within 2e-2, of the output's scale."""
+    assert got.dtype == dtype and got.shape == want.shape
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = (1e-5 if dtype == torch.float32 else 2e-2) * scale
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape,case", PATH_FIR, ids=[str(s) for s, _ in PATH_FIR])
+def test_upfirdn2d_kernel_at_path_shapes(cuda, dtype, shape, case):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(shape, device=cuda, generator=g).to(dtype)
+    f = setup_filter(F1D)
+    assert_fir_close(upfirdn2d(x, f, **case), upfirdn2d_plain(x.float(), f, **case), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", UPFIRDN_CASES, ids=str)
+def test_upfirdn2d_kernel_ragged_tiles(cuda, dtype, case):
+    """(3, 5, 37, 41): tiles overhang the plane on both axes."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(3, 5, 37, 41, device=cuda, generator=g).to(dtype)
+    f = setup_filter(F1D)
+    assert_fir_close(upfirdn2d(x, f, **case), upfirdn2d_plain(x.float(), f, **case), dtype)
+
+
+def test_upfirdn2d_kernel_more_planes_than_grid_y(cuda):
+    """70000 planes: more than gridDim.y could hold."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(1, 70000, 3, 3, device=cuda, generator=g)
+    f = setup_filter(F1D)
+    assert_fir_close(upfirdn2d(x, f, padding=1), upfirdn2d_plain(x, f, padding=1),
+                     torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("taps,case", RUNTIME_K, ids=[f"k{len(t)}" for t, _ in RUNTIME_K])
+def test_upfirdn2d_kernel_runtime_taps(cuda, dtype, taps, case):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 6, 23, 19, device=cuda, generator=g).to(dtype)
+    f = setup_filter(taps)
+    assert_fir_close(upfirdn2d(x, f, **case), upfirdn2d_plain(x.float(), f, **case), dtype)
+
+
+def test_upfirdn2d_kernel_takes_a_misaligned_bf16_view(cuda):
+    """A bf16 view one element into its storage: rows start mid-word, and
+    the kernel stages them element by element."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shape = (2, 5, 37, 41)
+    base = torch.randn(math.prod(shape) + 1, device=cuda, generator=g).to(torch.bfloat16)
+    x = base[1:].view(shape)
+    assert x.data_ptr() % 4 != 0
+    f = setup_filter(F1D)
+    for case in UPFIRDN_CASES:
+        assert_fir_close(upfirdn2d(x, f, **case), upfirdn2d_plain(x.float(), f, **case),
+                         torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_bias_act_kernel_is_bit_equal_and_takes_misaligned_views(cuda, dtype):
+    """Bit-equal to the plain version on an aligned tensor and on a view one
+    element into its storage (not 16-byte aligned: the scalar variant)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    shape = (8, 64, 32, 32)
+    base = torch.randn(math.prod(shape) + 1, device=cuda, generator=g).to(dtype)
+    b = torch.randn(shape[1], device=cuda, generator=g).to(dtype)
+    for x in (base[:-1].view(shape), base[1:].view(shape)):
+        for kw in (dict(act="lrelu"), dict(act="linear", clamp=0.5), dict(act="relu", gain=1.5)):
+            assert torch.equal(bias_act(x, b, **kw), bias_act_plain(x, b, **kw))
+    feats = base[1:8 * 512 + 1].view(8, 512)
+    bf = torch.randn(513, device=cuda, generator=g).to(dtype)[1:]
+    assert torch.equal(bias_act(feats, bf, act="lrelu"), bias_act_plain(feats, bf, act="lrelu"))
 
 
 def test_upfirdn2d_asymmetric_taps_and_odd_channels(cuda):

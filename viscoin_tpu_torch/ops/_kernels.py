@@ -27,31 +27,25 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("bias_act", "upfirdn2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_c_void_p = ctypes.c_void_p
-_c_int = ctypes.c_int
-_c_ll = ctypes.c_longlong
-_c_float = ctypes.c_float
-_float_p = ctypes.POINTER(ctypes.c_float)
-
-# C signatures of the entry points (see the .cu sources).
+# C entry points (see the .cu sources): (x, [bias,] y, plan*, stream), every
+# argument a pointer; the plan is a ctypes structure built once per shape by
+# the op's wrapper.
 _SIGNATURES = {
-    "bias_act": ("viscoin_bias_act", [
-        _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_ll, _c_int,
-        _c_float, _c_float, _c_float, _c_int, _c_void_p]),
-    "upfirdn2d": ("viscoin_upfirdn2d", [
-        _c_void_p, _c_void_p, _c_ll, _c_int, _c_int, _c_int, _c_int,
-        _float_p, _c_int, _float_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-        _c_int, _c_int, _c_float, _c_int, _c_void_p]),
+    "bias_act": ("viscoin_bias_act", [ctypes.c_void_p] * 5),
+    "upfirdn2d": ("viscoin_upfirdn2d", [ctypes.c_void_p] * 4),
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 _launches = {name: 0 for name in KERNELS}
 build_log: dict[str, str] = {}
 
@@ -131,14 +125,25 @@ def build_all() -> float:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _libs[name] = lib
+            _fns[name] = fn
     return time.perf_counter() - t0
 
 
 def entry(name: str):
-    """The C entry point of kernel ``name``, building everything on first use."""
-    if name not in _libs:
+    """The C entry point of kernel ``name``, bound once; builds everything on
+    first use."""
+    fn = _fns.get(name)
+    if fn is None:
         build_all()
-    return getattr(_libs[name], _SIGNATURES[name][0])
+        fn = _fns[name]
+    return fn
+
+
+def current_stream(x) -> int:
+    """The raw handle of the current CUDA stream on ``x``'s device (what
+    ``torch.cuda.current_stream(x.device).cuda_stream`` gives, without building
+    a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def check(name: str, rc: int) -> None:

@@ -15,6 +15,8 @@ kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -95,6 +97,83 @@ def bias_act_plain(x, b=None, *, act="linear", alpha=None, gain=None, clamp=None
     return y.to(x.dtype)
 
 
+# --------------------------------------------------------------------------- #
+# The kernel's launch plan (csrc/bias_act.cu), decided here where the CPU     #
+# tests reach it.                                                             #
+# --------------------------------------------------------------------------- #
+
+BIAS_ACT_THREADS = 256  # threads per block (block_x * block_y)
+BIAS_ACT_ITEMS = 4      # kItems: vectors per thread along its row
+
+
+class _BiasActParams(ctypes.Structure):
+    """The kernel's by-value parameter block: ``Plan`` in csrc/bias_act.cu."""
+
+    _fields_ = [("rows", ctypes.c_longlong), ("row_len", ctypes.c_longlong),
+                ("blocks", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in (
+            "channels", "bias_mode", "vec", "block_x", "block_y", "chunks", "act", "is_bf16")
+    ] + [(name, ctypes.c_float) for name in ("alpha", "gain", "clamp")]
+
+
+class BiasActPlan(NamedTuple):
+    """How one bias_act call is cut into blocks. A row is one (n, c) plane
+    (``bias_mode`` 0, bias of row % C) or, where the plane is one element
+    ((B, F) features), one sample (``bias_mode`` 1, bias of the column)."""
+
+    rows: int
+    row_len: int
+    channels: int
+    bias_mode: int
+    vec: int        # elements per access: 16 bytes, or 1 (scalar variant)
+    block_x: int    # threads along a row
+    block_y: int    # rows per block
+    chunks: int     # chunks of block_x * BIAS_ACT_ITEMS vectors per row
+    blocks: int
+
+
+def bias_act_plan(shape: tuple[int, ...], is_bf16: bool, aligned: bool) -> BiasActPlan:
+    """Plan the kernel's launch for an input of ``shape`` (rank >= 2, bias
+    on dim 1). ``aligned``: every pointer the vector accesses touch is
+    16-byte aligned (:func:`vector_aligned`)."""
+    channels = shape[1]
+    hw = math.prod(shape[2:])
+    if hw == 1:
+        rows, row_len, mode = shape[0], channels, 1
+    else:
+        rows, row_len, mode = shape[0] * channels, hw, 0
+    width = 8 if is_bf16 else 4
+    vec = width if aligned and row_len % width == 0 else 1
+    nvec = row_len // vec
+    block_x = min(BIAS_ACT_THREADS, 1 << max(0, nvec - 1).bit_length())
+    block_y = BIAS_ACT_THREADS // block_x
+    chunks = -(-nvec // (block_x * BIAS_ACT_ITEMS))
+    blocks = -(-rows // block_y) * chunks
+    if row_len >= 2**31 or rows >= 2**31 or blocks >= 2**31:
+        raise ValueError(f"bias_act kernel: shape {shape} exceeds its 32-bit indexing")
+    return BiasActPlan(rows, row_len, channels, mode, vec, block_x, block_y, chunks, blocks)
+
+
+def vector_aligned(x: torch.Tensor, b: torch.Tensor | None, y: torch.Tensor) -> bool:
+    """Whether the 16-byte variant may touch these tensors: x and y always,
+    the bias where it is loaded as a vector (one value per column)."""
+    ptrs = x.data_ptr() | y.data_ptr()
+    if b is not None and math.prod(x.shape[2:]) == 1:
+        ptrs |= b.data_ptr()
+    return ptrs % 16 == 0
+
+
+@functools.lru_cache(maxsize=1024)
+def _params(shape, is_bf16, aligned, act, alpha, gain, clamp) -> _BiasActParams:
+    plan = bias_act_plan(shape, is_bf16, aligned)
+    return _BiasActParams(rows=plan.rows, row_len=plan.row_len, blocks=plan.blocks,
+                          channels=plan.channels, bias_mode=plan.bias_mode, vec=plan.vec,
+                          block_x=plan.block_x, block_y=plan.block_y, chunks=plan.chunks,
+                          act=KERNEL_ACTS[act], is_bf16=int(is_bf16),
+                          alpha=0.2 if alpha is None else alpha, gain=gain,
+                          clamp=-1.0 if clamp is None else clamp)
+
+
 def _bias_act_cuda(x, b, *, act, alpha, gain, clamp):
     if not x.is_cuda:
         raise ValueError(f"bias_act kernel takes CUDA tensors, got {x.device}")
@@ -102,18 +181,16 @@ def _bias_act_cuda(x, b, *, act, alpha, gain, clamp):
         raise TypeError(f"bias_act kernel takes float32 or bfloat16, got {x.dtype}")
     fn = _kernels.entry("bias_act")
     x = x.contiguous()
-    channels = x.shape[1]
-    hw = math.prod(x.shape[2:])
     if b is not None:
-        if b.shape != (channels,):
-            raise ValueError(f"bias shape {tuple(b.shape)} != ({channels},)")
-        b = b.to(device=x.device, dtype=x.dtype).contiguous()
+        if b.shape != (x.shape[1],):
+            raise ValueError(f"bias shape {tuple(b.shape)} != ({x.shape[1]},)")
+        if b.dtype != x.dtype or b.device != x.device or not b.is_contiguous():
+            b = b.to(device=x.device, dtype=x.dtype).contiguous()
     y = torch.empty_like(x)
+    params = _params(tuple(x.shape), x.dtype == torch.bfloat16, vector_aligned(x, b, y), act,
+                     None if alpha is None else float(alpha), float(gain),
+                     None if clamp is None else float(clamp))
     rc = fn(x.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-            x.numel(), channels, hw, KERNEL_ACTS[act],
-            0.2 if alpha is None else float(alpha), gain,
-            -1.0 if clamp is None else float(clamp),
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            ctypes.addressof(params), _kernels.current_stream(x))
     _kernels.check("bias_act", rc)
     return y

@@ -25,6 +25,10 @@ wrapper reads the taps on the host.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -130,33 +134,233 @@ def upfirdn2d_plain(x, f, *, up=1, down=1, padding=0, flip_filter=False, gain=1.
     return x[:, :, ::downy, ::downx]
 
 
+# --------------------------------------------------------------------------- #
+# The kernel's launch plan (csrc/upfirdn2d.cu). Everything the kernel's index #
+# arithmetic depends on is decided here, where the CPU tests reach it.        #
+# --------------------------------------------------------------------------- #
+
+RUN_ROWS = 8                # kRunRows: intermediate rows per thread (sliding pass)
+TILE_OUTPUTS = 2048         # outputs per block the tile and planes-per-block aim at
+SMEM_LIMIT = 232_448        # shared memory one block may use on Hopper (227 KB)
+VARIANTS = {(4, 1, 1): 0, (4, 2, 1): 1, (4, 1, 2): 2}  # (taps, up, down) -> instantiation
+RUNTIME_VARIANT = 3         # any other separable filter, pads and factors, per axis
+
+
+class _FirParams(ctypes.Structure):
+    """The kernel's by-value parameter block: ``Plan`` in csrc/upfirdn2d.cu."""
+
+    _fields_ = [("planes", ctypes.c_longlong), ("blocks", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in (
+            "h", "w", "ho", "wo", "upy", "upx", "downy", "downx", "pady0", "padx0",
+            "ky", "kx", "th", "tw", "lg_th", "lg_xruns", "ppb", "lh", "lw", "lwp",
+            "xs_floats", "tiles_x", "tiles_y", "smem_bytes", "variant", "is_bf16",
+            "vec_store")
+    ] + [("ty", ctypes.c_float * MAX_KERNEL_TAPS), ("tx", ctypes.c_float * MAX_KERNEL_TAPS)]
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _pow2_at_most(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(n: int) -> int:
+    return _ceil_div(n, 4) * 4
+
+
+@dataclass(frozen=True)
+class FirPlan:
+    """How one upfirdn2d call is cut into blocks. Axis pairs are (y, x).
+
+    One block computes the output tile ``(th, tw)`` of ``ppb`` planes. Its
+    input window along an axis starts at :meth:`window_origin` and spans
+    ``lh`` rows / ``lw`` columns; an output's taps start at the phase and
+    window offset :meth:`phase` gives. ``taps`` are the correlation taps
+    (already flipped for true convolution); the horizontal ones carry the
+    gain in the kernel."""
+
+    planes: int
+    h: int
+    w: int
+    ho: int
+    wo: int
+    up: tuple[int, int]
+    down: tuple[int, int]
+    pad0: tuple[int, int]
+    taps: tuple[float, ...]
+    gain: float
+    th: int
+    tw: int
+    vo: int          # outputs per thread along x (16 bytes)
+    ppb: int
+    lh: int
+    lw: int
+    lwp: int         # row stride of the intermediate buffer (floats)
+    xs_floats: int   # floats of the staged window, a multiple of 4
+    tiles_y: int
+    tiles_x: int
+    blocks: int
+    smem_bytes: int
+    variant: int
+    is_bf16: bool
+    vec_store: bool
+
+    @property
+    def sliding(self) -> bool:
+        """Taps, up and down fixed at compile time and up == 1: the kernel
+        slides register windows (8 rows; 16-byte runs of columns)."""
+        return self.variant != RUNTIME_VARIANT and self.up == (1, 1)
+
+    @property
+    def nv4(self) -> int:
+        """float4 loads per horizontal run in the sliding form."""
+        return _ceil_div((self.vo - 1) * self.down[1] + len(self.taps), 4)
+
+    def window_origin(self, axis: int, tile: int) -> int:
+        """First input row (axis 0) or column (axis 1) a tile reads: the tile's
+        first output mapped back through down, pad and up, rounded up to a
+        real (not zero-inserted) sample."""
+        t = self.th if axis == 0 else self.tw
+        return _ceil_div(tile * t * self.down[axis] - self.pad0[axis], self.up[axis])
+
+    def phase(self, axis: int, o: int, origin: int) -> tuple[int, int]:
+        """(j0, first): output ``o``'s first tap that meets a real sample and
+        the window offset of the sample it meets; taps j0, j0 + up, ... meet
+        samples first, first + 1, ..."""
+        vb = o * self.down[axis] - self.pad0[axis]
+        j0 = (-vb) % self.up[axis]
+        return j0, (vb + j0) // self.up[axis] - origin
+
+    @functools.cached_property
+    def params_ptr(self) -> int:
+        """Address of :attr:`params`, which the plan keeps alive."""
+        return ctypes.addressof(self.params)
+
+    @functools.cached_property
+    def params(self) -> _FirParams:
+        k = len(self.taps)
+        taps = np.zeros(MAX_KERNEL_TAPS, np.float32)
+        taps[:k] = self.taps
+        p = _FirParams(
+            planes=self.planes, blocks=self.blocks, h=self.h, w=self.w, ho=self.ho,
+            wo=self.wo, upy=self.up[0], upx=self.up[1], downy=self.down[0],
+            downx=self.down[1], pady0=self.pad0[0], padx0=self.pad0[1], ky=k, kx=k,
+            th=self.th, tw=self.tw, lg_th=self.th.bit_length() - 1,
+            lg_xruns=(self.tw // self.vo).bit_length() - 1, ppb=self.ppb, lh=self.lh,
+            lw=self.lw, lwp=self.lwp, xs_floats=self.xs_floats, tiles_x=self.tiles_x,
+            tiles_y=self.tiles_y, smem_bytes=self.smem_bytes, variant=self.variant,
+            is_bf16=int(self.is_bf16), vec_store=int(self.vec_store))
+        p.ty[:] = taps.tolist()
+        p.tx[:] = (taps * np.float32(self.gain)).tolist()
+        return p
+
+
+def fir_plan(shape: tuple[int, int, int, int], taps: tuple[float, ...], *, up=1, down=1,
+             padding=0, flip_filter: bool = False, gain: float = 1.0,
+             is_bf16: bool = False) -> FirPlan:
+    """Plan the kernel's launch for a (B, C, H, W) input and 1-D ``taps``
+    (as given to :func:`upfirdn2d`)."""
+    k = len(taps)
+    if not 1 <= k <= MAX_KERNEL_TAPS:
+        raise ValueError(f"upfirdn2d kernel takes 1 to {MAX_KERNEL_TAPS} taps, got {k}")
+    upy, upx = _pair(up)
+    downy, downx = _pair(down)
+    if min(upy, upx, downy, downx) < 1:
+        raise ValueError(f"up and down must be >= 1, got up={up}, down={down}")
+    padx0, padx1, pady0, pady1 = parse_padding(padding)
+    B, C, H, W = shape
+    ho = (H * upy + pady0 + pady1 - k) // downy + 1
+    wo = (W * upx + padx0 + padx1 - k) // downx + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"upfirdn2d output would be empty ({ho}x{wo})")
+    planes = B * C
+    vo = 8 if is_bf16 else 4
+    variant = VARIANTS.get((k, upy, downy), RUNTIME_VARIANT) \
+        if (upy, downy) == (upx, downx) else RUNTIME_VARIANT
+    sliding = variant != RUNTIME_VARIANT and upx == 1
+    min_th = RUN_ROWS if sliding else 1
+    tw = min(max(_pow2_at_least(wo), vo), max(vo, _pow2_at_most(128 // downx)))
+    th = min(max(_pow2_at_least(ho), min_th), max(min_th, _pow2_at_most(32 // downy)))
+    while True:
+        lh = _ceil_div((th - 1) * downy + k, upy)
+        lw = _ceil_div((tw - 1) * downx + k, upx)
+        nv4 = _ceil_div((vo - 1) * downx + k, 4)
+        lwp = _round4(max(lw, (tw - vo) * downx + 4 * nv4) if sliding else lw)
+        fit = (SMEM_LIMIT // 4 - 3) // (lh * lw + th * lwp)
+        if fit >= 1:
+            break
+        if th > min_th:
+            th //= 2
+        elif tw > vo:
+            tw //= 2
+        else:
+            raise ValueError(f"upfirdn2d kernel: a {k}-tap filter with up={up}, down={down} "
+                             f"needs more than {SMEM_LIMIT} bytes of shared memory per block")
+    ppb = max(1, min(planes, TILE_OUTPUTS // (th * tw), fit))
+    xs_floats = _round4(ppb * lh * lw)
+    tiles_y, tiles_x = _ceil_div(ho, th), _ceil_div(wo, tw)
+    blocks = _ceil_div(planes, ppb) * tiles_y * tiles_x
+    if blocks >= 2**31:
+        raise ValueError(f"upfirdn2d kernel: {blocks} blocks exceed the grid")
+    t = tuple(float(v) for v in (taps if flip_filter else taps[::-1]))
+    return FirPlan(planes=planes, h=H, w=W, ho=ho, wo=wo, up=(upy, upx), down=(downy, downx),
+                   pad0=(pady0, padx0), taps=t, gain=float(gain), th=th, tw=tw, vo=vo, ppb=ppb,
+                   lh=lh, lw=lw, lwp=lwp, xs_floats=xs_floats, tiles_y=tiles_y,
+                   tiles_x=tiles_x, blocks=blocks, smem_bytes=4 * (xs_floats + ppb * th * lwp),
+                   variant=variant, is_bf16=is_bf16, vec_store=wo % vo == 0)
+
+
+def _hashable(v):
+    return tuple(v) if isinstance(v, list) else v
+
+
+_CACHE_SIZE = 512
+_taps_cache: dict[int, tuple] = {}  # id(f) -> (f, f._version, taps); holding f pins its id
+_plans: dict[tuple, FirPlan] = {}   # the wrapper's arguments -> plan
+
+
+def _taps(f) -> tuple[float, ...]:
+    """The taps of ``f`` as a tuple, read once per filter tensor (the
+    generator's filters are module constants)."""
+    if not isinstance(f, torch.Tensor):
+        return tuple(float(t) for t in np.asarray(f, np.float32).reshape(-1))
+    hit = _taps_cache.get(id(f))
+    if hit is not None and hit[0] is f and hit[1] == f._version:
+        return hit[2]
+    taps = tuple(f.reshape(-1).tolist())
+    if len(_taps_cache) >= _CACHE_SIZE:
+        _taps_cache.clear()
+    _taps_cache[id(f)] = (f, f._version, taps)
+    return taps
+
+
 def _upfirdn2d_cuda(x, f, *, up, down, padding, flip_filter, gain):
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}")
     fn = _kernels.entry("upfirdn2d")
-    upy, upx = _pair(up)
-    downy, downx = _pair(down)
-    padx0, padx1, pady0, pady1 = parse_padding(padding)
-    taps = np.asarray(torch.as_tensor(f, dtype=torch.float32).cpu(), np.float32).reshape(-1)
-    if len(taps) > MAX_KERNEL_TAPS:
-        raise ValueError(f"upfirdn2d kernel takes at most {MAX_KERNEL_TAPS} taps, got {len(taps)}")
-    if not flip_filter:
-        taps = taps[::-1]
-    taps = np.ascontiguousarray(taps, np.float32)
-    B, C, H, W = x.shape
-    ho = (H * upy + pady0 + pady1 - len(taps)) // downy + 1
-    wo = (W * upx + padx0 + padx1 - len(taps)) // downx + 1
-    if ho < 1 or wo < 1:
-        raise ValueError(f"upfirdn2d output would be empty ({ho}x{wo})")
     x = x.contiguous()
-    y = torch.empty((B, C, ho, wo), device=x.device, dtype=x.dtype)
-    taps_p = taps.ctypes.data_as(_kernels._float_p)
-    rc = fn(x.data_ptr(), y.data_ptr(), B * C, H, W, ho, wo,
-            taps_p, len(taps), taps_p, len(taps), upy, upx, downy, downx,
-            pady0, padx0, float(gain), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    key = (x.shape, x.dtype, _taps(f), _hashable(up), _hashable(down), _hashable(padding),
+           bool(flip_filter), float(gain))
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) >= _CACHE_SIZE:
+            _plans.clear()
+        plan = _plans[key] = fir_plan(tuple(x.shape), key[2], up=key[3], down=key[4],
+                                      padding=key[5], flip_filter=key[6], gain=key[7],
+                                      is_bf16=x.dtype == torch.bfloat16)
+    y = torch.empty((x.shape[0], x.shape[1], plan.ho, plan.wo), device=x.device,
+                    dtype=x.dtype)
+    if y.data_ptr() % 16:
+        raise RuntimeError("upfirdn2d kernel: the output allocation is not 16-byte aligned")
+    rc = fn(x.data_ptr(), y.data_ptr(), plan.params_ptr, _kernels.current_stream(x))
     _kernels.check("upfirdn2d", rc)
     return y
 
