@@ -1,6 +1,8 @@
 """Card-only tests of the PyTorch port: each hand-written kernel against its
-plain torch version at the serving path's shapes, and a toy engine on the
-card against the same engine on the CPU.
+plain torch version at the serving path's shapes, the backward kernel and the
+upfirdn2d adjoint against theirs, a toy engine on the card against the same
+engine on the CPU, and a toy training step's gradients on the card against
+the same step on the CPU.
 
 This file imports torch and the port only (no JAX), so it runs on a machine
 that has a card but no JAX:
@@ -16,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from viscoin_tpu_torch.models.bundle import default_models
+from viscoin_tpu_torch.models.bundle import default_models, init_models
+from viscoin_tpu_torch.models.lpips import LPIPS
 from viscoin_tpu_torch.ops import _kernels, bias_act, setup_filter, upfirdn2d
-from viscoin_tpu_torch.ops.bias_act import bias_act_plain
+from viscoin_tpu_torch.ops.bias_act import _bias_act_grad_cuda, bias_act_grad_plain, bias_act_plain
 from viscoin_tpu_torch.ops.upfirdn2d import upfirdn2d_plain
 from viscoin_tpu_torch.serve.engine import InferenceEngine
+from viscoin_tpu_torch.train import viscoin as T
 
 pytestmark = pytest.mark.gpu
 
@@ -191,3 +195,143 @@ def test_toy_engine_on_the_card_matches_the_cpu(cuda):
     assert diff.max() <= 1
     got_c, want_c = card.classify(imgs), cpu.classify(imgs)
     np.testing.assert_allclose(got_c["logits"], want_c["logits"], rtol=1e-4, atol=1e-4)
+
+
+GRAD_KW = (dict(act="lrelu", alpha=None, gain=2.0 ** 0.5, clamp=None),
+           dict(act="linear", alpha=None, gain=1.0, clamp=0.5),
+           dict(act="relu", alpha=None, gain=1.5, clamp=None),
+           dict(act="lrelu", alpha=0.05, gain=1.0, clamp=1.0))
+
+
+def assert_db_close(got, want):
+    """db sums with fp32 atomics in another order than the plain version:
+    within 1e-5 of its scale, plus one rounding to the bias's type (two fp32
+    sums on either side of a bf16 rounding boundary round one unit apart)."""
+    assert got.dtype == want.dtype and got.device == want.device
+    scale = max(1.0, float(want.float().abs().max()))
+    slack = 1e-5 * scale + torch.finfo(want.dtype).eps * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= slack).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_bias_act_grad_kernel_matches_plain(cuda, dtype):
+    """Both row modes ((n, c) planes, (B, F) features) and a small plane,
+    aligned and misaligned (one element into storage) views, with and
+    without a bias: dx bit-equal to the plain version, db within 1e-5 of its
+    scale; inputs on a 1/8 grid so that the ties occur."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for shape in ((8, 64, 32, 32), (8, 512), (8, 512, 4, 4), (3, 5, 7, 3)):
+        n = math.prod(shape)
+        base = (torch.randint(-24, 25, (n + 1,), device=cuda, generator=g) / 8).to(dtype)
+        dy = torch.randn(shape, device=cuda, generator=g).to(dtype)
+        b = (torch.randint(-8, 9, (shape[1] + 1,), device=cuda, generator=g) / 8).to(dtype)
+        for x, bias in ((base[:-1].view(shape), b[:-1]), (base[1:].view(shape), b[1:]),
+                        (base[:-1].view(shape), None)):
+            for kw in GRAD_KW:
+                dx, db = _bias_act_grad_cuda(x, bias, dy, **kw)
+                want_dx, want_db = bias_act_grad_plain(x, bias, dy, **kw)
+                assert dx.dtype == dtype and torch.equal(dx, want_dx), (shape, kw)
+                if bias is None:
+                    assert db is None
+                else:
+                    assert_db_close(db, want_db)
+
+
+def test_bias_act_grad_kernel_takes_expanded_dy_and_counts(cuda):
+    """Through autograd: the gradient of a mean is a stride-0 tensor; an fp32
+    bias on a bf16 input gets an fp32 db; each backward is one launch of
+    bias_act_grad, and the output of the forward has a grad_fn."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, 64, 16, 16, device=cuda, generator=g).to(dtype).requires_grad_()
+        b = torch.randn(64, device=cuda, generator=g).requires_grad_()
+        _kernels.reset_launch_counts()
+        y = bias_act(x, b, act="lrelu", clamp=2.0)
+        assert y.grad_fn is not None
+        y.mean().backward()
+        counts = _kernels.launch_counts()
+        assert counts["bias_act"] == 1 and counts["bias_act_grad"] == 1, counts
+        dy = torch.full(x.shape, 1.0 / x.numel(), device=cuda).to(dtype)
+        want_dx, want_db = bias_act_grad_plain(x.detach(), b.detach(), dy, act="lrelu",
+                                               gain=2.0 ** 0.5, clamp=2.0)
+        assert torch.equal(x.grad, want_dx)
+        assert_db_close(b.grad, want_db)
+        # A second order needs dy to require grad (here dy = 2 y); with a
+        # constant dy the second derivative of these piecewise-linear
+        # activations is zero and autograd records nothing to raise on.
+        (gx,) = torch.autograd.grad(bias_act(x, b, act="lrelu").square().sum(), x,
+                                    create_graph=True)
+        with pytest.raises(RuntimeError, match="once_differentiable"):
+            gx.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape,case", PATH_FIR, ids=[str(s) for s, _ in PATH_FIR])
+def test_upfirdn2d_adjoint_on_the_card(cuda, dtype, shape, case):
+    """The backward of each path FIR is one more launch of the kernel (the
+    adjoint); it matches the CPU's adjoint (fp32 1e-5, bf16 2e-2 of the
+    scale) and <y, A x> = <A^T y, x> holds in fp32."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    f = setup_filter(F1D)
+    x = torch.randn(shape, device=cuda, generator=g).to(dtype).requires_grad_()
+    _kernels.reset_launch_counts()
+    y = upfirdn2d(x, f, **case)
+    assert y.grad_fn is not None
+    dy = torch.randn(y.shape, device=cuda, generator=g).to(dtype)
+    y.backward(dy)
+    assert _kernels.launch_counts()["upfirdn2d"] == 2
+    xc = x.detach().float().cpu().requires_grad_()
+    upfirdn2d(xc, f, **case).backward(dy.float().cpu())
+    assert_fir_close(x.grad, xc.grad.to(dtype).to(cuda) if dtype == torch.bfloat16
+                     else xc.grad.to(cuda), dtype)
+    if dtype == torch.float32:
+        lhs = float((y.detach().double() * dy.double()).sum())
+        rhs = float((x.detach().double() * x.grad.double()).sum())
+        assert abs(lhs - rhs) <= 1e-5 * max(1.0, abs(lhs))
+
+
+def _toy_training(device):
+    models = default_models(n_classes=4, n_concepts=8, img_resolution=64, channel_base=256,
+                            channel_max=16, device="cpu", seed=0)
+    with torch.no_grad():  # non-zero biases, so every bias path is exercised
+        for name, p in models.named_parameters():
+            if name.endswith("bias"):
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(1)))
+    lpips = init_models(LPIPS(device="cpu"), seed=2)
+    models, lpips = models.to(device), lpips.to(device)
+    cfg = T.VisCoINTrainingParams(batch_size=2, cd_fid_iteration=-1)
+    frozen = T.make_frozen(models, None, lpips)
+    state = T.create_train_state(models, cfg)
+    return models, cfg, frozen, state
+
+
+def test_toy_train_step_gradients_on_the_card_match_the_cpu(cuda):
+    """One fp32 loss on the card and on the CPU from the same weights, inputs
+    and dropout mask (noise strengths are zero at init): the totals within
+    1e-4 and every trainable gradient within 1e-3 of its leaf's max |grad|;
+    all three kernels launched, and every leaf has a non-zero gradient."""
+    rng = np.random.default_rng(0)
+    real = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(np.float32))
+    fake = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(np.float32))
+    labels = torch.tensor([1, 3])
+    mask = torch.from_numpy(rng.random((4, 8, 3, 3)) < 0.99)
+    out = {}
+    for device in ("cpu", "cuda"):
+        models, cfg, frozen, state = _toy_training(device)
+        loss_fn = T.make_loss_fn(models, None, None, cfg)
+        _kernels.reset_launch_counts()
+        total, _ = loss_fn(state.params, frozen, real.to(device), labels.to(device), 0,
+                           torch.Generator(device=device).manual_seed(0), fake.to(device),
+                           dropout_mask=mask.to(device))
+        total.backward()
+        counts = _kernels.launch_counts()
+        out[device] = (float(total), {(g, n): p.grad.cpu() for g, grp in state.params.items()
+                                      for n, p in grp.items()}, counts)
+    (t_cpu, g_cpu, c_cpu), (t_gpu, g_gpu, c_gpu) = out["cpu"], out["cuda"]
+    assert set(c_cpu.values()) == {0}
+    assert min(c_gpu.values()) > 0, c_gpu
+    assert abs(t_gpu - t_cpu) <= 1e-4 * abs(t_cpu)
+    for key, want in g_cpu.items():
+        scale = float(want.abs().max())
+        assert scale > 0 and float(g_gpu[key].abs().max()) > 0, key
+        assert float((g_gpu[key] - want).abs().max()) <= 1e-3 * scale, key

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from viscoin_tpu_torch.ops import _kernels, bias_act, setup_filter, upfirdn2d
+from viscoin_tpu_torch.ops.bias_act import _bias_act_grad_cuda
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "viscoin_tpu_torch"
@@ -26,7 +27,9 @@ def _modules() -> list[str]:
 
 def test_package_imports_neither_jax_nor_viscoin_tpu():
     mods = _modules()
-    assert len(mods) >= 20
+    assert len(mods) >= 25
+    assert {"viscoin_tpu_torch.train", "viscoin_tpu_torch.train.viscoin",
+            "viscoin_tpu_torch.train.losses", "viscoin_tpu_torch.models.lpips"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -72,7 +75,7 @@ def test_default_models_default_to_cuda(monkeypatch):
                        channel_max=8)
 
 
-@pytest.mark.parametrize("op", ["bias_act", "upfirdn2d"])
+@pytest.mark.parametrize("op", ["bias_act", "upfirdn2d", "bias_act_grad"])
 def test_wrappers_never_go_plain_off_the_cpu(monkeypatch, op):
     """A tensor that is not on the CPU reaches the kernel route and raises
     there; claiming CUDA is available does not make the wrapper fall back,
@@ -86,8 +89,17 @@ def test_wrappers_never_go_plain_off_the_cpu(monkeypatch, op):
 
     monkeypatch.setattr(_kernels, "entry", fake_entry)
     f = setup_filter([1.0, 3.0, 3.0, 1.0])
+
+    def grad(x):  # the backward kernel's wrapper; on the CPU, the Function's backward
+        if x.device.type != "cpu":
+            return _bias_act_grad_cuda(x, None, torch.ones_like(x), act="lrelu", alpha=None,
+                                       gain=1.0, clamp=None)[0]
+        x.requires_grad_(True)
+        return torch.autograd.grad(bias_act(x, act="lrelu").sum(), x)[0]
+
     call = {"bias_act": lambda x: bias_act(x, act="lrelu"),
-            "upfirdn2d": lambda x: upfirdn2d(x, f, up=2, padding=(2, 1, 2, 1))}[op]
+            "upfirdn2d": lambda x: upfirdn2d(x, f, up=2, padding=(2, 1, 2, 1)),
+            "bias_act_grad": grad}[op]
     with pytest.raises((ValueError, RuntimeError)):
         call(torch.empty(1, 2, 4, 4, device="meta"))
     assert call(torch.ones(1, 2, 4, 4)).device.type == "cpu"

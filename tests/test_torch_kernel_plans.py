@@ -10,6 +10,8 @@ CPU, as its own tests run it) and ``upfirdn2d_ref``, and against the plain
 ``bias_act``. At the serving path's full-width shapes only the geometry is
 checked: each output written exactly once, every window inside the padded
 input, shared memory within the card's 227 KB, and which instantiation runs.
+The backward's two FIR calls (the adjoints of the path's two) are walked and
+checked the same way.
 """
 
 import math
@@ -36,6 +38,7 @@ from viscoin_tpu_torch.ops.upfirdn2d import (
     SMEM_LIMIT,
     VARIANTS,
     _taps,
+    adjoint_padding,
     fir_plan,
     setup_filter,
 )
@@ -46,6 +49,11 @@ from viscoin_tpu_torch.ops.upfirdn2d import (
 RESOLUTIONS = (8, 16, 32, 64, 128, 256)
 CONV_FIR = dict(up=1, down=1, padding=1, gain=4.0)
 SKIP_UP = dict(up=2, down=1, padding=(2, 1, 2, 1), gain=4.0)
+# Their adjoints, which the backward runs on the output gradients
+# (8, C_r, r, r) and (8, 3, r, r): pad 2 back to r + 1, and a down-2 FIR
+# with pad 1 back to r / 2; both with the taps flipped.
+CONV_FIR_ADJ = dict(up=1, down=1, padding=(2, 2, 2, 2), gain=4.0, flip_filter=True)
+SKIP_UP_ADJ = dict(up=1, down=2, padding=(1, 1, 1, 1), gain=4.0, flip_filter=True)
 
 
 def channels(res: int) -> int:
@@ -55,6 +63,11 @@ def channels(res: int) -> int:
 def path_fir_calls():
     return ([((8, channels(r), r + 1, r + 1), CONV_FIR) for r in RESOLUTIONS]
             + [((8, 3, r // 2, r // 2), SKIP_UP) for r in RESOLUTIONS])
+
+
+def path_adjoint_calls():
+    return ([((8, channels(r), r, r), CONV_FIR_ADJ) for r in RESOLUTIONS]
+            + [((8, 3, r, r), SKIP_UP_ADJ) for r in RESOLUTIONS])
 
 
 def path_bias_act_shapes():
@@ -272,6 +285,71 @@ def test_fir_plan_geometry_at_path_shapes(shape, kw, is_bf16):
         assert (plan.ppb, plan.th, plan.tw) == (1, 32, min(plan.wo, 128))
     else:  # small planes: several whole planes per block
         assert (plan.th, plan.tw) == (plan.ho, max(plan.wo, plan.vo)) and plan.ppb > 1
+
+
+def ragged_axis_check(plan, axis: int, n_in: int, n_out: int, pad1: int):
+    """As :func:`axis_check` where the last tile overhangs the plane (its
+    window then reaches past the padded input, where staging reads zeros):
+    tiles cover [0, n_out) once, every read stays in the window, and the
+    reads of every real output stay inside the padded input."""
+    t = plan.th if axis == 0 else plan.tw
+    tiles = plan.tiles_y if axis == 0 else plan.tiles_x
+    size = plan.lh if axis == 0 else plan.lw
+    up, pad0 = plan.up[axis], plan.pad0[axis]
+    cover = np.zeros(n_out, np.int64)
+    for tile in range(tiles):
+        origin = plan.window_origin(axis, tile)
+        for o in range(tile * t, (tile + 1) * t):
+            j0, first = plan.phase(axis, o, origin)
+            ntaps = len(range(j0, len(plan.taps), up))
+            assert first >= 0 and first + ntaps <= size, (axis, tile, o)
+            if o < n_out:
+                cover[o] += 1
+                assert (origin + first) * up >= -pad0
+                assert (origin + first + ntaps - 1) * up <= n_in * up - 1 + pad1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("case,x_shape,down", [(CONV_FIR_ADJ, (2, 9, 9), 1),
+                                               (SKIP_UP_ADJ, (2, 4, 4), 2)],
+                         ids=["conv-fir-adjoint", "skip-up-adjoint"])
+def test_fir_plan_walk_adjoint_plans(case, x_shape, down):
+    """The backward's two FIR plans walked against the JAX kernel and oracle,
+    at a ragged (9 -> 10) and a small (8 -> 4) plane; their padding is what
+    adjoint_padding gives for the forward call."""
+    b, h, w = x_shape
+    fwd = CONV_FIR if down == 1 else SKIP_UP
+    y_hw = h if down == 1 else 2 * h
+    f = setup_filter(F1D)
+    p = adjoint_padding((b, 3, h + (down == 1), w + (down == 1)) if down == 1 else (b, 3, h, w),
+                        (b, 3, y_hw, y_hw), f, **{k: v for k, v in fwd.items() if k != "gain"})
+    assert p == case["padding"]
+    dy = np.random.default_rng(9).standard_normal((b, y_hw, y_hw, 3)).astype(np.float32)
+    plans = check_fir(dy, F1D, **case)
+    assert {pl.variant for pl in plans} == {VARIANTS[(4, 1, down)]}
+    assert all(pl.ho == (h + 1 if down == 1 else h) for pl in plans)
+
+
+@pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,kw", path_adjoint_calls(),
+                         ids=[f"{s}-down{kw['down']}" for s, kw in path_adjoint_calls()])
+def test_fir_adjoint_plan_geometry_at_path_shapes(shape, kw, is_bf16):
+    """The backward's FIR at every full-width path shape: the compiled
+    (4, 1, 1) or (4, 1, 2) instantiation, each output once, every read in
+    its window, shared memory within the card's limit."""
+    plan = fir_plan(shape, _taps(setup_filter(F1D)), is_bf16=is_bf16, **kw)
+    assert plan.variant == VARIANTS[(4, 1, kw["down"])] and plan.sliding
+    assert plan.smem_bytes <= SMEM_LIMIT
+    r = shape[2]
+    assert (plan.ho, plan.wo) == ((r + 1, r + 1) if kw["down"] == 1 else (r // 2, r // 2))
+    ragged_axis_check(plan, 0, shape[2], plan.ho, kw["padding"][3])
+    ragged_axis_check(plan, 1, shape[3], plan.wo, kw["padding"][1])
+    blocks = np.arange(plan.blocks)
+    tile_x, rest = blocks % plan.tiles_x, blocks // plan.tiles_x
+    tile_y, group = rest % plan.tiles_y, rest // plan.tiles_y
+    ids = (group * plan.tiles_y + tile_y) * plan.tiles_x + tile_x
+    assert np.array_equal(np.sort(ids), blocks)
+    assert group.max() == math.ceil(plan.planes / plan.ppb) - 1
 
 
 # --------------------------------- bias_act ---------------------------------- #

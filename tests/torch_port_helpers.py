@@ -43,14 +43,14 @@ def perturb(tree, seed: int):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
-def jax_bundle(normalized: bool = False, seed: int = 0) -> VisCoINModels:
+def jax_bundle(normalized: bool = False, seed: int = 0, img: int = IMG) -> VisCoINModels:
     m = VisCoINModels(
         classifier=Classifier(**CLASSIFIER),
         concept_extractor=ConceptExtractor(**PSI),
         explainer=Explainer(n_concepts=NK, n_classes=NC, normalized=normalized),
-        gan=GeneratorAdapted(**GAN),
+        gan=GeneratorAdapted(**dict(GAN, img_resolution=img)),
     )
-    m = init_models(m, jax.random.PRNGKey(seed), image_size=IMG)
+    m = init_models(m, jax.random.PRNGKey(seed), image_size=img)
     m.classifier_vars = perturb(m.classifier_vars, seed + 1)
     m.concept_params = perturb(m.concept_params, seed + 2)
     m.explainer_params = perturb(m.explainer_params, seed + 3)
@@ -64,13 +64,13 @@ def jax_variables(m: VisCoINModels) -> dict:
             "theta": m.explainer_params, "gan": m.gan_vars}
 
 
-def torch_bundle(m: VisCoINModels, normalized: bool = False) -> tb.VisCoINModels:
+def torch_bundle(m: VisCoINModels, normalized: bool = False, img: int = IMG) -> tb.VisCoINModels:
     models = tb.VisCoINModels(
         classifier=TClassifier(**CLASSIFIER, device="cpu"),
         concept_extractor=TConceptExtractor(**PSI, device="cpu"),
         explainer=TExplainer(n_concepts=NK, n_classes=NC, normalized=normalized,
                              device="cpu"),
-        gan=TGeneratorAdapted(**GAN, device="cpu"),
+        gan=TGeneratorAdapted(**dict(GAN, img_resolution=img), device="cpu"),
     )
     return load_jax_variables(models, jax_variables(m)).eval()
 

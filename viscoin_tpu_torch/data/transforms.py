@@ -46,10 +46,13 @@ def _stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return mean, std
 
 
-def device_preprocess(images_u8: torch.Tensor) -> torch.Tensor:
+def device_preprocess(images_u8: torch.Tensor, flip: torch.Tensor | None = None) -> torch.Tensor:
     """(B, H, W, 3) uint8, on the device that should compute -> normalized
-    float32 (B, 3, H, W). (The training flip arrives with the training slice.)"""
+    float32 (B, 3, H, W). ``flip``: optional (B,) bool, a horizontal flip per
+    sample (training)."""
     x = images_u8.permute(0, 3, 1, 2).float() / 255.0
+    if flip is not None:
+        x = torch.where(flip.to(x.device)[:, None, None, None], x.flip(3), x)
     mean, std = _stats(x)
     return (x - mean) / std
 

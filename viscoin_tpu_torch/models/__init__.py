@@ -1,1 +1,2 @@
-"""PyTorch modules: classifier f, Psi, Theta, the adapted generator, the bundle."""
+"""PyTorch modules: classifier f, Psi, Theta, the adapted and original generators,
+LPIPS, the bundle."""

@@ -1,13 +1,16 @@
 """StyleGAN2 synthesis and VisCoIN's adapted generator, NCHW / OIHW.
 
 Counterpart of ``viscoin_tpu/models/stylegan.py``, restricted to what
-:class:`GeneratorAdapted` needs to serve reconstructions: the equalized-LR
-:class:`FullyConnected`, :class:`SynthesisLayer`, :class:`ToRGBLayer`,
-:class:`SynthesisBlock` (skip architecture), :class:`SynthesisNetwork`, and
-:class:`MappingNetworkAdapted` (the per-style-layer MLPs stacked into two
-groups). Parameter names and shapes follow the JAX modules, with conv weights
-in OIHW and the 4x4 constant in CHW, so ``utils/weights.py`` carries the JAX
-variables across by name.
+VisCoIN's training step needs: the equalized-LR :class:`FullyConnected`,
+:class:`SynthesisLayer`, :class:`ToRGBLayer`, :class:`SynthesisBlock` (skip
+architecture), :class:`SynthesisNetwork`, :class:`MappingNetworkAdapted`
+(the per-style-layer MLPs stacked into two groups) and
+:class:`GeneratorAdapted`; the original :class:`MappingNetwork` and
+:class:`Generator` (the frozen source of synthetic training images); and
+:func:`adapted_state_from_gan`. ``Conv2dLayer`` and the discriminator belong
+to the GAN trainer and are not ported yet. Parameter names and shapes follow
+the JAX modules, with conv weights in OIHW and the 4x4 constant in CHW, so
+``utils/weights.py`` carries the JAX variables across by name.
 
 ``noise_mode`` is "random" (drawn from the ``generator`` argument, a
 ``torch.Generator`` on the activations' device), "const" (the ``noise_const``
@@ -287,6 +290,66 @@ class MappingNetworkAdapted(nn.Module):
         if self.g2:
             styles[:, self.g2] = self._run_group(x2, "g2", len(self.g2))
         return styles + self.fixed_w_avg[None, None, :]
+
+
+class MappingNetwork(nn.Module):
+    """The original generator's mapping MLP: normalize_2nd_moment, then
+    ``num_layers`` lrelu equalized-LR FCs (``fc0`` ...), broadcast to
+    ``num_ws`` style vectors; truncation towards the ``w_avg`` buffer."""
+
+    def __init__(self, *, z_dim: int = 512, w_dim: int = 512, num_ws: int = 14,
+                 num_layers: int = 8, lr_multiplier: float = 0.01, device="cuda"):
+        super().__init__()
+        self.z_dim, self.w_dim, self.num_ws, self.num_layers = z_dim, w_dim, num_ws, num_layers
+        features = [z_dim] + [w_dim] * num_layers
+        for i in range(num_layers):
+            self.add_module(f"fc{i}", FullyConnected(features[i], features[i + 1],
+                                                     activation="lrelu",
+                                                     lr_multiplier=lr_multiplier, device=device))
+        self.register_buffer("w_avg", torch.zeros(w_dim, device=device))
+
+    def forward(self, z: torch.Tensor, truncation_psi: float = 1.0,
+                truncation_cutoff: int | None = None) -> torch.Tensor:
+        x = normalize_2nd_moment(z.float())
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+        ws = x[:, None, :].expand(-1, self.num_ws, -1)
+        if truncation_psi != 1.0:
+            cut = self.num_ws if truncation_cutoff is None else truncation_cutoff
+            trunc = self.w_avg + truncation_psi * (ws[:, :cut] - self.w_avg)
+            ws = torch.cat([trunc, ws[:, cut:]], dim=1)
+        return ws
+
+
+class Generator(nn.Module):
+    """The original StyleGAN2 generator: :class:`MappingNetwork` +
+    :class:`SynthesisNetwork`; ``forward(z)`` -> (B, img_channels, H, W)."""
+
+    def __init__(self, *, z_dim: int = 512, w_dim: int = 512, img_resolution: int = 256,
+                 img_channels: int = 3, mapping_layers: int = 2, channel_base: int = 32768,
+                 channel_max: int = 512, conv_clamp: float | None = None, device="cuda"):
+        super().__init__()
+        self.z_dim = z_dim
+        self.synthesis = SynthesisNetwork(
+            w_dim=w_dim, img_resolution=img_resolution, img_channels=img_channels,
+            channel_base=channel_base, channel_max=channel_max, conv_clamp=conv_clamp,
+            device=device)
+        self.mapping = MappingNetwork(z_dim=z_dim, w_dim=w_dim, num_ws=self.synthesis.num_ws,
+                                      num_layers=mapping_layers, device=device)
+
+    def forward(self, z, truncation_psi: float = 1.0, truncation_cutoff: int | None = None,
+                noise_mode: str = "random", generator: torch.Generator | None = None):
+        ws = self.mapping(z, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
+        return self.synthesis(ws, noise_mode=noise_mode, generator=generator)
+
+
+def adapted_state_from_gan(adapted_state: dict, gan_state: dict) -> dict:
+    """A :class:`GeneratorAdapted` state dict whose synthesis weights and
+    noise buffers are those of a :class:`Generator`'s state dict (the
+    counterpart of the JAX package's ``adapted_params_from_gan``)."""
+    out = {k: v for k, v in adapted_state.items() if not k.startswith("synthesis.")}
+    out.update({k: v for k, v in gan_state.items() if k.startswith("synthesis.")})
+    return out
 
 
 class GeneratorAdapted(nn.Module):

@@ -8,9 +8,12 @@ that carries a hash of the source and flags, so an edited source is rebuilt
 and a stale library is never loaded. All sources build in parallel, one
 ``nvcc`` process each. A failed build raises; nothing falls back.
 
-Every wrapper calls :func:`count_launch` right after its kernel launched
-successfully, and nowhere else, so a run can show that the main path went
-through the kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+A source may hold several kernels, each with its own C entry point and its
+own launch count (``bias_act.cu`` holds ``bias_act`` and its backward,
+``bias_act_grad``). Every wrapper calls :func:`count_launch` right after its
+kernel launched successfully, and nowhere else, so a run can show that the
+main path went through the kernels (:func:`launch_counts`,
+:func:`reset_launch_counts`).
 
 Nothing here runs at import: this module imports on machines without
 ``nvcc`` or a card, where only the plain versions of the ops run.
@@ -31,17 +34,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("bias_act", "upfirdn2d")
+SOURCES = ("bias_act", "upfirdn2d")  # csrc/<source>.cu, one library each
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C entry points (see the .cu sources): (x, [bias,] y, plan*, stream), every
-# argument a pointer; the plan is a ctypes structure built once per shape by
-# the op's wrapper.
+# Kernel -> (source, C entry point, argument count). Every argument is a
+# pointer (see the .cu sources): tensors, then the plan (a ctypes structure
+# built once per shape by the op's wrapper), then the stream.
 _SIGNATURES = {
-    "bias_act": ("viscoin_bias_act", [ctypes.c_void_p] * 5),
-    "upfirdn2d": ("viscoin_upfirdn2d", [ctypes.c_void_p] * 4),
+    "bias_act": ("bias_act", "viscoin_bias_act", 5),            # x, b, y, plan, stream
+    "bias_act_grad": ("bias_act", "viscoin_bias_act_grad", 7),  # x, b, dy, dx, db, plan, stream
+    "upfirdn2d": ("upfirdn2d", "viscoin_upfirdn2d", 4),         # x, y, plan, stream
 }
+KERNELS = tuple(_SIGNATURES)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -95,11 +100,11 @@ def _start_build(name: str) -> tuple[Path, Path, subprocess.Popen | None]:
 
 
 def build_all() -> float:
-    """Build (in parallel) and load every kernel not loaded yet; returns
+    """Build (in parallel) and load every source not loaded yet; returns
     the wall seconds it took. Raises if any build or load fails."""
     t0 = time.perf_counter()
     with _lock:
-        todo = [n for n in KERNELS if n not in _libs]
+        todo = [n for n in SOURCES if n not in _libs]
         started = {}
         try:
             for name in todo:
@@ -118,14 +123,14 @@ def build_all() -> float:
                     os.replace(tmp, out)
             if errors:
                 raise RuntimeError("\n".join(errors))
-        for name, (out, _, _) in started.items():
-            lib = ctypes.CDLL(str(out))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
-            _fns[name] = fn
+        for source, (out, _, _) in started.items():
+            _libs[source] = ctypes.CDLL(str(out))
+        for name, (source, fn_name, nargs) in _SIGNATURES.items():
+            if name not in _fns and source in _libs:
+                fn = getattr(_libs[source], fn_name)
+                fn.argtypes = [ctypes.c_void_p] * nargs
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
     return time.perf_counter() - t0
 
 

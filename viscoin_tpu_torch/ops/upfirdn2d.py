@@ -17,6 +17,13 @@ A 2-D filter takes the plain path on every device, as the JAX package's
 kernel accepts only separable taps. There is no fallback: a CUDA tensor with
 separable taps launches the kernel or raises.
 
+The op is one ``torch.autograd.Function`` whose backward is its adjoint, an
+upfirdn2d of the gradient with up and down swapped, the filter flipped and
+the padding of :func:`adjoint_padding` (the rule of NVlabs'
+``Upfirdn2dCuda.backward``), through the same Function: the kernel on the
+card, every order of derivative, since the op is linear. The filter gets
+no gradient (it is a module constant).
+
 :func:`setup_filter` returns 1-D normalized taps for a 1-D input (the
 StyleGAN ``[1, 3, 3, 1]``), so the generator's resampling always reaches the
 kernel. Keep filters as host values (tuples, lists, CPU tensors): the kernel
@@ -102,12 +109,44 @@ def upfirdn2d(x: torch.Tensor, f, *, up=1, down=1, padding=0,
     """
     if x.ndim != 4:
         raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
-    separable = f is not None and torch.as_tensor(f).ndim == 1
-    if separable and x.device.type != "cpu":
-        return _upfirdn2d_cuda(x, f, up=up, down=down, padding=padding,
+    return _Upfirdn2d.apply(x, f, up, down, padding, flip_filter, gain)
+
+
+class _Upfirdn2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, f, up, down, padding, flip_filter, gain):
+        ctx.args = (f, up, down, padding, flip_filter, gain)
+        ctx.x_shape = x.shape
+        separable = f is not None and torch.as_tensor(f).ndim == 1
+        if separable and x.device.type != "cpu":
+            return _upfirdn2d_cuda(x, f, up=up, down=down, padding=padding,
+                                   flip_filter=flip_filter, gain=gain)
+        return upfirdn2d_plain(x, f, up=up, down=down, padding=padding,
                                flip_filter=flip_filter, gain=gain)
-    return upfirdn2d_plain(x, f, up=up, down=down, padding=padding,
-                           flip_filter=flip_filter, gain=gain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        f, up, down, padding, flip_filter, gain = ctx.args
+        dx = None
+        if ctx.needs_input_grad[0]:
+            p = adjoint_padding(ctx.x_shape, dy.shape, f, up=up, down=down, padding=padding)
+            dx = _Upfirdn2d.apply(dy, f, down, up, p, not flip_filter, gain)
+        return dx, None, None, None, None, None, None
+
+
+def adjoint_padding(x_shape, y_shape, f, *, up=1, down=1, padding=0) -> tuple[int, int, int, int]:
+    """The padding of the adjoint of ``upfirdn2d(x, f, up, down, padding)``
+    (x of ``x_shape``, output of ``y_shape``): the adjoint is upfirdn2d of the
+    output gradient with up and down swapped, the filter flipped, the same
+    gain, and this padding."""
+    upy, upx = _pair(up)
+    downy, downx = _pair(down)
+    padx0, _, pady0, _ = parse_padding(padding)
+    fh, fw = _filter_size(f)
+    ih, iw = x_shape[2], x_shape[3]
+    oh, ow = y_shape[2], y_shape[3]
+    return (fw - padx0 - 1, iw * upx - ow * downx + padx0 - upx + 1,
+            fh - pady0 - 1, ih * upy - oh * downy + pady0 - upy + 1)
 
 
 def upfirdn2d_plain(x, f, *, up=1, down=1, padding=0, flip_filter=False, gain=1.0):
