@@ -9,11 +9,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   1. device    nvidia-smi name and power limit, torch and CUDA versions, and
                the TF32 flags (both set off for the correctness phases);
   2. build     nvcc builds every kernel source of csrc/ in parallel (three
-               kernels: bias_act, its backward bias_act_grad, upfirdn2d);
+               kernels: bias_act, its backward bias_act_grad, upfirdn2d),
+               and g++ the native crop + resize of the data loader;
   3. kernels   each kernel against its plain torch version on the card, at
-               every shape the serving path and the training step give it
-               (fp32 and bf16; the step's backward kernels and adjoint FIRs
-               included) and on the test configurations: ragged tiles, 70000
+               every shape the serving path, the training step, a
+               faithfulness-probe chunk (N = 32) and an amplify call
+               (N = 2M + 1 = 9) give it (fp32 and bf16; the step's backward
+               kernels and adjoint FIRs included) and on the test
+               configurations: ragged tiles, 70000
                planes, the runtime-K instantiation (K = 2, 3, 5, 16),
                misaligned views; bias_act and bias_act_grad's dx bit-equal,
                db within 1e-5, upfirdn2d within 1e-5 (fp32) or 2e-2 (bf16)
@@ -37,15 +40,41 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                one step under torch.profiler;
   8. train-cpu one fp32 step's gradients at full width on 1 real + 1
                synthetic image, card against device="cpu";
-  9. timings   per kernel (CUDA events at the path's shapes, summed over one
-               reconstruct batch or one train step) beside its plain version,
+  9. loop      train_viscoin at flagship width on SyntheticDataset (200
+               classes, 256², 64 train and 20 test images, the native
+               loader with 8 threads, prefetch 1): run A (8 iterations,
+               eval, checkpoint and probe every 4), run B (checkpoint every
+               3, stopped after 4, resumed to 8: the same batches, step
+               seeds and sampler seeds as A; with cuDNN deterministic,
+               within RESUME_RTOL of A2, the unbroken run, in every loss
+               and every tensor of the training state saved at step 7
+               (parameters, both Adam states) and of the final parameters;
+               run B3, a resume that drops the Adam moments, must fail
+               that check by 100x), run C
+               (gradient accumulation 2: the parameters move after
+               micro-steps 2 and 4 only), run D (device busy
+               share over 3 profiled steps), run E (no cadences, 12
+               iterations, the command's defaults: prefetch 1, 8 loader
+               threads); exact launch counts of every
+               run; the bundle the loop wrote reloads and reconstructs
+               bit-equal to the bundle it saved; step, eval, checkpoint,
+               probe and loader times, peak memory;
+ 10. cli       `python -m viscoin_tpu_torch train viscoin` at 256² on the
+               card in a temporary directory (3 iterations, then a resume
+               to 4): the jsonl keys, the bundles and the training state;
+ 11. timings   per kernel (CUDA events at the path's shapes, summed over the
+               loop's run A as it made each call, and over one reconstruct
+               batch or one train step) beside its plain version,
                a one-call PyTorch yardstick where one exists, and its
                memory/compute bound; for the largest shapes the profiler's
                device time, GB/s and share of the bound; the per-path device
                sum by the profiler; each wrapper's host time per call at its
-               smallest path shape; per endpoint latency, img/s and peak
-               memory, and a torch.profiler breakdown of reconstruct;
- 10. the ``{"kernels": [...]}`` line, then the device line, last.
+               smallest path shape; the same for a probe chunk (N = 32) and
+               an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
+               and peak memory, and a torch.profiler breakdown of reconstruct;
+ 12. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+               library_ms all over the loop's run A (``ms_over`` says so),
+               then the device line, last.
 
 It imports torch and viscoin_tpu_torch only.
 """
@@ -58,19 +87,27 @@ import importlib
 import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from viscoin_tpu_torch import native
+from viscoin_tpu_torch.data.datasets import SyntheticDataset
+from viscoin_tpu_torch.data.loader import DataLoader
 from viscoin_tpu_torch.data.transforms import device_preprocess
+from viscoin_tpu_torch.eval import viscoin as TE
 from viscoin_tpu_torch.models.bundle import default_models, init_models
 from viscoin_tpu_torch.models.lpips import LPIPS
 from viscoin_tpu_torch.models.stylegan import Generator
@@ -79,6 +116,8 @@ from viscoin_tpu_torch.ops.upfirdn2d import setup_filter
 from viscoin_tpu_torch.serve.engine import InferenceEngine
 from viscoin_tpu_torch.serve.server import VisCoINServer
 from viscoin_tpu_torch.train import viscoin as T
+from viscoin_tpu_torch.utils import checkpoints as ckpt
+from viscoin_tpu_torch.utils.logging import configure_score_logging
 
 ba = importlib.import_module("viscoin_tpu_torch.ops.bias_act")
 up = importlib.import_module("viscoin_tpu_torch.ops.upfirdn2d")
@@ -164,6 +203,10 @@ def tf32_defaults(device: dict) -> None:
 
 
 def phase_build() -> float:
+    t0 = time.perf_counter()
+    assert native.available(), "the native crop + resize library did not build (g++)"
+    say("build", f"native transform.cpp built with g++ into {native.BUILD_DIR} in "
+        f"{time.perf_counter() - t0:.2f} s")
     seconds = _kernels.build_all()
     for name in _kernels.SOURCES:
         log = _kernels.build_log.get(name, "(already built)")
@@ -179,7 +222,7 @@ def phase_build() -> float:
 
 class PathRecorder:
     """Records every kernel-wrapper call (op, shape, dtype, arguments) while
-    the path runs, without changing what runs."""
+    the path runs, without changing what runs or synchronising the card."""
 
     def __init__(self):
         self.calls: list[tuple] = []
@@ -203,7 +246,7 @@ class PathRecorder:
             return orig_grad(x, b, dy, need_db=need_db, **kw)
 
         def rec_up(x, f, **kw):
-            taps = tuple(float(t) for t in torch.as_tensor(f).reshape(-1))
+            taps = up._taps(f)  # the wrapper's cached read: no device sync per call
             kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
             self.calls.append(("upfirdn2d", tuple(x.shape), x.dtype, taps,
                                tuple(sorted(kw.items()))))
@@ -275,6 +318,11 @@ def run_library(call, x, arg, kw):
     if (upy, upx, dny, dnx) == (1, 1, 1, 1) and px0 == px1 == py0 == py1 >= 0:
         w = (f2 * gain)[None, None].expand(c, 1, *f2.shape)
         return lambda: F.conv2d(x, w, padding=px0, groups=c)
+    if (upy, upx) == (1, 1) and min(px0, px1, py0, py1) >= 0:
+        # Down-sampling (the adjoint of an up-sampling FIR): a strided
+        # depthwise conv on the padded input.
+        w = (f2 * gain)[None, None].expand(c, 1, *f2.shape)
+        return lambda: F.conv2d(F.pad(x, (px0, px1, py0, py1)), w, stride=(dny, dnx), groups=c)
     k = f2.shape[0]
     if (upy, upx, dny, dnx) == (2, 2, 1, 1) and f2.shape == (4, 4) and \
             (px0, px1, py0, py1) == (2, 1, 2, 1):
@@ -283,6 +331,33 @@ def run_library(call, x, arg, kw):
         w = (f2.flip([0, 1]) * gain)[None, None].expand(c, 1, k, k)
         return lambda: F.conv_transpose2d(x, w, stride=2, padding=1, groups=c)
     return None
+
+
+def record_eval_calls(models) -> dict[str, dict[tuple, int]]:
+    """The kernel calls of the loop's new generator passes (fp32): one
+    faithfulness-probe chunk (N = 32) and one amplify call (4 multipliers:
+    N = 2M + 1 = 9); each is one generator pass, 42 bias_act and 12
+    upfirdn2d launches (held exactly)."""
+    per_pass = expected_launches(models)
+    out = {}
+    engine = InferenceEngine(models, batch_size=BATCH, device="cuda")
+    for label, fn in (
+            (f"per probe chunk of {TE.PROBE_BATCH}",
+             lambda: TE.faithfulness_probe(models, seeded_images(TE.PROBE_BATCH, SEED + 60))),
+            ("per amplify call (N = 9)",
+             lambda: engine.amplify(seeded_images(1, SEED + 61)[0], {"method": "top_k", "k": 16},
+                                    [0.0, 1.0, 2.0, 4.0]))):
+        _kernels.reset_launch_counts()
+        with PathRecorder() as rec:
+            fn()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        assert counts == per_pass, (label, counts, per_pass)
+        out[label] = rec.unique()
+        n = {c[1][0] for c in out[label] if c[0] == "upfirdn2d"}
+        assert n == {TE.PROBE_BATCH if "probe" in label else 9}, (label, n)
+    del engine
+    return out
 
 
 # --------------------------------- phase 3 ---------------------------------- #
@@ -344,12 +419,14 @@ def test_configurations() -> list[tuple]:
     return calls
 
 
-def phase_kernels(path_calls: dict[str, dict[tuple, int]]) -> dict:
-    """Returns, per kernel and dtype, the largest |kernel - plain| and that
-    error over max(1, max|plain|)."""
+def phase_kernels(path_calls: dict[str, dict[tuple, int]], configurations: bool = True) -> dict:
+    """Returns, per kernel and dtype, the largest |kernel - plain| (over the
+    calls of ``path_calls`` and, with ``configurations``, the test
+    configurations)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {(name, dt): [0.0, 0.0] for name in KERNELS for dt in TOL}
-    checks = [c for calls in path_calls.values() for c in calls] + test_configurations()
+    checks = [c for calls in path_calls.values() for c in calls]
+    checks += test_configurations() if configurations else []
     for call in checks:
         x, arg, kw = make_inputs(call, gen)
         got = run_kernel(call, x, arg, kw)
@@ -374,12 +451,11 @@ def phase_kernels(path_calls: dict[str, dict[tuple, int]]) -> dict:
         if lib is not None:  # the yardstick must compute the same function
             lerr, lscale = max_err(lib(), want)
             assert lerr <= TOL[call[2]] * lscale, ("library", call, lerr, lscale)
-    say("kernels", f"{len(checks)} kernel-vs-plain comparisons passed (the serving and "
-        "training paths' shapes in fp32 and bf16, and the test configurations; bias_act and "
+    say("kernels", f"{len(checks)} kernel-vs-plain comparisons passed (the shapes of "
+        f"{', '.join(path_calls)}"
+        + (", and the test configurations" if configurations else "") + "; bias_act and "
         f"bias_act_grad's dx bit-equal, db within {DB_TOL:g} of its scale and one rounding); "
-        "max |kernel - "
-        "plain| (relative to "
-        "max(1, max|plain|)): " + "; ".join(
+        "max |kernel - plain| (relative to max(1, max|plain|)): " + "; ".join(
             f"{name} {str(dt).removeprefix('torch.')} {a:.3e} ({r:.3e})"
             for (name, dt), (a, r) in worst.items())
         + f"; tolerance {TOL[torch.float32]:g} fp32, {TOL[torch.bfloat16]:g} bf16 (relative)")
@@ -852,6 +928,488 @@ def phase_train_cpu(models, lpips) -> dict:
             "grad_rel_err": ratios, "card_launches": c_card}
 
 
+# ------------------------------- the loop phase ------------------------------ #
+
+LOOP_N_TRAIN, LOOP_N_TEST = 64, 20  # 20 test images: the third eval batch is ragged
+EVAL_BATCHES = math.ceil(LOOP_N_TEST / BATCH)
+# Run B (resumed) against run A2 (unbroken): both make the same calls on the
+# same data and seeds. Under PyTorch's defaults (cuDNN's non-deterministic
+# weight gradients) two identical runs drift apart by 1e-3 of the loss within
+# 4 steps: Adam's first updates (lr * g / |g|) turn any gradient difference
+# near zero into a step of lr. So B and A2 run with cuDNN's deterministic
+# algorithms. What stays free is the order of atomic adds, as in the backward
+# of the concept extractor's adaptive 3x3 pooling (no deterministic CUDA
+# version): the losses came out bit-equal in every card run, but once the
+# state differed in the last bits of conv5 (the layer before that pooling)
+# and its Adam moments. So every loss and every tensor of the state and of
+# the final parameters is held within RESUME_RTOL of A2's, relative (||B -
+# A2|| / ||A2||, a tensor's deviation spread over its elements), far below
+# the drift of the default algorithms; run B3 plants a fault (the resume
+# drops the Adam moments) and must deviate by over 100x that.
+RESUME_RTOL = 1e-5
+WATCHED = (("explainer", "linear.weight"), ("mapping", "fixed_w_avg"),
+           ("concept_extractor", "conv5.weight"))
+
+
+class RecordingLoader(DataLoader):
+    """Remembers the dataset indices of every batch it builds, keyed by the
+    batch's per-image byte sums (what the step sees)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.made: dict[tuple, list[int]] = {}
+
+    def _make_batch(self, indices, pool):
+        images, labels = super()._make_batch(indices, pool)
+        key = tuple(images.reshape(len(images), -1).sum(1, dtype=np.int64).tolist())
+        self.made[key] = [int(i) for i in indices]
+        return images, labels
+
+
+class LoopRecorder:
+    """While a train_viscoin run is in flight, records per step its index,
+    the u8 batch's per-image sums, the step seed and loss (and, with
+    ``watch``, the watched parameters before and after); every sampler
+    seed group; the bundle each save_viscoin saved; the seconds of each
+    background install. Changes nothing that runs."""
+
+    def __init__(self, watch: bool = False):
+        self.watch = watch
+        self.steps: list[dict] = []
+        self.sampler: list[tuple] = []
+        self.saved: dict[str, dict] = {}
+        self.installs: list[float] = []
+        self._orig = (T.make_train_step, T.fake_sample_keys, ckpt.save_viscoin,
+                      ckpt._atomic_install)
+
+    def __enter__(self):
+        make, keys, save, install = self._orig
+        rec = self
+
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+
+            def wrapped(state, frozen, images_u8, labels, rng, fake=None, dropout_mask=None):
+                entry = {"i": state.step, "seed": rng.initial_seed(),
+                         "sums": images_u8.reshape(images_u8.shape[0], -1).sum(
+                             1, dtype=torch.int64)}
+                if rec.watch:
+                    entry["before"] = [state.params[g][n].detach().clone() for g, n in WATCHED]
+                state, metrics = step(state, frozen, images_u8, labels, rng, fake, dropout_mask)
+                entry["loss"] = metrics["total_loss"]
+                if rec.watch:
+                    entry["after"] = [state.params[g][n].detach().clone() for g, n in WATCHED]
+                rec.steps.append(entry)
+                return state, metrics
+
+            return wrapped
+
+        def sample_keys(seed, group_start, k):
+            out = keys(seed, group_start, k)
+            rec.sampler.append((group_start, tuple(out)))
+            return out
+
+        def save_viscoin(models, path, async_save=False):
+            rec.saved[path] = {k: v.detach().clone() for k, v in models.state_dict().items()}
+            return save(models, path, async_save=async_save)
+
+        def timed_install(path, write_fn):
+            t0 = time.perf_counter()
+            install(path, write_fn)
+            rec.installs.append(time.perf_counter() - t0)
+
+        T.make_train_step, T.fake_sample_keys = make_step, sample_keys
+        ckpt.save_viscoin, ckpt._atomic_install = save_viscoin, timed_install
+        return self
+
+    def __exit__(self, *exc):
+        T.make_train_step, T.fake_sample_keys, ckpt.save_viscoin, ckpt._atomic_install = \
+            self._orig
+
+    def batches(self, loader: RecordingLoader) -> list[list[int]]:
+        return [loader.made[tuple(e["sums"].tolist())] for e in self.steps]
+
+    def losses(self) -> list[float]:
+        return [float(e["loss"]) for e in self.steps]
+
+
+def loop_data():
+    return (SyntheticDataset(n=LOOP_N_TRAIN, n_classes=N_CLASSES, image_size=RES, mode="train"),
+            SyntheticDataset(n=LOOP_N_TEST, n_classes=N_CLASSES, image_size=RES, mode="test"))
+
+
+def loop_run(models, gen, lpips, ckpt_dir: str, log: str, cfg_kw: dict, run_kw: dict,
+             watch: bool = False, threads: int = 8):
+    """One train_viscoin call on a copy of the bundle, with the launch
+    counts reset just before and read just after; ``threads``: the train
+    loader's."""
+    m = copy.deepcopy(models)
+    train_ds, test_ds = loop_data()
+    tl = RecordingLoader(train_ds, BATCH, seed=SEED, num_threads=threads)
+    el = DataLoader(test_ds, BATCH, shuffle=False, num_threads=8)
+    assert tl.use_native and el.use_native, "the loaders must take the native path"
+    cfg = T.VisCoINTrainingParams(batch_size=BATCH, **cfg_kw)
+    configure_score_logging(os.path.join(ckpt_dir, log))
+    timings: dict = {}
+    torch.cuda.synchronize()
+    with LoopRecorder(watch) as rec:
+        _kernels.reset_launch_counts()
+        T.train_viscoin(m, gen, lpips, tl, el, cfg, seed=SEED, checkpoint_dir=ckpt_dir,
+                        timings=timings, device="cuda", **{"prefetch": 1, **run_kw})
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+    return m, rec, timings, counts, tl
+
+
+def loop_expected(step: dict, sampler: dict, per_pass: dict, steps: int, samplers: int,
+                  eval_batches: int, probe_chunks: int) -> dict[str, int]:
+    """Launches of a loop run: steps, sampler calls, and one generator pass
+    per eval batch and per probe chunk."""
+    passes = eval_batches + probe_chunks
+    return {k: step[k] * steps + sampler[k] * samplers + per_pass[k] * passes for k in step}
+
+
+def tree_deviation(a, b, path: str = "") -> dict[str, float]:
+    """||a - b|| / ||b|| for every floating tensor (Adam's step counts
+    included) of two nests of dicts, lists, tensors and scalars; everything
+    else (keys, lengths, shapes, dtypes, integer tensors, scalars) must be
+    equal."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (path, sorted(map(str, a)))
+        return {k: v for key in a for k, v in tree_deviation(a[key], b[key],
+                                                            f"{path}/{key}").items()}
+    if isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), path
+        return {k: v for i, (x, y) in enumerate(zip(a, b))
+                for k, v in tree_deviation(x, y, f"{path}/{i}").items()}
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and (a.dtype, a.shape) == (b.dtype, b.shape), path
+        if not a.is_floating_point():
+            assert torch.equal(a, b), (path, a, b)
+            return {}
+        a, b = a.detach().double(), b.detach().double()
+        return {path: float((a - b).norm() / b.norm().clamp_min(1e-30))}
+    assert a == b, (path, a, b)
+    return {}
+
+
+def resume_deviation(dir_x: str, m_x, loss_x: list, dir_ref: str, m_ref, loss_ref: list):
+    """A resumed run against the unbroken one: relative deviations of the
+    losses of steps 5-8, of every tensor of the training state both saved
+    at step 7 (parameters, both Adam states), and of the final trainable
+    parameters."""
+    states = [torch.load(os.path.join(d, "train_state", "train_state.pt"), weights_only=True)
+              for d in (dir_x, dir_ref)]
+    assert states[0]["step"] == states[1]["step"] == 7, [s["step"] for s in states]
+    trained = [{g: dict(mod.named_parameters()) for g, mod in T.trainable_modules(m).items()}
+               for m in (m_x, m_ref)]
+    return {"loss": {f"step {5 + i}": abs(x - r) / abs(r)
+                     for i, (x, r) in enumerate(zip(loss_x, loss_ref, strict=True))},
+            "state": tree_deviation(*states), "final": tree_deviation(*trained)}
+
+
+class AdamMomentsDropped:
+    """A planted fault for the resume check: the loop's restore_train_state
+    restores everything, then both Adams start again from empty states."""
+
+    def __enter__(self):
+        self._orig = restore = ckpt.restore_train_state
+
+        def faulty(state, *args, **kw):
+            state = restore(state, *args, **kw)
+            for opt in (state.opt, state.gan_opt):
+                opt.state.clear()
+            return state
+
+        ckpt.restore_train_state = faulty
+        return self
+
+    def __exit__(self, *exc):
+        ckpt.restore_train_state = self._orig
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def check_records(records: list[dict], n: int, label: str) -> None:
+    """Every record has the train_* and test_* keys of the JAX loop, finite
+    (FID is None: no detector)."""
+    train_keys = {f"train_{k}" for k in T.TRAIN_METRICS}
+    test_keys = {f"test_{k}" for k in ("acc_loss", "cr_loss", "of_loss", "lp_loss",
+                                       "rec_loss_l1", "rec_loss_l2", "preds_overlap",
+                                       "correct_preds", "correct_expl_preds", "fid_score")}
+    assert len(records) == n, (label, len(records), n)
+    for rec in records:
+        assert set(rec) == train_keys | test_keys, (label, sorted(rec))
+        assert rec["test_fid_score"] is None
+        assert all(math.isfinite(v) for k, v in rec.items() if k != "test_fid_score"), rec
+
+
+def busy_share(trace_path: str) -> tuple[float, float, int]:
+    """(kernel ms, window ms, kernels) of a torch.profiler chrome trace: the
+    device's kernel time over the span of everything the trace recorded."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e.get("dur", 0) for e in events)
+    return sum(e["dur"] for e in kernels) / 1e3, (end - start) / 1e3, len(kernels)
+
+
+def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
+    """train_viscoin at flagship width: runs A-D (see the module docstring)."""
+    step_want, sampler_want = expected_train_launches(models, 2)
+    per_pass = {k: v for k, v in expected_launches(models).items()}
+    tmp = tempfile.mkdtemp(prefix="viscoin_loop_")
+    out: dict = {}
+    try:
+        # The loader alone: 3 epochs (the first decodes and caches), img/s of the last 2.
+        train_ds, _ = loop_data()
+        loader = DataLoader(train_ds, BATCH, seed=SEED, num_threads=8)
+        list(loader)
+        t0 = time.perf_counter()
+        n_img = sum(b[0].shape[0] for _ in range(2) for b in loader)
+        out["loader_img_per_s"] = n_img / (time.perf_counter() - t0)
+
+        kw_a = dict(eval_every=4, checkpoint_every=4, faithfulness_every=4)
+        torch.cuda.reset_peak_memory_stats()
+        dir_a = os.path.join(tmp, "a")
+        os.makedirs(dir_a)
+        with PathRecorder() as path_a:  # every kernel call of run A, for phase 11
+            m_a, rec_a, tim_a, counts_a, tl_a = loop_run(models, gen, lpips, dir_a, "a.jsonl",
+                                                         dict(iterations=8), kw_a)
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        want_a = loop_expected(step_want, sampler_want, per_pass, 8, 4, 2 * EVAL_BATCHES, 1)
+        assert counts_a == want_a, ("run A launches", counts_a, want_a)
+        calls_a = path_a.unique()
+        recorded = {n: sum(m for c, m in calls_a.items() if c[0] == n) for n in KERNELS}
+        assert recorded == counts_a, ("run A's recorded calls", recorded, counts_a)
+        assert [tim_a.get(f"n_{p}") for p in ("steps", "eval", "checkpoint", "probe")] == \
+            [8, 2, 2, 1], tim_a
+        check_records(read_jsonl(os.path.join(dir_a, "a.jsonl")), 2, "run A")
+        assert {"viscoin0-2", "viscoin1-2", "train_state"} <= set(os.listdir(dir_a))
+
+        # The bundle the loop wrote at i = 4 against the bundle it saved then.
+        path = os.path.join(dir_a, "viscoin1-2")
+        saved = rec_a.saved[path]
+        reloaded = ckpt.load_viscoin_bundle(path, device="cuda")
+        rsd = reloaded.state_dict()
+        assert set(rsd) == set(saved)
+        assert all(torch.equal(rsd[k], saved[k]) for k in saved)
+        ref = copy.deepcopy(models)
+        ref.load_state_dict(saved)
+        imgs = seeded_images(BATCH, SEED + 70)
+        got = InferenceEngine(reloaded, batch_size=BATCH, device="cuda")
+        want = InferenceEngine(ref, batch_size=BATCH, device="cuda")
+        rec_got, rec_want = got.reconstruct(imgs), want.reconstruct(imgs)
+        for k in rec_want:
+            np.testing.assert_array_equal(rec_got[k], rec_want[k])
+        np.testing.assert_array_equal(got.classify(imgs)["logits"],
+                                      want.classify(imgs)["logits"])
+        say("loop", f"run A (8 iterations; eval, checkpoint, probe every 4): launches {counts_a} "
+            f"= expected {want_a} (8 steps, 4 sampler calls, {2 * EVAL_BATCHES} eval batches, "
+            "1 probe chunk); 2 jsonl records with every train_*/test_* key, finite; the bundle "
+            "viscoin1-2 reloads through load_viscoin_bundle with every tensor equal to the one "
+            "saved and reconstructs bit-equal (u8, predictions, logits) on the card")
+        del reloaded, ref, got, want, saved
+        rec_a.saved.clear()
+
+        # Run B: checkpoint every 3 (state saved after i = 3, step 4), stop
+        # after 4, resume to 8; and run A2, run A again unbroken. Both with
+        # cuDNN's deterministic algorithms (see WATCHED's comment). Each
+        # saves its training state last after i = 6 (step 7).
+        dir_b = os.path.join(tmp, "b")
+        os.makedirs(dir_b)
+        kw_b = dict(kw_a, checkpoint_every=3)
+        torch.backends.cudnn.deterministic = True
+        try:
+            _, rec_b1, _, counts_b1, tl_b1 = loop_run(models, gen, lpips, dir_b, "b1.jsonl",
+                                                      dict(iterations=8),
+                                                      dict(kw_b, stop_after=4))
+            state = torch.load(os.path.join(dir_b, "train_state", "train_state.pt"),
+                               weights_only=True)
+            assert state["step"] == 4, state["step"]
+            dir_b3 = os.path.join(tmp, "b3")  # B1's state, for the planted fault (run B3)
+            shutil.copytree(os.path.join(dir_b, "train_state"),
+                            os.path.join(dir_b3, "train_state"))
+            m_b, rec_b2, _, counts_b2, tl_b2 = loop_run(
+                models, gen, lpips, dir_b, "b2.jsonl", dict(iterations=8),
+                dict(kw_b, resume_from=os.path.join(dir_b, "train_state")))
+            dir_a2 = os.path.join(tmp, "a2")
+            os.makedirs(dir_a2)
+            m_a2, rec_a2, _, _, _ = loop_run(models, gen, lpips, dir_a2, "a2.jsonl",
+                                             dict(iterations=8), kw_b)
+            with AdamMomentsDropped():  # run B3: B2 with a planted fault
+                m_b3, rec_b3, _, _, _ = loop_run(
+                    models, gen, lpips, dir_b3, "b3.jsonl", dict(iterations=8),
+                    dict(kw_b, eval_every=0, faithfulness_every=0,
+                         resume_from=os.path.join(dir_b3, "train_state")))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        want_b1 = loop_expected(step_want, sampler_want, per_pass, 4, 2, EVAL_BATCHES, 0)
+        want_b2 = loop_expected(step_want, sampler_want, per_pass, 4, 2, EVAL_BATCHES, 1)
+        assert counts_b1 == want_b1, ("run B1 launches", counts_b1, want_b1)
+        assert counts_b2 == want_b2, ("run B2 launches", counts_b2, want_b2)
+        check_records(read_jsonl(os.path.join(dir_b, "b1.jsonl")), 1, "run B1")
+        check_records(read_jsonl(os.path.join(dir_b, "b2.jsonl")), 1, "run B2")
+        steps_b = rec_b1.steps + rec_b2.steps
+        assert [e["i"] for e in steps_b] == [e["i"] for e in rec_a.steps] == list(range(8))
+        batches_a = rec_a.batches(tl_a)
+        batches_b = rec_b1.batches(tl_b1) + rec_b2.batches(tl_b2)
+        assert batches_a == batches_b, (batches_a, batches_b)
+        assert [e["seed"] for e in rec_a.steps] == [e["seed"] for e in steps_b] \
+            == [e["seed"] for e in rec_a2.steps]
+        assert rec_a.sampler == rec_b1.sampler + rec_b2.sampler == rec_a2.sampler, \
+            "sampler seeds differ"
+        loss_a, loss_a2 = rec_a.losses(), rec_a2.losses()
+        loss_b = rec_b1.losses() + rec_b2.losses()
+        rel_default = [abs(a - b) / abs(a) for a, b in zip(loss_a, loss_a2)]
+        dev_b = resume_deviation(dir_b, m_b, loss_b[4:], dir_a2, m_a2, loss_a2[4:])
+        dev_b3 = resume_deviation(dir_b3, m_b3, rec_b3.losses(), dir_a2, m_a2, loss_a2[4:])
+        del m_b, m_a2, m_b3
+        out["resume"] = dict(loss_a=loss_a, loss_a2=loss_a2, loss_b=loss_b,
+                             rel_a_a2=rel_default, launches_b1=counts_b1, launches_b2=counts_b2,
+                             deviation_b=dev_b, deviation_planted_fault=dev_b3)
+        worst_b = {k: max(v.values(), default=0.0) for k, v in dev_b.items()}
+        worst_b3 = {k: max(v.values(), default=0.0) for k, v in dev_b3.items()}
+        differ = {k: sorted(p for p, d in v.items() if d > 0) for k, v in dev_b.items()}
+        say("loop", f"run B (checkpoint every 3, stopped after 4 at step 4, resumed to 8): "
+            f"launches {counts_b1} then {counts_b2} (expected {want_b1}, {want_b2}); the same "
+            f"8 batches of dataset indices, step seeds and {len(rec_a.sampler)} sampler seed "
+            f"groups as runs A and A2; cuDNN deterministic for B and A2: largest relative "
+            f"deviation from A2 " + ", ".join(f"{k} {v:.3e}" for k, v in worst_b.items())
+            + f" (tolerance {RESUME_RTOL:g}; tensors not bit-equal: {differ}); run B3 (the "
+            f"resume with the Adam moments dropped, a planted fault): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst_b3.items())
+            + f"; A (PyTorch's defaults) against A2, loss steps 5-8: max relative "
+            f"{max(rel_default[4:]):.3e} (not held); A2's losses "
+            + ", ".join(f"{v:.5f}" for v in loss_a2))
+        assert max(worst_b.values()) <= RESUME_RTOL, ("run B deviates from A2", dev_b)
+        assert min(worst_b3[k] for k in ("state", "final")) > 100 * RESUME_RTOL, \
+            ("the resume check would miss dropped Adam moments", dev_b3)
+
+        # Run C: gradient accumulation 2, 4 micro-steps.
+        dir_c = os.path.join(tmp, "c")
+        os.makedirs(dir_c)
+        _, rec_c, _, counts_c, _ = loop_run(
+            models, gen, lpips, dir_c, "c.jsonl", dict(iterations=4, gradient_accumulation=2),
+            dict(eval_every=0, checkpoint_every=0, faithfulness_every=0), watch=True)
+        moved = [not all(torch.equal(a, b) for a, b in zip(e["before"], e["after"]))
+                 for e in rec_c.steps]
+        assert moved == [False, True, False, True], moved
+        want_c = loop_expected(step_want, sampler_want, per_pass, 4, 2, 0, 0)
+        assert counts_c == want_c, ("run C launches", counts_c, want_c)
+        say("loop", f"run C (gradient accumulation 2, 4 micro-steps): the watched parameters "
+            f"({', '.join(f'{g}.{n}' for g, n in WATCHED)}) moved after micro-steps "
+            f"{[i + 1 for i, mv in enumerate(moved) if mv]} only; launches {counts_c} = expected")
+
+        # Run D: device busy share over 3 profiled steps (steps 2-4 of 5).
+        dir_d = os.path.join(tmp, "d")
+        os.makedirs(dir_d)
+        _, _, _, counts_d, _ = loop_run(
+            models, gen, lpips, dir_d, "d.jsonl", dict(iterations=5),
+            dict(eval_every=0, checkpoint_every=0, faithfulness_every=0,
+                 profile_dir=os.path.join(dir_d, "prof")))
+        assert counts_d == loop_expected(step_want, sampler_want, per_pass, 5, 3, 0, 0), counts_d
+        kernel_ms, window_ms, n_kernels = busy_share(os.path.join(dir_d, "prof", "trace.json"))
+        out["busy"] = dict(kernel_ms=kernel_ms, window_ms=window_ms, kernels=n_kernels)
+
+        # Run E: the loop without cadences, 12 iterations, with the command's
+        # defaults (prefetch 1, 8 loader threads): the steady state (steps
+        # 3-12) against the isolated step.
+        dir_e = os.path.join(tmp, "e")
+        os.makedirs(dir_e)
+        _, _, tim_e, counts_e, _ = loop_run(
+            models, gen, lpips, dir_e, "e.jsonl", dict(iterations=12),
+            dict(eval_every=0, checkpoint_every=0, faithfulness_every=0))
+        assert counts_e == loop_expected(step_want, sampler_want, per_pass, 12, 6, 0, 0)
+        steady = {"prefetch 1, 8 loader threads": [1e3 * t for t in tim_e["seconds"]["steps"][2:]]}
+        out["steady_step_ms"] = steady
+
+        sec = tim_a["seconds"]
+        step_ms = [1e3 * t for t in sec["steps"]]
+        out.update(
+            launches=counts_a, launches_per_step=step_want, launches_per_sampler=sampler_want,
+            launches_per_pass=per_pass, step_ms=step_ms,
+            step_ms_median=statistics.median(step_ms),
+            img_per_s=BATCH * len(step_ms) / sum(sec["steps"]),
+            eval_ms=[1e3 * t for t in sec["eval"]], checkpoint_ms=[1e3 * t for t in
+                                                                    sec["checkpoint"]],
+            probe_ms=[1e3 * t for t in sec["probe"]], install_ms=[1e3 * t for t in
+                                                                   rec_a.installs])
+        iso = isolated["float32"]
+        say("loop", f"run A step median {out['step_ms_median']:.2f} ms (all 8 steps, sampler "
+            f"calls included) against the isolated step {iso['step_ms_median']:.2f} ms, "
+            f"{iso['ms_per_step_with_sampling']:.2f} ms with its sampler share (train phase); "
+            f"steps {', '.join(f'{t:.1f}' for t in step_ms)} ms; {card}")
+        say("loop", f"run A real img/s over its 8 steps: {out['img_per_s']:.1f}; {card}")
+        for label, ms in steady.items():
+            say("loop", f"run E (no cadences, {label}): steps 3-12 median "
+                f"{statistics.median(ms):.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}; sampler "
+                f"calls included), {BATCH * len(ms) / sum(ms) * 1e3:.1f} real img/s; {card}")
+        out["calls_a"] = calls_a  # tuple keys: main() takes it out before any JSON
+        say("loop", f"eval: {', '.join(f'{t:.1f}' for t in out['eval_ms'])} ms per pass "
+            f"({EVAL_BATCHES} batches of {BATCH}, the last ragged: "
+            f"{statistics.mean(out['eval_ms']) / EVAL_BATCHES:.1f} ms per batch, mean); {card}")
+        say("loop", f"checkpoint (bundle + training state): synchronous host snapshot "
+            f"{', '.join(f'{t:.1f}' for t in out['checkpoint_ms'])} ms; background writes "
+            f"{', '.join(f'{t:.0f}' for t in out['install_ms'])} ms per install; {card}")
+        say("loop", f"faithfulness probe (20 images, one chunk of 32): "
+            f"{', '.join(f'{t:.1f}' for t in out['probe_ms'])} ms; {card}")
+        say("loop", f"loader alone (SyntheticDataset 256², native crop + resize, 8 threads): "
+            f"{out['loader_img_per_s']:.1f} img/s; {card}")
+        say("loop", f"peak memory over run A: {out['peak_mib']:.0f} MiB; {card}")
+        say("loop", f"run D, steps 2-4 under torch.profiler: device kernels {kernel_ms:.1f} ms "
+            f"of a {window_ms:.1f} ms window = {100 * kernel_ms / window_ms:.1f}% busy "
+            f"({n_kernels} kernels); {card}")
+        return out
+    finally:
+        ckpt.wait_for_saves()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cli(card: str) -> dict:
+    """`python -m viscoin_tpu_torch train viscoin` on the card at 256²,
+    16 synthetic images, in a temporary directory: 3 iterations (eval and
+    checkpoint every 2), then a resume to 4."""
+    tmp = tempfile.mkdtemp(prefix="viscoin_cli_")
+    repo = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items() if k != "VISCOIN_SYNTH_SIZE"}
+    env.update(VISCOIN_SYNTH_N="16", PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
+    base = [sys.executable, "-m", "viscoin_tpu_torch", "train", "viscoin", "--dataset",
+            "synthetic", "--batch-size", "8", "--eval-every", "2", "--checkpoint-every", "2",
+            "--faithfulness-every", "0"]
+    out = {}
+    try:
+        for label, extra in (("first", ["--epochs", "3"]),
+                             ("resume", ["--epochs", "4", "--resume", "train_state"])):
+            t0 = time.perf_counter()
+            res = subprocess.run(base + extra, cwd=tmp, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            out[f"{label}_s"] = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise RuntimeError(f"`train viscoin` ({label}) exited {res.returncode}:\n"
+                                   f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+            if label == "first":
+                check_records(read_jsonl(os.path.join(tmp, "viscoin_3.jsonl")), 2, "cli")
+                state = torch.load(os.path.join(tmp, "train_state", "train_state.pt"),
+                                   weights_only=True)
+                assert state["step"] == 3, state["step"]
+        files = set(os.listdir(tmp))
+        assert {"viscoin0-1", "viscoin1-1", "train_state", "viscoin_3.jsonl",
+                "viscoin_4.jsonl"} <= files, files
+        say("cli", f"python -m viscoin_tpu_torch train viscoin --dataset synthetic --epochs 3 "
+            f"--batch-size 8 --eval-every 2 --checkpoint-every 2 --faithfulness-every 0 at 256², "
+            f"16 images, on the card: {out['first_s']:.1f} s, 2 jsonl records with every "
+            f"train_*/test_* key, finite; bundles viscoin0-1 and viscoin1-1 and train_state "
+            f"(step 3); the resume with --epochs 4: {out['resume_s']:.1f} s; {card}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --------------------------------- phase 7 ---------------------------------- #
 
 
@@ -1054,41 +1612,45 @@ def time_path(label: str, calls: dict[tuple, int], gen: torch.Generator, card: s
     return sums, rows, host
 
 
-def kernel_entry(name: str, s: dict, launches: int) -> dict:
+def kernel_entry(name: str, s: dict, launches: int, over: str) -> dict:
     return {"name": name, "route": "cuda", **KERNELS[name], "launches": launches,
             "max_abs_err": None, "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
-            "library_ms": s["library_ms"] if s["lib_all"] else None}
+            "library_ms": s["library_ms"] if s["lib_all"] else None, "ms_over": over}
 
 
-def phase_timings(models, path_calls: dict[str, dict[tuple, int]], launches: dict,
-                  train_calls: dict[str, dict[tuple, int]], train_launches: dict,
+def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: dict,
+                  train_calls: dict[str, dict[tuple, int]], eval_calls: dict[str, dict],
                   device: dict) -> dict:
-    """Serving: per reconstruct device batch; training: per train step. The
-    kernels line carries bias_act and upfirdn2d per serving batch (as in
-    earlier slices) and bias_act_grad per fp32 train step."""
+    """The loop's run A (``loop_calls``: every call it made, as often as it
+    made it), which the kernels line carries: its launches and its times
+    describe the same work; then, for the per-shape rows, serving per
+    reconstruct device batch, training per train step, and the loop's new
+    shapes per probe chunk and per amplify call (fp32)."""
     tf32_defaults(device)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     card = device["nvidia_smi"]
-    kernels = {}
-    detail = {}
+    over = (f"the loop's run A: 8 fp32 train steps, 4 sampler calls, {2 * EVAL_BATCHES} eval "
+            f"batches of {BATCH}, 1 probe chunk of {TE.PROBE_BATCH}; every kernel call as often "
+            "as the run made it")
+    sums, rows, host = time_path("float32 loop run A (summed)", loop_calls, gen, card)
+    detail = {"loop_run_a": {"rows": rows, "sums": sums, "host": host}}
+    kernels = {name: kernel_entry(name, sums[name],
+                                  sum(m for c, m in loop_calls.items() if c[0] == name), over)
+               for name in KERNELS}
     for dtype_name, calls in path_calls.items():
         sums, rows, host = time_path(f"{dtype_name} per reconstruct batch of {BATCH}", calls,
                                      gen, card)
         detail[dtype_name] = {"rows": rows, "sums": sums}
         detail[f"host_{dtype_name}"] = host
-        if dtype_name == "float32":
-            for name, s in sums.items():
-                kernels[name] = kernel_entry(name, s, launches[name])
     for dtype_name, calls in train_calls.items():
         sums, rows, host = time_path(f"{dtype_name} per train step (batch {BATCH})", calls,
                                      gen, card)
         detail[f"train_{dtype_name}"] = {"rows": rows, "sums": sums, "host": host}
-        if dtype_name == "float32":
-            kernels["bias_act_grad"] = kernel_entry("bias_act_grad", sums["bias_act_grad"],
-                                                    train_launches["bias_act_grad"])
-    kernels = {name: kernels[name] for name in KERNELS}
+    for label, calls in eval_calls.items():
+        sums, rows, host = time_path(f"float32 {label}", calls, gen, card)
+        detail[label] = {"rows": rows, "sums": sums, "host": host}
 
     endpoints = {}
     for dtype in ("float32", "bfloat16"):
@@ -1183,14 +1745,18 @@ def main() -> int:
             engine.reconstruct(seeded_images(BATCH, SEED))
         path_calls[dtype] = rec.unique()
         del engine
+    eval_calls = record_eval_calls(models)
     gen, lpips = train_modules()
     runs = {dtype: TrainRun(models, gen, lpips, dtype) for dtype in ("float32", "bfloat16")}
     train_calls = {dtype: run.record() for dtype, run in runs.items()}
     say("kernels", "path shapes: " + ", ".join(
         f"{label} {d}: {len(c)} distinct calls, {sum(c.values())} launches"
         for label, calls in (("per reconstruct batch", path_calls),
-                             ("per train step", train_calls)) for d, c in calls.items()))
-    worst = phase_kernels({**path_calls, **{f"train_{d}": c for d, c in train_calls.items()}})
+                             ("per train step", train_calls)) for d, c in calls.items())
+        + "; " + ", ".join(f"{label} float32: {len(c)} distinct calls, {sum(c.values())} "
+                           "launches" for label, c in eval_calls.items()))
+    worst = phase_kernels({**path_calls, **{f"train_{d}": c for d, c in train_calls.items()},
+                           **eval_calls})
     record["adjoint"] = phase_adjoint(train_calls["float32"])
     record["slice"] = phase_slice(models)
     record["cpu"] = phase_cpu(models)
@@ -1200,8 +1766,20 @@ def main() -> int:
     del runs
     torch.cuda.empty_cache()
     record["train_cpu"] = phase_train_cpu(models, lpips)
-    timings = phase_timings(models, path_calls, record["slice"]["launches"], train_calls,
-                            train_launches, record["device"])
+    tf32_defaults(record["device"])
+    record["loop"] = phase_loop(models, gen, lpips, record["train"],
+                                record["device"]["nvidia_smi"])
+    torch.cuda.empty_cache()
+    record["cli"] = phase_cli(record["device"]["nvidia_smi"])
+    assert record["loop"]["launches_per_step"] == train_launches, train_launches
+    loop_calls = record["loop"].pop("calls_a")
+    # Run A's calls against the plain versions too (the kernels line's path).
+    worst_loop = phase_kernels({"the loop's run A": loop_calls}, configurations=False)
+    worst = {k: max(v, worst_loop[k]) for k, v in worst.items()}
+    timings = phase_timings(models, path_calls, loop_calls, train_calls, eval_calls,
+                            record["device"])
+    for name, entry in timings["kernels"].items():
+        assert entry["launches"] == record["loop"]["launches"][name], (name, entry)
     record["timings"] = timings
     record["max_abs_err"] = worst
     record["profiler_misses"] = PROFILER_MISSES

@@ -335,3 +335,80 @@ def test_toy_train_step_gradients_on_the_card_match_the_cpu(cuda):
         scale = float(want.abs().max())
         assert scale > 0 and float(g_gpu[key].abs().max()) > 0, key
         assert float((g_gpu[key] - want).abs().max()) <= 1e-3 * scale, key
+
+
+def _toy_loop_modules(device):
+    from viscoin_tpu_torch.models.stylegan import Generator
+
+    models = default_models(n_classes=4, n_concepts=8, img_resolution=32, channel_base=256,
+                            channel_max=16, device=device, seed=0)
+    gen = init_models(Generator(z_dim=16, w_dim=32, img_resolution=32, channel_base=256,
+                                channel_max=16, mapping_layers=2, device=device), 1)
+    return models, gen, init_models(LPIPS(device=device), 2)
+
+
+def test_toy_loop_on_the_card_resumes_and_counts(cuda, tmp_path):
+    """train_viscoin on the card (pinned batches, prefetch 1, the native
+    loader): 4 steps, eval and checkpoint every 2; then 2 + a resume to 4
+    takes the same batches and seeds and ends within 1e-3 of the unbroken
+    run's losses; the kernels were launched, forward and backward."""
+    from viscoin_tpu_torch.data.datasets import SyntheticDataset
+    from viscoin_tpu_torch.data.loader import DataLoader
+    from viscoin_tpu_torch.utils.logging import configure_score_logging
+
+    def run(directory, **kw):
+        models, gen, lpips = _toy_loop_modules(cuda)
+        tl = DataLoader(SyntheticDataset(n=6, n_classes=4, image_size=32), 2, seed=1)
+        el = DataLoader(SyntheticDataset(n=3, n_classes=4, image_size=32, mode="test"), 2,
+                        shuffle=False)
+        configure_score_logging(str(tmp_path / f"{directory}.jsonl"))
+        losses = []
+        orig = T.make_train_step
+
+        def make(*a, **k):
+            step = orig(*a, **k)
+
+            def wrapped(state, *args):
+                state, metrics = step(state, *args)
+                losses.append(float(metrics["total_loss"]))
+                return state, metrics
+
+            return wrapped
+
+        T.make_train_step = make
+        try:
+            T.train_viscoin(models, gen, lpips, tl, el, T.VisCoINTrainingParams(
+                iterations=4, batch_size=2, cd_fid_iteration=-1), checkpoint_dir=str(
+                tmp_path / directory), eval_every=2, checkpoint_every=2, faithfulness_every=2,
+                prefetch=1, **kw)
+        finally:
+            T.make_train_step = orig
+        return losses
+
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    _kernels.reset_launch_counts()
+    unbroken = run("a")
+    counts = _kernels.launch_counts()
+    assert min(counts.values()) > 0, counts
+    first = run("b", stop_after=3)
+    rest = run("b", resume_from=str(tmp_path / "b" / "train_state"))
+    assert len(first) == 3 and len(rest) == 1
+    np.testing.assert_allclose(first + rest, unbroken, rtol=1e-3)
+    with open(tmp_path / "a.jsonl") as f:
+        assert len(f.readlines()) == 2
+
+
+def test_toy_amplify_on_the_card_matches_the_cpu(cuda):
+    models, _, _ = _toy_loop_modules("cpu")
+    card = InferenceEngine(models, batch_size=2, device="cuda")
+    cpu = InferenceEngine(models, batch_size=2, device="cpu")
+    img = np.random.default_rng(1).integers(0, 256, (40, 40, 3), dtype=np.uint8)
+    _kernels.reset_launch_counts()
+    got = card.amplify(img, {"method": "top_k", "k": 3}, [0.0, 1.0, 2.0], seed=3)
+    assert _kernels.launch_counts()["upfirdn2d"] > 0
+    want = cpu.amplify(img, {"method": "top_k", "k": 3}, [0.0, 1.0, 2.0], seed=3)
+    np.testing.assert_allclose(got.best_concept_probas_best, want.best_concept_probas_best,
+                               atol=1e-4)
+    for g, w in zip(got.amplified_images, want.amplified_images):
+        np.testing.assert_allclose(g, w, atol=1e-3)

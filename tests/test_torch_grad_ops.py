@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_ops import F1D, UPFIRDN_CASES
+from torch_port_helpers import one_torch_thread  # noqa: F401 - an autouse fixture
 from viscoin_tpu.ops import conv2d_resample as jax_conv2d_resample
 from viscoin_tpu.ops import modulated_conv2d as jax_modulated_conv2d
 from viscoin_tpu.ops import setup_filter as jax_setup_filter

@@ -29,13 +29,17 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
     mods = _modules()
     assert len(mods) >= 25
     assert {"viscoin_tpu_torch.train", "viscoin_tpu_torch.train.viscoin",
-            "viscoin_tpu_torch.train.losses", "viscoin_tpu_torch.models.lpips"} <= set(mods)
+            "viscoin_tpu_torch.train.losses", "viscoin_tpu_torch.models.lpips",
+            "viscoin_tpu_torch.data.loader", "viscoin_tpu_torch.data.datasets",
+            "viscoin_tpu_torch.native", "viscoin_tpu_torch.eval.viscoin",
+            "viscoin_tpu_torch.utils.checkpoints", "viscoin_tpu_torch.cli.train",
+            "viscoin_tpu_torch.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "             or n == 'viscoin_tpu' or n.startswith('viscoin_tpu.'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'viscoin_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -52,7 +56,8 @@ def test_chip_smoke_imports_neither_jax_nor_viscoin_tpu():
         words = line.split()
         if words[:1] in (["import"], ["from"]):
             mod = words[1]
-            assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "viscoin_tpu"), line
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                             "viscoin_tpu"), line
 
 
 def test_engine_default_device_raises_without_cuda(monkeypatch):
@@ -61,6 +66,30 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(None)
+
+
+def test_train_command_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    """`python -m viscoin_tpu_torch train viscoin` runs on the card unless
+    given --device cpu; without a card it raises before building anything."""
+    from viscoin_tpu_torch.__main__ import build_parser, main
+
+    assert build_parser().parse_args(["train", "viscoin"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "viscoin", "--dataset", "synthetic"])
+
+
+def test_train_viscoin_and_bundle_loading_default_to_cuda(monkeypatch):
+    import inspect
+
+    from viscoin_tpu_torch.train.viscoin import train_viscoin
+    from viscoin_tpu_torch.utils.checkpoints import load_viscoin_bundle
+
+    assert inspect.signature(train_viscoin).parameters["device"].default == "cuda"
+    assert inspect.signature(load_viscoin_bundle).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_viscoin(None, None, None, None, None, None)
 
 
 def test_default_models_default_to_cuda(monkeypatch):

@@ -13,7 +13,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_helpers import NC, NK, jax_bundle, nchw, nhwc, perturb, torch_bundle
+from torch_port_helpers import NC, NK, jax_bundle, nchw, nhwc, perturb, run_once, torch_bundle
+from torch_port_helpers import one_torch_thread  # noqa: F401 - an autouse fixture
 from viscoin_tpu.models.stylegan import GeneratorAdapted
 from viscoin_tpu.models.stylegan import flatten_concepts as jax_flatten_concepts
 from viscoin_tpu_torch.models.stylegan import GeneratorAdapted as TGeneratorAdapted
@@ -92,8 +93,8 @@ def test_generator_adapted_matches_jax(res, channel_base, channel_max):
     rng = np.random.default_rng(res)
     phi = rng.standard_normal((2, 3, 3, 8)).astype(np.float32)
     phi_prime = rng.standard_normal((2, 72)).astype(np.float32)
-    v = perturb(g.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(phi),
-                       jnp.asarray(phi_prime), noise_mode="const"), res)
+    v = perturb(run_once(lambda k, a, b: g.init({"params": k}, a, b, noise_mode="const"),
+                         jax.random.PRNGKey(0), jnp.asarray(phi), jnp.asarray(phi_prime)), res)
     img, ws = g.apply(v, jnp.asarray(phi), jnp.asarray(phi_prime), return_latents=True,
                       noise_mode="const")
 

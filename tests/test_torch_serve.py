@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from torch_port_helpers import IMG, NC, NK, images, jax_bundle, torch_bundle
+from torch_port_helpers import one_torch_thread  # noqa: F401 - an autouse fixture
 from viscoin_tpu.serve.engine import InferenceEngine as JaxInferenceEngine
 from viscoin_tpu_torch.serve.engine import InferenceEngine, pad_to_multiple, run_padded
 from viscoin_tpu_torch.serve.server import VisCoINServer
@@ -92,8 +93,9 @@ def test_prepare_image_and_not_ported(pair):
     assert teng.prepare_image(images(1, size=50)[0]).shape == (IMG, IMG, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.explain(images(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.amplify(images(1)[0], {"method": "top_k", "k": 1}, [1.0])
+    # amplify is ported now (tests/test_torch_eval.py holds it to JAX's).
+    res = teng.amplify(images(1)[0], {"method": "top_k", "k": 1}, [1.0])
+    assert len(res.amplified_images) == 1 and res.amplified_images[0].shape == (IMG, IMG, 3)
 
 
 def test_bfloat16_engine_runs(pair):

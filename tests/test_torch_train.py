@@ -22,7 +22,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_helpers import NC, NK, jax_bundle, nchw, nhwc, perturb, torch_bundle
+from torch_port_helpers import NC, NK, jax_bundle, nchw, nhwc, perturb, run_once, torch_bundle
+from torch_port_helpers import one_torch_thread  # noqa: F401 - an autouse fixture
 from viscoin_tpu.data.transforms import device_preprocess as jax_device_preprocess
 from viscoin_tpu.models.explainer import Explainer
 from viscoin_tpu.models.lpips import LPIPS
@@ -76,8 +77,8 @@ def jax_generator(seed: int = 0):
     calls are jitted: one compile is cheaper than op-by-op dispatch)."""
     g = Generator(mapping_layers=2, **GEN)
     z = np.random.default_rng(seed).standard_normal((2, 16)).astype(np.float32)
-    v = jax.jit(lambda k, z: g.init({"params": k}, z, noise_mode="const"))(
-        jax.random.PRNGKey(seed), jnp.asarray(z))
+    v = run_once(lambda k, z: g.init({"params": k}, z, noise_mode="const"),
+                 jax.random.PRNGKey(seed), jnp.asarray(z))
     return g, perturb(v, seed + 1), z
 
 
@@ -120,9 +121,9 @@ def test_adapted_state_from_gan_matches_jax(jax_generator):
                                                             "channel_base", "channel_max")})
     rng = np.random.default_rng(5)
     phi, phi_prime = rng.standard_normal((1, 3, 3, 4)), rng.standard_normal((1, 36))
-    va = perturb(jax.jit(lambda k, a, b: ga.init({"params": k}, a, b, noise_mode="const"))(
-        jax.random.PRNGKey(5), jnp.asarray(phi, jnp.float32),
-        jnp.asarray(phi_prime, jnp.float32)), 6)
+    va = perturb(run_once(lambda k, a, b: ga.init({"params": k}, a, b, noise_mode="const"),
+                          jax.random.PRNGKey(5), jnp.asarray(phi, jnp.float32),
+                          jnp.asarray(phi_prime, jnp.float32)), 6)
     want = tree_to_state_dict(adapted_params_from_gan(va, v))
     got = adapted_state_from_gan(tree_to_state_dict(va), tree_to_state_dict(v))
     assert sorted(got) == sorted(want)
@@ -137,7 +138,7 @@ def test_adapted_state_from_gan_matches_jax(jax_generator):
 def lpips_params():
     """Perturbed JAX LPIPS params (their shapes do not depend on the input size)."""
     x = jnp.zeros((1, 16, 16, 3))
-    return perturb(jax.jit(LPIPS().init)(jax.random.PRNGKey(7), x, x)["params"], 8)
+    return perturb(run_once(LPIPS().init, jax.random.PRNGKey(7), x, x)["params"], 8)
 
 
 def test_lpips_matches_jax(lpips_params):
@@ -336,8 +337,11 @@ def test_adam_matches_optax_over_three_steps():
         for n, p in grp.items():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[g][n]),
                                        rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="gradient_accumulation"):
-        T.make_optimizers(T.VisCoINTrainingParams(gradient_accumulation=2), params)
+    # Gradient accumulation is ported (tests/test_torch_loop.py holds it to
+    # optax.MultiSteps); a count below 1 is refused.
+    T.make_optimizers(T.VisCoINTrainingParams(gradient_accumulation=2), params)
+    with pytest.raises(ValueError, match="gradient_accumulation"):
+        T.make_optimizers(T.VisCoINTrainingParams(gradient_accumulation=0), params)
 
 
 # ---------------------------------- the step --------------------------------- #

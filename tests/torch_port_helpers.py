@@ -5,6 +5,7 @@ and BN statistics at 0 or identity, which would hide layout errors), and the
 same bundle in the port with the variables carried across."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -30,6 +31,17 @@ PSI = dict(n_concepts=NK, latent_channels=8, input_channels1=16, input_channels2
 GAN = dict(z_dim=NK, w_dim=32, img_resolution=IMG, channel_base=256, channel_max=16)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Import into a test module to run its torch work on one intra-op
+    thread: toy widths gain nothing from more, and the suite runs several
+    test processes at once, whose thread pools would contend for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def perturb(tree, seed: int):
     """Every float leaf + 0.1 * N(0, 1); BN variances drawn from U(0.5, 1.5)."""
     rng = np.random.default_rng(seed)
@@ -43,6 +55,21 @@ def perturb(tree, seed: int):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
+def run_once(fn, *args):
+    """``fn(*args)`` jitted and compiled without XLA's backend optimisations:
+    for programs that run once, such as initialisers, whose full compile is
+    most of a test module's set-up."""
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
+
+
+def _init(models: VisCoINModels, rng, image_size: int):
+    """The variables ``viscoin_tpu.models.bundle.init_models`` draws: its
+    own jitted program, which tracing inlines here."""
+    m = init_models(VisCoINModels(models.classifier, models.concept_extractor, models.explainer,
+                                  models.gan), rng, image_size=image_size)
+    return m.classifier_vars, m.concept_params, m.explainer_params, m.gan_vars
+
+
 def jax_bundle(normalized: bool = False, seed: int = 0, img: int = IMG) -> VisCoINModels:
     m = VisCoINModels(
         classifier=Classifier(**CLASSIFIER),
@@ -50,7 +77,8 @@ def jax_bundle(normalized: bool = False, seed: int = 0, img: int = IMG) -> VisCo
         explainer=Explainer(n_concepts=NK, n_classes=NC, normalized=normalized),
         gan=GeneratorAdapted(**dict(GAN, img_resolution=img)),
     )
-    m = init_models(m, jax.random.PRNGKey(seed), image_size=img)
+    (m.classifier_vars, m.concept_params, m.explainer_params,
+     m.gan_vars) = run_once(lambda key: _init(m, key, img), jax.random.PRNGKey(seed))
     m.classifier_vars = perturb(m.classifier_vars, seed + 1)
     m.concept_params = perturb(m.concept_params, seed + 2)
     m.explainer_params = perturb(m.explainer_params, seed + 3)

@@ -11,11 +11,16 @@ Layout:
     models/    ResNet-50 classifier f, ConceptExtractor Psi, Explainer Theta,
                the adapted and the original StyleGAN2 generators, LPIPS-VGG,
                and the VisCoINModels bundle.
-    data/      the host eval transform and the on-device preprocess.
-    serve/     InferenceEngine (classify, reconstruct), MicroBatcher, and the
-               stdlib HTTP server.
-    train/     the VisCoIN training step and its losses.
-    utils/     weights: carry the JAX package's variables into the modules.
+    data/      datasets, the DataLoader and DevicePrefetcher, host transforms
+               and the on-device preprocess.
+    native/    the host crop + resize of the loader (C++, built with g++).
+    eval/      the ensemble's test metrics, amplification, the faithfulness
+               probe, FID statistics.
+    serve/     InferenceEngine (classify, reconstruct, amplify), MicroBatcher,
+               and the stdlib HTTP server.
+    train/     the VisCoIN training step, its losses and the loop.
+    utils/     weights (JAX variables <-> modules), checkpoints, jsonl logging.
+    cli/       `python -m viscoin_tpu_torch train viscoin`.
     csrc/      CUDA C++ sources, built at first use into csrc/build/.
 """
 

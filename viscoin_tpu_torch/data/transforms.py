@@ -3,11 +3,18 @@
 Counterpart of ``viscoin_tpu/data/transforms.py``. The host resizes and
 crops to a fixed-size uint8 HWC image (the only shape-dynamic work); the
 device turns the uint8 NHWC batch into a normalized float32 NCHW batch.
-Test geometry follows torchvision: Resize(short side = size / 0.875) +
-CenterCrop(size).
+Geometry follows torchvision:
+
+  * train: RandomResizedCrop(size, scale=(0.08, 1.0), ratio=(3/4, 4/3)); the
+    horizontal flip is decided on the device;
+  * test: Resize(short side = size / 0.875) + CenterCrop(size);
+  * gan: short side resized to ``size`` + center crop (the StyleGAN2-ADA
+    dataset tool's geometry).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -17,6 +24,52 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 TRAIN_SIZE = 256
 TEST_RESIZE = int(256 / 0.875)  # 292
+
+
+def random_resized_crop_params(height: int, width: int, rng: np.random.Generator,
+                               scale: tuple[float, float] = (0.08, 1.0),
+                               ratio: tuple[float, float] = (3 / 4, 4 / 3)
+                               ) -> tuple[int, int, int, int]:
+    """torchvision's RandomResizedCrop.get_params: (top, left, h, w)."""
+    area = height * width
+    log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+    for _ in range(10):
+        target_area = area * rng.uniform(scale[0], scale[1])
+        aspect = math.exp(rng.uniform(log_ratio[0], log_ratio[1]))
+        w = int(round(math.sqrt(target_area * aspect)))
+        h = int(round(math.sqrt(target_area / aspect)))
+        if 0 < w <= width and 0 < h <= height:
+            top = int(rng.integers(0, height - h + 1))
+            left = int(rng.integers(0, width - w + 1))
+            return top, left, h, w
+    # Fallback: a center crop with the aspect clamped to the ratio range.
+    in_ratio = width / height
+    if in_ratio < ratio[0]:
+        w = width
+        h = int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        h = height
+        w = int(round(h * ratio[1]))
+    else:
+        w, h = width, height
+    return (height - h) // 2, (width - w) // 2, h, w
+
+
+def host_train_transform(img: np.ndarray, rng: np.random.Generator,
+                         size: int = TRAIN_SIZE) -> np.ndarray:
+    """RandomResizedCrop to (size, size) uint8 HWC (the flip happens on the device)."""
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    top, left, ch, cw = random_resized_crop_params(h, w, rng)
+    crop = img[top: top + ch, left: left + cw]
+    return np.asarray(Image.fromarray(crop).resize((size, size), Image.BILINEAR), np.uint8)
+
+
+def host_gan_transform(img: np.ndarray, size: int = TRAIN_SIZE) -> np.ndarray:
+    """Short side resized to ``size`` + center crop: for a square input,
+    exactly Resize((size, size))."""
+    return host_test_transform(img, size=size, resize_to=size)
 
 
 def host_test_transform(img: np.ndarray, size: int = TRAIN_SIZE,

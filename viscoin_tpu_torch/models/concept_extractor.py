@@ -28,6 +28,9 @@ class ConceptExtractor(nn.Module):
                  input_channels1: int = 512, input_channels2: int = 1024,
                  input_channels3: int = 2048, device="cuda"):
         super().__init__()
+        self.config = dict(n_concepts=n_concepts, latent_channels=latent_channels,
+                           input_channels1=input_channels1, input_channels2=input_channels2,
+                           input_channels3=input_channels3)
         lc = latent_channels
         self.conv1 = nn.Conv2d(input_channels1, lc, 5, stride=4, padding=2, device=device)
         self.conv2 = nn.Conv2d(input_channels2, lc, 3, stride=2, padding=1, device=device)

@@ -27,6 +27,7 @@ class Explainer(nn.Module):
     def __init__(self, *, n_concepts: int = 256, n_classes: int = 200,
                  normalized: bool = False, device="cuda"):
         super().__init__()
+        self.config = dict(n_concepts=n_concepts, n_classes=n_classes, normalized=normalized)
         self.normalized = normalized
         if normalized:
             self.weight_v = nn.Parameter(torch.empty(n_classes, n_concepts, device=device))

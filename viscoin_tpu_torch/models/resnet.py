@@ -106,6 +106,9 @@ class Classifier(nn.Module):
                  hidden_sizes: Sequence[int] = (256, 512, 1024, 2048),
                  depths: Sequence[int] = (3, 4, 6, 3), device="cuda"):
         super().__init__()
+        # The hyperparameters a checkpoint records (utils/checkpoints.py).
+        self.config = dict(output_classes=output_classes, embedding_size=embedding_size,
+                           hidden_sizes=tuple(hidden_sizes), depths=tuple(depths))
         self.resnet = ResNetBackbone(embedding_size=embedding_size, hidden_sizes=hidden_sizes,
                                      depths=depths, device=device)
         self.linear = nn.Linear(hidden_sizes[-1], output_classes, device=device)

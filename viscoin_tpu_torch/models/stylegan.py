@@ -356,12 +356,22 @@ class GeneratorAdapted(nn.Module):
     """StyleGAN adapted for VisCoIN: ``forward(z1=Phi, z2=Phi')`` maps the
     concept spaces through :class:`MappingNetworkAdapted` and synthesizes."""
 
-    def __init__(self, *, z_dim: int = 256, w_dim: int = 512, img_resolution: int = 256,
-                 img_channels: int = 3, small_adjust: bool = False, low_res256: bool = False,
-                 mapping_num_layers: int = 1, coarse_layer: int = 2, mid_layer: int = 10,
-                 channel_base: int = 32768, channel_max: int = 512,
+    def __init__(self, *, z_dim: int = 256, c_dim: int = 0, w_dim: int = 512,
+                 img_resolution: int = 256, img_channels: int = 3, small_adjust: bool = False,
+                 low_res256: bool = False, mapping_num_layers: int = 1, coarse_layer: int = 2,
+                 mid_layer: int = 10, channel_base: int = 32768, channel_max: int = 512,
                  conv_clamp: float | None = None, device="cuda"):
         super().__init__()
+        if c_dim:
+            raise ValueError("a conditional (c_dim > 0) adapted generator does not exist in "
+                             "VisCoIN")
+        # The hyperparameters a checkpoint records, as the JAX module names them.
+        self.config = dict(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=img_resolution,
+                           img_channels=img_channels, small_adjust=small_adjust,
+                           low_res256=low_res256, mapping_num_layers=mapping_num_layers,
+                           coarse_layer=coarse_layer, mid_layer=mid_layer,
+                           channel_base=channel_base, channel_max=channel_max,
+                           conv_clamp=conv_clamp)
         self.img_resolution = img_resolution
         self.low_res256 = low_res256
         self.synthesis = SynthesisNetwork(

@@ -4,7 +4,8 @@ Counterpart of ``viscoin_tpu/serve/engine.py``. Requests of any size are
 chunked into fixed device batches; a short last chunk is padded by repeating
 its first row, and the padded rows are dropped on the host. Outputs are
 numpy arrays with the JAX engine's keys, shapes and layouts (the
-reconstruction is (N, H, W, 3) uint8).
+reconstruction is (N, H, W, 3) uint8). ``amplify`` takes one image and runs
+its 2M + 1 variants as one device batch.
 
 The engine runs on ``device`` ("cuda" by default) and raises at
 construction when that device is a CUDA device and none is present; it
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from viscoin_tpu_torch.data.transforms import denormalize, device_preprocess, host_test_transform
+from viscoin_tpu_torch.eval.viscoin import amplify_concepts, make_amplify_fns
 from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
 
@@ -88,6 +90,7 @@ class InferenceEngine:
         self.resolution = models.gan.img_resolution
         self.models = copy.deepcopy(models).to(device=self.device, dtype=self.dtype)
         self.models.eval().requires_grad_(False)
+        self._amplify_fns = make_amplify_fns(self.models)
 
     def prepare_image(self, img_u8: np.ndarray) -> np.ndarray:
         return prepare_image(img_u8, self.resolution)
@@ -138,13 +141,18 @@ class InferenceEngine:
 
     def explain(self, images_u8: np.ndarray) -> dict:
         raise NotImplementedError(
-            "explain (GradCAM over Psi) is not ported yet: ROADMAP.md, queue 1, "
-            "'Analytics' (utils/gradcam.py)")
+            "explain (GradCAM over Psi) is not ported yet: ROADMAP.md, queue 1: analytics "
+            "(utils/gradcam.py)")
 
     def amplify(self, image_u8: np.ndarray, selection, multipliers, seed: int = 0):
-        raise NotImplementedError(
-            "amplify is not ported yet: ROADMAP.md, queue 1, 'Eval on the main path' "
-            "(eval/viscoin.py::make_amplify_fns, amplify_concepts)")
+        """One image's concept amplification: every variant (2 x len(multipliers)
+        + 1 images) in one generator + classifier pass
+        (``eval/viscoin.py::amplify_concepts``); the random concepts come
+        from ``seed``."""
+        u8 = np.ascontiguousarray(self.prepare_image(image_u8)[None])
+        x = device_preprocess(torch.from_numpy(u8).to(self.device))[0]
+        return amplify_concepts(x, self.models, selection, multipliers,
+                                rng=np.random.default_rng(seed), fns=self._amplify_fns)
 
     def warmup(self):
         """Run every endpoint once on a dummy batch."""

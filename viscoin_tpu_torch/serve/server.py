@@ -8,9 +8,15 @@ out unless noted):
   * ``POST /v1/classify``      images -> predictions + top-k probas + top
                                concept activations
   * ``POST /v1/reconstruct``   images -> npz {reconstruction_u8, preds, expl_preds}
-  * ``POST /v1/explain``, ``POST /v1/amplify`` -> 501, not ported yet.
+  * ``POST /v1/amplify``       one image -> npz {amplified_u8, probas_best,
+                               probas_rand, default_probas, multipliers};
+                               query: multipliers (default "0,1,2,4"), and
+                               top_k_concepts, indices or threshold (default
+                               0.2) to select concepts, seed
+  * ``POST /v1/explain``       -> 501, not ported yet.
 
-Request bodies: ``.npz`` bytes with an ``images`` array ((H,W,3) or
+Amplify is served directly (it already batches its variants on the device),
+one request at a time. Request bodies: ``.npz`` bytes with an ``images`` array ((H,W,3) or
 (N,H,W,3) uint8), a raw PNG/JPEG (content-type ``image/*``), or JSON
 ``{"images": nested-lists}``. Arbitrary sizes are resized on the host with
 the eval geometry (engine.prepare_image). Each request image goes through a
@@ -22,15 +28,17 @@ from __future__ import annotations
 
 import io
 import json
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qsl, urlparse
 
 import numpy as np
 
+from viscoin_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from viscoin_tpu_torch.serve.batching import MicroBatcher
 from viscoin_tpu_torch.serve.engine import InferenceEngine
 
-NOT_PORTED = {"/v1/explain": "explain", "/v1/amplify": "amplify"}
+NOT_PORTED = {"/v1/explain": "explain"}
 
 
 class RequestError(ValueError):
@@ -89,6 +97,7 @@ class VisCoINServer:
     def __init__(self, engine: InferenceEngine, max_delay_ms: float = 5.0, top_k: int = 5):
         self.engine = engine
         self.top_k = top_k
+        self._amplify_lock = threading.Lock()
         self._batchers = {
             name: MicroBatcher(self._make_runner(name), engine.batch_size, max_delay_ms)
             for name in ("classify", "reconstruct")
@@ -141,6 +150,32 @@ class VisCoINServer:
             reconstruction_u8=out["reconstruction_u8"], preds=out["preds"],
             expl_preds=out["expl_preds"])
 
+    def handle_amplify(self, images: np.ndarray, params: dict) -> tuple[str, bytes]:
+        if images.shape[0] != 1:
+            raise RequestError("amplify takes exactly one image per request")
+        multipliers = [float(m) for m in str(params.get("multipliers", "0,1,2,4")).split(",")]
+        if "top_k_concepts" in params:
+            selection = {"method": "top_k", "k": int(params["top_k_concepts"])}
+        elif "indices" in params:
+            selection = {"method": "indices",
+                         "indices": [int(i) for i in str(params["indices"]).split(",")]}
+        else:
+            selection = {"method": "threshold", "threshold": float(params.get("threshold", 0.2))}
+        with self._amplify_lock:
+            res = self.engine.amplify(images[0], selection, multipliers,
+                                      seed=int(params.get("seed", 0)))
+        res_px = self.engine.resolution
+        amp = np.stack(res.amplified_images) if res.amplified_images else \
+            np.zeros((0, res_px, res_px, 3), np.float32)
+        amp01 = amp * np.asarray(IMAGENET_STD, np.float32) + np.asarray(IMAGENET_MEAN, np.float32)
+        amp_u8 = (np.clip(amp01, 0, 1) * 255).round().astype(np.uint8)
+        return "application/octet-stream", _npz_bytes(
+            amplified_u8=amp_u8,
+            probas_best=np.asarray(res.best_concept_probas_best, np.float32),
+            probas_rand=np.asarray(res.best_concept_probas_rand, np.float32),
+            default_probas=np.asarray(res.default_probas, np.float32),
+            multipliers=np.asarray(res.multipliers, np.float32))
+
     def stats(self) -> dict:
         return {name: b.stats.snapshot() for name, b in self._batchers.items()}
 
@@ -186,7 +221,8 @@ class VisCoINServer:
                                                    "to the PyTorch/CUDA server yet"})
                     return
                 route = {"/v1/classify": outer.handle_classify,
-                         "/v1/reconstruct": outer.handle_reconstruct}.get(url.path)
+                         "/v1/reconstruct": outer.handle_reconstruct,
+                         "/v1/amplify": outer.handle_amplify}.get(url.path)
                 if route is None:
                     self._send_json(404, {"error": f"no route {url.path}"})
                     return

@@ -1,14 +1,16 @@
-"""VisCoIN ensemble training: one step.
+"""VisCoIN ensemble training: the step and the loop.
 
-Counterpart of ``viscoin_tpu/train/viscoin.py`` up to the step (the loop
-``train_viscoin``, its eval, checkpoints and probe are not ported yet). One
-step: the u8 batch is preprocessed on the device with a random horizontal
-flip per sample; the frozen classifier f runs on the real images and the
-synthetic ones (sampled from the frozen original ``Generator``, usually ahead
-of time by :func:`make_sample_fakes`); Psi, Theta (with dropout) and the
-adapted mapping are trained through the frozen synthesis network, f on the
-reconstruction and LPIPS; the six-term loss takes one backward, and two Adam
-optimizers (Psi + Theta, and the mapping) take one update each.
+Counterpart of ``viscoin_tpu/train/viscoin.py``. One step: the u8 batch is
+preprocessed on the device with a random horizontal flip per sample; the
+frozen classifier f runs on the real images and the synthetic ones (sampled
+from the frozen original ``Generator``, usually ahead of time by
+:func:`make_sample_fakes`); Psi, Theta (with dropout) and the adapted mapping
+are trained through the frozen synthesis network, f on the reconstruction and
+LPIPS; the six-term loss takes one backward, and two Adam optimizers (Psi +
+Theta, and the mapping) take one update each, or, with
+``gradient_accumulation = k > 1``, one update every k steps on the mean of
+their gradients (``optax.MultiSteps``). :func:`train_viscoin` is the loop
+around it: eval, checkpoints, the faithfulness probe and resume.
 
 What differs from JAX, by design:
 
@@ -28,8 +30,8 @@ What differs from JAX, by design:
     drawn again from the same generator state when the synthesis is
     recomputed, so the recompute sees the noise the forward saw.
 
-``gradient_accumulation > 1`` and a device mesh are not ported (ROADMAP.md,
-queue 1); they raise.
+A device mesh (and with it multi-process training) is not ported
+(ROADMAP.md, queue 1: data parallelism); it raises.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ from viscoin_tpu_torch.train import losses as L
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_TARGETS = ("lpips", "classifier", "gan")
 _SAMPLER_TAG = 0x53414D50  # "SAMP": keeps sampler seeds apart from step seeds
+MESH_NOT_PORTED = ("training over a device mesh (data or model parallel, several processes) is "
+                   "not ported yet (ROADMAP.md, queue 1: data parallelism)")
+TRAIN_METRICS = ("acc_loss", "cr_loss", "of_loss", "ortho_loss", "rec_loss", "gan_loss",
+                 "inter_loss")
 
 
 @dataclass
@@ -74,12 +80,16 @@ class VisCoINTrainingParams:
 class TrainState:
     """``params`` maps "concept_extractor", "explainer" and "mapping" to the
     bundle's parameters by name (the fp32 masters, updated in place);
-    ``opt`` updates Psi and Theta, ``gan_opt`` the mapping."""
+    ``opt`` updates Psi and Theta, ``gan_opt`` the mapping. ``step`` counts
+    steps (micro-steps under gradient accumulation), as JAX's does."""
 
     step: int
     params: dict[str, dict[str, torch.nn.Parameter]]
     opt: torch.optim.Adam
     gan_opt: torch.optim.Adam
+    # gradient_accumulation > 1: the running mean of the micro-steps'
+    # gradients since the last update, by group and name (None otherwise).
+    acc: dict[str, dict[str, torch.Tensor]] | None = None
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -110,12 +120,12 @@ def make_lr_schedule(base_lr: float, iterations: int) -> Callable[[int], float]:
 def make_optimizers(cfg: VisCoINTrainingParams, params: dict) -> tuple[torch.optim.Adam,
                                                                        torch.optim.Adam]:
     """Two Adams with optax's defaults (b1 0.9, b2 0.999, eps 1e-8): Psi +
-    Theta, and the mapping. The step sets their learning rate to
-    ``schedule(count)`` before each update, count being the number of updates
-    already taken, as optax evaluates a schedule."""
-    if cfg.gradient_accumulation > 1:
-        raise NotImplementedError("gradient_accumulation > 1 is not ported yet (ROADMAP.md, "
-                                  "queue 1)")
+    Theta, and the mapping. Before each update their learning rate is set to
+    ``schedule(count * k)``, count being the number of updates already taken
+    and k the gradient accumulation, as optax evaluates the JAX package's
+    rescaled schedule (:func:`optimizer_update`)."""
+    if cfg.gradient_accumulation < 1:
+        raise ValueError(f"gradient_accumulation must be >= 1, got {cfg.gradient_accumulation}")
 
     def adam(groups):
         return torch.optim.Adam([p for g in groups for p in params[g].values()],
@@ -136,7 +146,48 @@ def create_train_state(models: VisCoINModels, cfg: VisCoINTrainingParams) -> Tra
         for p in params[name].values():
             p.requires_grad_(True)
     opt, gan_opt = make_optimizers(cfg, params)
-    return TrainState(step=0, params=params, opt=opt, gan_opt=gan_opt)
+    acc = None
+    if cfg.gradient_accumulation > 1:
+        acc = {g: {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for n, p in grp.items()} for g, grp in params.items()}
+    return TrainState(step=0, params=params, opt=opt, gan_opt=gan_opt, acc=acc)
+
+
+@torch.no_grad()
+def optimizer_update(state: TrainState, cfg: VisCoINTrainingParams, schedule) -> bool:
+    """After a backward: the optimizer part of one step, with
+    ``optax.MultiSteps`` semantics. For k = ``cfg.gradient_accumulation`` > 1
+    each micro-step folds its gradients into a running mean
+    (acc += (g - acc) / (n + 1), n the micro-step within the window), and on
+    the k-th both Adams step on that mean and the buffers reset; between,
+    the parameters and the Adam moments do not move. The learning rate is
+    ``schedule(updates_taken * k)``. Advances ``state.step``; returns True
+    when the parameters were updated."""
+    k = cfg.gradient_accumulation
+    micro = state.step
+    state.step += 1
+    leaves = [(g, n, p) for g, grp in state.params.items() for n, p in grp.items()]
+    if k > 1:
+        n_in = micro % k
+        for g, n, p in leaves:
+            acc = state.acc[g][n]
+            grad = p.grad if p.grad is not None else torch.zeros_like(acc)
+            acc.add_((grad - acc) / (n_in + 1))
+            p.grad = None
+        if n_in != k - 1:
+            return False
+        for g, n, p in leaves:
+            p.grad = state.acc[g][n]
+    lr = schedule((micro // k) * k)  # optax: the schedule at the count of updates taken
+    for opt in (state.opt, state.gan_opt):
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+    if k > 1:
+        for g, n, p in leaves:
+            p.grad = None
+            state.acc[g][n].zero_()
+    return True
 
 
 def make_frozen(models: VisCoINModels, generator, lpips, compute_dtype: str | None = None) -> dict:
@@ -317,8 +368,7 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
     ``external_fakes`` (without, the step samples the frozen original
     generator itself). The state is updated in place and returned."""
     if mesh is not None:
-        raise NotImplementedError("training over a device mesh is not ported yet (ROADMAP.md, "
-                                  "queue 1)")
+        raise NotImplementedError(MESH_NOT_PORTED)
     schedule = make_lr_schedule(cfg.learning_rate, cfg.iterations)
     loss_fn = make_loss_fn(models, generator_gan, lpips_module, cfg)
 
@@ -336,12 +386,201 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
         total, metrics = loss_fn(state.params, frozen, real, labels, state.step, rng, fake,
                                  dropout_mask)
         total.backward()
-        lr = schedule(state.step)  # optax: the schedule at the count of updates taken
-        for opt in (state.opt, state.gan_opt):
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-        state.step += 1
+        optimizer_update(state, cfg, schedule)
         return state, metrics
 
     return train_step
+
+
+def _check_device(device, models) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train_viscoin(device='cuda'): no CUDA device is available; pass "
+                           "device='cpu' to train with the plain versions on the CPU")
+    have = next(models.parameters()).device
+    if have.type != device.type or (device.index is not None and have.index != device.index):
+        raise ValueError(f"the bundle lives on {have}, not on the training device {device}")
+    return have
+
+
+def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_loader, test_loader,
+                  cfg: VisCoINTrainingParams, mesh=None, seed: int = 0,
+                  checkpoint_dir: str = ".", eval_every: int = 2000,
+                  checkpoint_every: int = 20_000, faithfulness_every: int = 25_000,
+                  fid_detector=None, resume_from: str | None = None,
+                  profile_dir: str | None = None, prefetch: int = 0,
+                  timings: dict | None = None, stop_after: int | None = None,
+                  device="cuda") -> VisCoINModels:
+    """The outer training loop: the step, a full test eval every
+    ``eval_every`` iterations (i = 0 included; one jsonl record each), the
+    bundle and the training state every ``checkpoint_every`` (written in the
+    background), the 200-image faithfulness probe every
+    ``faithfulness_every`` (i > 0); 0 disables a cadence. The modules carry
+    their weights: ``generator_gan`` is the frozen original generator,
+    ``lpips_module`` LPIPS; all live on ``device`` ("cuda" unless the CPU is
+    asked for).
+
+    ``resume_from``: a training state saved by this loop; the run continues
+    exactly where it stopped (the loader is fast-forwarded, the step seeds
+    are (seed, i), the synthetic groups are aligned to absolute steps).
+    ``prefetch`` > 0 loads and places the next batches on a background
+    thread (one producer, so the order is unchanged). ``timings``: a dict
+    that collects wall seconds per phase ("steps", "eval", "checkpoint",
+    "probe"), with "n_<phase>" counts, "max_<phase>" and, under
+    "seconds", every duration. ``stop_after``: at most this many steps in
+    this call, on the full ``cfg.iterations`` schedule. ``profile_dir``: a
+    torch.profiler trace of steps 2 to 5 of this call (``trace.json``)."""
+    import json
+    import os
+    import time
+
+    from viscoin_tpu_torch.data.loader import DevicePrefetcher, loop_iter
+    from viscoin_tpu_torch.eval.viscoin import (
+        faithfulness_probe,
+        make_faithfulness_fn,
+        make_test_step,
+        test_viscoin,
+        to_device,
+    )
+    from viscoin_tpu_torch.utils import checkpoints as ckpt
+    from viscoin_tpu_torch.utils.logging import get_logger
+
+    device = _check_device(device, models)
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+    logger = get_logger()
+    loader_bs = getattr(train_loader, "batch_size", cfg.batch_size)
+    if loader_bs != cfg.batch_size:
+        raise ValueError(f"train_loader.batch_size={loader_bs} != "
+                         f"cfg.batch_size={cfg.batch_size}")
+    if getattr(train_loader, "shard", (0, 1))[1] != 1:
+        raise ValueError("a sharded train_loader needs multi-process training: "
+                         + MESH_NOT_PORTED)
+    if hasattr(train_loader, "dataset") and len(train_loader.dataset) < cfg.batch_size:
+        raise ValueError(f"dataset has {len(train_loader.dataset)} samples < batch_size="
+                         f"{cfg.batch_size}: no full batch can ever be formed")
+    K = max(1, cfg.fake_presample_steps)
+    step_fn = make_train_step(models, generator_gan, lpips_module, cfg, external_fakes=True)
+    sample_fakes = make_sample_fakes(generator_gan, cfg)
+    frozen = make_frozen(models, generator_gan, lpips_module, compute_dtype=cfg.compute_dtype)
+    state = create_train_state(models, cfg)
+    # The invariants of an exact replay, saved with every training state; a
+    # mismatch on resume is an error, not a silently different stream.
+    resume_meta = {"fake_presample_steps": K, "batch_size": cfg.batch_size, "seed": seed,
+                   "compute_dtype": str(cfg.compute_dtype)}
+    if resume_from:
+        state = ckpt.restore_train_state(state, resume_from, expect_meta=resume_meta)
+
+    start = state.step
+    if start and hasattr(train_loader, "skip_batches"):
+        # An epoch yields len(loader) batches, of which only the full ones
+        # are steps (a ragged last batch is skipped below): fast-forward to
+        # the batch the unbroken run would be on.
+        steps_per_epoch = len(train_loader.dataset) // cfg.batch_size
+        epochs_done, rem = divmod(start, steps_per_epoch)
+        train_loader.skip_batches(epochs_done * len(train_loader) + rem)
+    train_iter = loop_iter(train_loader)
+
+    def pull_and_place():
+        images, labels = next(train_iter)
+        while images.shape[0] != cfg.batch_size:  # skip ragged final batches
+            images, labels = next(train_iter)
+        return to_device(images, device), to_device(labels.astype(np.int64), device)
+
+    prefetcher = DevicePrefetcher(pull_and_place, prefetch) if prefetch > 0 else None
+    next_batch = prefetcher.next if prefetcher is not None else pull_and_place
+
+    def mark(phase, t0):
+        if timings is not None:
+            dt = time.perf_counter() - t0
+            timings[phase] = timings.get(phase, 0.0) + dt
+            timings[f"n_{phase}"] = timings.get(f"n_{phase}", 0) + 1
+            timings[f"max_{phase}"] = max(timings.get(f"max_{phase}", 0.0), dt)
+            timings.setdefault("seconds", {}).setdefault(phase, []).append(dt)
+
+    # The eval, the checkpoints and the probe read the bundle itself. The JAX
+    # loop's sync_models() first copies the trained parameters back into it;
+    # here they are the bundle's own, updated in place, so nothing is copied.
+    eval_step = probe_fn = None
+    fake_group, fake_group_start = None, -1
+    profiler = None
+    end = cfg.iterations if stop_after is None else min(cfg.iterations, start + stop_after)
+    try:
+        for i in range(start, end):
+            if profile_dir and i == start + 2:  # past the first steps' one-off costs
+                from torch.profiler import ProfilerActivity, profile
+
+                activities = [ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                profiler = profile(activities=activities)
+                profiler.__enter__()
+            t_step = time.perf_counter()
+            images, labels = next_batch()
+            group = (i // K) * K  # aligned to absolute steps: any resume regenerates it
+            if fake_group_start != group:
+                fake_group = sample_fakes(frozen, fake_sample_keys(seed, group, K))
+                fake_group_start = group
+            state, metrics = step_fn(state, frozen, images, labels,
+                                     step_generator(seed, i, device), fake_group[i - group])
+            mark("steps", t_step)
+            if profiler is not None and i == start + 5:
+                _stop_profiler(profiler, profile_dir)
+                profiler = None
+
+            if eval_every and i % eval_every == 0:
+                t_eval = time.perf_counter()
+                values = torch.stack([metrics[k] for k in TRAIN_METRICS]).double().cpu()
+                record = {f"train_{k}": float(v) for k, v in zip(TRAIN_METRICS, values)}
+                if eval_step is None:
+                    eval_step = make_test_step(models, lpips_module)
+                results = test_viscoin(models, lpips_module, test_loader,
+                                       compute_fid=fid_detector is not None,
+                                       fid_detector=fid_detector, verbose=False, step=eval_step)
+                record.update({f"test_{k}": v for k, v in results.__dict__.items()})
+                logger.info(json.dumps(record))
+                mark("eval", t_eval)
+
+            if checkpoint_every and i % checkpoint_every == 0:
+                t_ckpt = time.perf_counter()
+                ckpt.save_viscoin(models, os.path.join(
+                    checkpoint_dir,
+                    f"viscoin{i // checkpoint_every}-{cfg.iterations // checkpoint_every}"),
+                    async_save=True)
+                ckpt.save_train_state(state, os.path.join(checkpoint_dir, "train_state"),
+                                      meta=resume_meta, async_save=True)
+                mark("checkpoint", t_ckpt)
+
+            if faithfulness_every and i % faithfulness_every == 0 and i > 0:
+                t_probe = time.perf_counter()
+                if probe_fn is None:
+                    probe_fn = make_faithfulness_fn(models)
+                ds = test_loader.dataset
+                probe_rng = np.random.default_rng((seed, i))  # the same after a resume
+                idx = probe_rng.choice(len(ds), min(200, len(ds)), replace=False)
+                images_u8 = np.stack([np.asarray(ds[int(j)][0]) for j in idx])
+                probs = faithfulness_probe(models, images_u8, fn=probe_fn)
+                print(f"Faithfullness stats (probability of best concept after reconstruction): "
+                      f"mean = {np.mean(probs)} --- std = {np.std(probs)}")
+                mark("probe", t_probe)
+    finally:
+        # Every exit (a failing step, an interrupt, an I/O error) stops the
+        # producers: the prefetcher joins its thread, then the loader's
+        # iterator closes (which stops and joins its own producer).
+        if prefetcher is not None:
+            prefetcher.close()
+        train_iter.close()
+        if profiler is not None:
+            _stop_profiler(profiler, profile_dir)
+    ckpt.wait_for_saves()
+    return models
+
+
+def _stop_profiler(profiler, profile_dir: str) -> None:
+    import os
+
+    profiler.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    profiler.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")

@@ -18,6 +18,14 @@ changes (the same conventions as the JAX package's torch exporters):
     buffers pass.
 
 Both raise on any key missing or left over on either side.
+
+:func:`module_to_jax_tree` and :func:`bundle_to_jax_tree` are the inverse:
+a module's parameters and buffers back to the JAX collections, names and
+layouts, decided by the module that owns each leaf (``nn.Conv2d`` and
+``nn.Linear`` hold flax ``kernel``s, ``nn.BatchNorm2d`` its ``scale`` and
+``batch_stats``; the StyleGAN modules keep ``weight``; ``noise_const``
+buffers form the ``noise`` collection and ``w_avg`` the ``moving_stats``).
+``num_batches_tracked`` has no JAX leaf and is dropped.
 """
 
 from __future__ import annotations
@@ -100,6 +108,61 @@ def load_jax_tree(module: nn.Module, variables: Mapping) -> nn.Module:
 
     Raises if a key is missing on either side or a shape differs."""
     return _load(module, tree_to_state_dict(variables))
+
+
+def _jax_leaf(owner: nn.Module, name: str, t: torch.Tensor):
+    """(collection, JAX leaf name, tensor in the JAX layout, a view), or None
+    for a leaf JAX does not have."""
+    if isinstance(owner, nn.BatchNorm2d):
+        return {"weight": ("params", "scale", t), "bias": ("params", "bias", t),
+                "running_mean": ("batch_stats", "mean", t),
+                "running_var": ("batch_stats", "var", t)}.get(name)
+    if isinstance(owner, (nn.Conv2d, nn.Linear)) and name == "weight":
+        return "params", "kernel", t.permute(2, 3, 1, 0) if t.ndim == 4 else t.T
+    if name == "noise_const":
+        return "noise", name, t
+    if name == "w_avg":
+        return "moving_stats", name, t
+    if name == "weight" and t.ndim == 4:
+        return "params", name, t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    if name == "const":
+        return "params", name, t.permute(1, 2, 0)  # CHW -> HWC
+    return "params", name, t
+
+
+@torch.no_grad()
+def module_to_jax_tree(module: nn.Module) -> dict[str, dict]:
+    """A module's variables as the JAX package holds them: {collection:
+    nested dict} with fp32 numpy leaves, copied to the host (the layouts
+    change on the module's device, so a card's weights cross once)."""
+    tree: dict[str, dict] = {}
+    owners = dict(module.named_modules())
+    leaves = list(module.named_parameters()) + list(module.named_buffers())
+    for path, t in leaves:
+        parent, _, name = path.rpartition(".")
+        leaf = _jax_leaf(owners[parent], name, t.detach())
+        if leaf is None:
+            continue
+        collection, jname, view = leaf
+        node = tree.setdefault(collection, {})
+        for part in filter(None, parent.split(".")):
+            node = node.setdefault(part, {})
+        node[jname] = view.float().contiguous().to("cpu", copy=True).numpy()
+    return tree
+
+
+def bundle_to_jax_tree(models: nn.Module) -> dict[str, dict]:
+    """A VisCoINModels as the JAX package's checkpoint tree: ``classifier``
+    {params, batch_stats}, ``concept_extractor`` and ``explainer`` (params
+    only), ``gan`` {params, noise}."""
+    tree = {}
+    for key, module in (("classifier", models.classifier), ("psi", models.concept_extractor),
+                        ("theta", models.explainer), ("gan", models.gan)):
+        variables = module_to_jax_tree(module)
+        if key in ("psi", "theta"):
+            variables = variables["params"]
+        tree[SUBMODULES[key]] = variables
+    return tree
 
 
 @torch.no_grad()
