@@ -9,7 +9,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
   1. device    nvidia-smi name and power limit, torch and CUDA versions, and
                the TF32 flags (both set off for the correctness phases);
   2. build     nvcc builds every kernel source of csrc/ in parallel (three
-               kernels: bias_act, its backward bias_act_grad, upfirdn2d),
+               kernels: bias_act, its backward bias_act_grad, which is its
+               second-order backward too, upfirdn2d),
                and g++ the native crop + resize of the data loader;
   3. kernels   each kernel against its plain torch version on the card, at
                every shape the serving path, the training step, a
@@ -62,19 +63,46 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
  10. cli       `python -m viscoin_tpu_torch train viscoin` at 256² on the
                card in a temporary directory (3 iterations, then a resume
                to 4): the jsonl keys, the bundles and the training state;
- 11. timings   per kernel (CUDA events at the path's shapes, summed over the
-               loop's run A as it made each call, and over one reconstruct
+ 11. gan       the `train gan` step at full width (256², z = w = 512, 2
+               mapping layers, channel_base 16384, batch 16, mbstd group 4,
+               ada_p 0.2), fp32 and bf16, at each cadence type (R1 with the
+               path length, plain, path length, R1 alone): launches exactly
+               those of the same step on the CPU at narrow widths, finite
+               losses, R1 and the path length live on cadence, a non-zero
+               gradient on every G and D leaf; every kernel call of those
+               steps against its plain version (phase 3's tolerances; the
+               second-order bias_act_grad calls with and without dy_add),
+               <y, A x> = <A^T y, x> for its FIRs; the median step per
+               cadence type, a 16-step cycle (launches exact; img/s, peak
+               memory), one profiled step of each regulariser;
+ 12. gan-cpu   one fp32 step with both regularisers at full width on 4
+               images, card against device="cpu" (learning rate 0, noise
+               strengths 0, the same draws and synthesis noise): losses, R1,
+               path lengths and every G and D gradient; then R1's gradients
+               alone for every D leaf; a control on the card with a planted
+               fault in bias_act's second order must miss that check;
+ 13. gan-cli   `python -m viscoin_tpu_torch train gan` at 256² in a
+               temporary directory under cuDNN deterministic: 4 iterations
+               (checkpoint and snapshot every 2), a resume to 6 within
+               RESUME_RTOL of an unbroken run to 6, then `train viscoin`
+               loading the exported EMA generator;
+ 14. timings   per kernel (CUDA events at the path's shapes, summed over the
+               loop's run A and the GAN's 16-step cycle as they made each
+               call, and over one reconstruct
                batch or one train step) beside its plain version,
                a one-call PyTorch yardstick where one exists, and its
                memory/compute bound; for the largest shapes the profiler's
                device time, GB/s and share of the bound; the per-path device
-               sum by the profiler; each wrapper's host time per call at its
+               sum by the profiler (bias_act_grad's over both its kernels,
+               bias_act_grad_kernel and, where a call sums db,
+               bias_act_grad_db_kernel); each wrapper's host time per call at its
                smallest path shape; the same for a probe chunk (N = 32) and
                an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
                and peak memory, and a torch.profiler breakdown of reconstruct;
- 12. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+ 15. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
                library_ms all over the loop's run A (``ms_over`` says so),
-               then the device line, last.
+               and the same over the GAN cycle (``gan_cycle_*``); then the
+               device line, last.
 
 It imports torch and viscoin_tpu_torch only.
 """
@@ -82,6 +110,7 @@ It imports torch and viscoin_tpu_torch only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import importlib
 import io
@@ -115,6 +144,8 @@ from viscoin_tpu_torch.ops import _kernels
 from viscoin_tpu_torch.ops.upfirdn2d import setup_filter
 from viscoin_tpu_torch.serve.engine import InferenceEngine
 from viscoin_tpu_torch.serve.server import VisCoINServer
+from viscoin_tpu_torch.train import gan as TG
+from viscoin_tpu_torch.train.augment import augment
 from viscoin_tpu_torch.train import viscoin as T
 from viscoin_tpu_torch.utils import checkpoints as ckpt
 from viscoin_tpu_torch.utils.logging import configure_score_logging
@@ -142,8 +173,8 @@ KERNELS = {
                       replaces="viscoin_tpu/ops/upfirdn2d_pallas.py:39"),
 }
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # relative to the output's max |value|
-# bias_act_grad's db: fp32 atomics sum in another order than the plain
-# version; relative to its scale, plus one rounding to the bias's type.
+# bias_act_grad's db: the kernel sums in another (fixed) order than the
+# plain version; relative to its scale, plus one rounding to the bias's type.
 DB_TOL = 1e-5
 
 
@@ -238,12 +269,13 @@ class PathRecorder:
                                tuple(sorted(kw.items()))))
             return orig_ba(x, b, **kw)
 
-        def rec_grad(x, b, dy, *, need_db=True, **kw):
+        def rec_grad(x, b, dy, *, need_db=True, dy_add=None, **kw):
             offset = x.data_ptr() % 16 // x.element_size()
             self.calls.append(("bias_act_grad", tuple(x.shape), x.dtype,
-                               (None if b is None else b.dtype, offset, need_db),
+                               (None if b is None else b.dtype, offset, need_db,
+                                dy_add is not None),
                                tuple(sorted(kw.items()))))
-            return orig_grad(x, b, dy, need_db=need_db, **kw)
+            return orig_grad(x, b, dy, need_db=need_db, dy_add=dy_add, **kw)
 
         def rec_up(x, f, **kw):
             taps = up._taps(f)  # the wrapper's cached read: no device sync per call
@@ -267,9 +299,10 @@ class PathRecorder:
 
 def make_inputs(call: tuple, gen: torch.Generator):
     """(x, arg, kw) for a recorded call: arg is the bias (bias_act), (bias,
-    dy, need_db) (bias_act_grad) or the taps (upfirdn2d). bias_act inputs
-    lie on a 1/8 grid, so that the backward meets its ties (t = 0, y0 at
-    the clamp)."""
+    dy, need_db, dy_add) (bias_act_grad; dy_add, the second order's g_db,
+    where the call had one) or the taps (upfirdn2d). bias_act inputs lie on
+    a 1/8 grid, so that the backward meets its ties (t = 0, y0 at the
+    clamp)."""
     op, shape, dtype, extra, kw = call
     if op in ("bias_act", "bias_act_grad"):
         b_dtype, offset = extra[:2]  # x is a view `offset` elements into its storage
@@ -281,22 +314,23 @@ def make_inputs(call: tuple, gen: torch.Generator):
         if op == "bias_act":
             return x, b, dict(kw)
         dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-        return x, (b, dy, extra[2]), dict(kw)
+        dy_add = torch.randn(shape[1], device="cuda", generator=gen) if extra[3] else None
+        return x, (b, dy, extra[2], dy_add), dict(kw)
     x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
     return x, torch.tensor(extra), dict(kw)
 
 
 def run_kernel(call, x, arg, kw):
     if call[0] == "bias_act_grad":
-        b, dy, need_db = arg
-        return ba._bias_act_grad_cuda(x, b, dy, need_db=need_db, **kw)
+        b, dy, need_db, dy_add = arg
+        return ba._bias_act_grad_cuda(x, b, dy, need_db=need_db, dy_add=dy_add, **kw)
     return (ba._bias_act_cuda if call[0] == "bias_act" else up._upfirdn2d_cuda)(x, arg, **kw)
 
 
 def run_plain(call, x, arg, kw):
     if call[0] == "bias_act_grad":
-        b, dy, need_db = arg
-        return ba.bias_act_grad_plain(x, b, dy, need_db=need_db, **kw)
+        b, dy, need_db, dy_add = arg
+        return ba.bias_act_grad_plain(x, b, dy, need_db=need_db, dy_add=dy_add, **kw)
     if call[0] == "bias_act":
         return ba.bias_act_plain(x, arg, **kw)
     return up.upfirdn2d_plain(x, arg, **kw)
@@ -412,6 +446,11 @@ def test_configurations() -> list[tuple]:
                     kw["clamp"] = None
                 kw = tuple(sorted(kw.items()))
                 calls.append(("bias_act", (2, 5, 4, 3), dtype, (torch.float32, 0), kw))
+                for offset in (0, 1):  # the second order's dy_add, both row modes
+                    calls.append(("bias_act_grad", (8, 64, 32, 32), dtype,
+                                  (dtype, offset, False, True), kw))
+                    calls.append(("bias_act_grad", (8, 512), dtype,
+                                  (dtype, offset, False, True), kw))
                 for offset in (0, 1):
                     calls.append(("bias_act", (8, 64, 32, 32), dtype, (dtype, offset), kw))
                     calls.append(("bias_act", (8, 512), dtype, (dtype, offset), kw))
@@ -432,7 +471,7 @@ def phase_kernels(path_calls: dict[str, dict[tuple, int]], configurations: bool 
         got = run_kernel(call, x, arg, kw)
         want = run_plain(call, x, arg, kw)
         torch.cuda.synchronize()
-        if call[0] == "bias_act_grad":  # (dx, db): db sums by fp32 atomics, in any order
+        if call[0] == "bias_act_grad":  # (dx, db): db sums in another order than the plain
             (got, db), (want, want_db) = got, want
             assert (db is None) == (want_db is None), call
             if db is not None:  # plus one rounding to the bias's type
@@ -725,10 +764,10 @@ class TrainRun:
         return rec.unique()
 
 
-def phase_adjoint(calls: dict[tuple, int]) -> float:
-    """<y, A x> = <A^T y, x> on the card for every FIR of the fp32 train
-    step (the forward geometries and their adjoints), A^T through autograd,
-    which launches the kernel with the adjoint geometry. Returns the largest
+def phase_adjoint(calls: dict[tuple, int], label: str = "the train step's") -> float:
+    """<y, A x> = <A^T y, x> on the card for every FIR of ``calls`` (fp32;
+    the forward geometries and their adjoints), A^T through autograd, which
+    launches the kernel with the adjoint geometry. Returns the largest
     |<y, A x> - <A^T y, x>| / (|y| |A x|)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     worst, n = 0.0, 0
@@ -747,19 +786,21 @@ def phase_adjoint(calls: dict[tuple, int]) -> float:
         rel = abs(lhs - rhs) / scale
         assert rel <= 1e-6, (call, lhs, rhs, scale)
         worst, n = max(worst, rel), n + 1
-    say("adjoint", f"<y, A x> = <A^T y, x> on the card for the train step's {n} FIR "
+    say("adjoint", f"<y, A x> = <A^T y, x> on the card for {label} {n} FIR "
         f"geometries (forward and adjoint), fp32: largest |difference| / (|y| |A x|) "
         f"{worst:.3e} (tolerance 1e-6)")
     return worst
 
 
-def phase_train(runs: dict[str, TrainRun], models, card: str) -> tuple[dict, dict]:
+def phase_train(runs: dict[str, TrainRun], models, card: str,
+                calls: dict[str, dict[tuple, int]]) -> tuple[dict, dict]:
     """For each dtype: exact launch counts of one step and one sampler call,
     the grad_fn of each wrapper's CUDA output, finite losses and a non-zero
     gradient on every trainable leaf; then TRAIN_WARMUP + TRAIN_STEPS steps
     timed on the host clock (each step ends by reading its loss), peak
-    memory, and one step under torch.profiler. Returns (record, the fp32
-    step's launch counts)."""
+    memory, and one step under torch.profiler (``calls``: each dtype's
+    recorded step, the kernels that session must hold). Returns (record,
+    the fp32 step's launch counts)."""
     step_want, sampler_want = expected_train_launches(models, 2)
     x = torch.randn(2, 4, 8, 8, device="cuda", requires_grad=True)
     for name, out in (("bias_act", ba.bias_act(x, torch.zeros(4, device="cuda"), act="lrelu")),
@@ -822,7 +863,7 @@ def phase_train(runs: dict[str, TrainRun], models, card: str) -> tuple[dict, dic
             f"{rec['img_per_s']:.1f} real img/s; peak memory {peak:.0f} MiB; TF32 "
             f"cudnn={torch.backends.cudnn.allow_tf32}, matmul="
             f"{torch.backends.cuda.matmul.allow_tf32} (PyTorch's defaults); {card}")
-        rec["profile"] = profile_step(run, dtype, step_want)
+        rec["profile"] = profile_step(run, dtype, kernels_want(calls[dtype]))
         record[dtype] = rec
     return record, launches
 
@@ -830,7 +871,7 @@ def phase_train(runs: dict[str, TrainRun], models, card: str) -> tuple[dict, dic
 def profile_step(run: TrainRun, dtype: str, want: dict[str, int]) -> dict:
     """Device time by kernel and by class of kernel over one train step (the
     sampler runs before the window); a session counts only if it recorded
-    every launch of the port's kernels."""
+    device kernel of the port's wrappers (``want``, from kernels_want)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -1410,6 +1451,532 @@ def phase_cli(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -------------------------------- the GAN phases ------------------------------ #
+
+GAN_BATCH = 16  # GANTrainingParams.batch_size, the JAX command's default
+GAN_SEED = SEED + 80
+# The augmentation probability of the measured steps: a run past its start
+# (ADA begins at p = 0, where no image is augmented and the warp is skipped).
+GAN_ADA_P = 0.2
+# The cadence types of one step: (label, step index, config changes). Step 0
+# runs R1 and the path length, step 1 neither, step 4 the path length; R1
+# alone needs the path length off (every R1 step, 16k, is a path-length
+# step, 4j).
+GAN_CADENCES = (("r1+ppl", 0, {}), ("plain", 1, {}), ("ppl", 4, {}),
+                ("r1", 16, dict(ppl_weight=0.0)))
+GAN_WARMUP, GAN_TIMED = 2, 5
+GAN_CYCLE = 16  # one R1 step (with its path length), 3 more path-length steps, 12 plain
+GAN_CPU_BATCH = 4  # the main path's mbstd group (min(4, 16)): the least batch with it
+# Card vs CPU, as the VisCoIN step's: |difference| / the leaf's max |grad|,
+# for every G and D leaf of the step and for R1's gradients alone.
+GAN_GRAD_TOL = 1e-2
+GAN_FAULT_ALPHA = 0.22  # SecondOrderFault's lrelu slope (the true one is 0.2)
+
+
+def gan_modules():
+    """The `train gan` generator and discriminator at full width (the JAX
+    command's: 256², z = w = 512, 2 mapping layers, channel_base 16384,
+    channel_max 512, mbstd group 4) from seeds, with constant leaves
+    perturbed."""
+    from viscoin_tpu_torch.cli.train import build_gan_modules
+
+    g, d = build_gan_modules(RES, CHANNEL_BASE, CHANNEL_MAX, GAN_BATCH, device="cuda",
+                             seed=GAN_SEED)
+    perturb_constants(g, GAN_SEED + 2)
+    perturb_constants(d, GAN_SEED + 3)
+    return g, d
+
+
+class GanRun:
+    """One compute dtype's GAN training on the card: copies of G and D, the
+    state (ada_p at GAN_ADA_P), the step (and an R1-only variant), four
+    seeded u8 batches, cycled."""
+
+    def __init__(self, g, d, dtype: str):
+        from dataclasses import replace
+
+        self.g, self.d = copy.deepcopy(g), copy.deepcopy(d)
+        self.cfg = TG.GANTrainingParams(compute_dtype=dtype, augment_p=GAN_ADA_P,
+                                        batch_size=GAN_BATCH)
+        self.state = TG.create_gan_train_state(self.g, self.d, self.cfg)
+        self.cfgs = {label: replace(self.cfg, **kw) for label, _, kw in GAN_CADENCES}
+        self.steps = {label: TG.make_gan_train_step(self.g, self.d, c)
+                      for label, c in self.cfgs.items()}
+        self.images = torch.from_numpy(seeded_images(4 * GAN_BATCH, GAN_SEED + 4)).cuda()
+
+    def run(self, i: int, label: str = "plain"):
+        """Step ``i`` (the state's counter set to it) of cadence ``label``'s
+        config (the default config for every label but "r1"). Returns
+        (metrics, draws)."""
+        cfg = self.cfgs[label]
+        self.state.step = i
+        draws = TG.draw_step(cfg, self.g, GAN_SEED, i, "cuda")
+        rows = slice((i % 4) * GAN_BATCH, (i % 4 + 1) * GAN_BATCH)
+        _, metrics = self.steps[label](self.state, self.images[rows], draws)
+        return metrics, draws
+
+
+def count_plain_calls(fn) -> dict[str, int]:
+    """Calls of each kernel's plain version while ``fn`` runs on the CPU:
+    the launches the same work makes on the card."""
+    counts = {name: 0 for name in KERNELS}
+    orig = (ba.bias_act_plain, ba.bias_act_grad_plain, up.upfirdn2d_plain)
+
+    def counted(name, f):
+        def wrapped(*args, **kw):
+            counts[name] += 1
+            return f(*args, **kw)
+        return wrapped
+
+    ba.bias_act_plain = counted("bias_act", orig[0])
+    ba.bias_act_grad_plain = counted("bias_act_grad", orig[1])
+    up.upfirdn2d_plain = counted("upfirdn2d", orig[2])
+    try:
+        fn()
+    finally:
+        ba.bias_act_plain, ba.bias_act_grad_plain, up.upfirdn2d_plain = orig
+    return counts
+
+
+class GanLaunchModel:
+    """Exact launch counts of a GAN step, from the same step at the same
+    resolution, mapping depth, batch, cadence and style-mixing cutoffs on the
+    CPU at narrow widths (channel_base 256, channel_max 8, z = w = 8; no
+    augmentation, which launches no kernel): one plain-version call per
+    kernel launch."""
+
+    def __init__(self):
+        from viscoin_tpu_torch.models.stylegan import Discriminator
+
+        self.g = init_models(Generator(z_dim=8, w_dim=8, img_resolution=RES, channel_base=256,
+                                       channel_max=8, mapping_layers=2, device="cpu"), 1)
+        self.d = init_models(Discriminator(img_resolution=RES, channel_base=256, channel_max=8,
+                                           mbstd_group_size=4, device="cpu"), 2)
+        self.images = torch.from_numpy(seeded_images(GAN_BATCH, GAN_SEED + 5))
+        self.cache: dict[tuple, dict] = {}
+
+    def __call__(self, i: int, cfg_kw: dict, cutoffs: tuple[int, int]) -> dict[str, int]:
+        num_ws = 2 * int(math.log2(RES)) - 2  # a mixed call maps a second latent
+        key = (i % 16 == 0, i % 4 == 0, tuple(sorted(cfg_kw.items())),
+               tuple(c < num_ws for c in cutoffs))
+        if key not in self.cache:
+            cfg = TG.GANTrainingParams(augment="none", batch_size=GAN_BATCH, **cfg_kw)
+            state = TG.create_gan_train_state(self.g, self.d, cfg)
+            state.step = i
+            draws = TG.draw_step(cfg, self.g, GAN_SEED, i, "cpu")
+            draws.cutoff, draws.cutoff2 = cutoffs
+            step = TG.make_gan_train_step(self.g, self.d, cfg)
+            self.cache[key] = count_plain_calls(lambda: step(state, self.images, draws))
+        return self.cache[key]
+
+
+def phase_gan(g, d, card: str) -> tuple[dict, dict]:
+    """The `train gan` step at full width on the card, fp32 and bf16: exact
+    launch counts of each cadence type, finite losses, R1 and the path length
+    live where on cadence, a non-zero gradient on every G and D leaf; the
+    kernel calls of every cadence type recorded (for phase 3's checks); the
+    median step per cadence type after warm-up; a 16-step cycle (its launches
+    exact, recorded as the GAN's kernels-line path, then timed), its img/s and
+    peak memory; one profiled step of each regulariser. Returns (record,
+    {label: recorded calls})."""
+    model = GanLaunchModel()
+    out: dict = {"cadences": [c[:2] for c in GAN_CADENCES]}
+    calls: dict[str, dict[tuple, int]] = {}
+    cycle_calls = None
+    num_ws = 2 * int(math.log2(RES)) - 2
+    for dtype in ("float32", "bfloat16"):
+        run = GanRun(g, d, dtype)
+        rec: dict = {}
+        for label, i, kw in GAN_CADENCES:
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            with PathRecorder() as prec:
+                metrics, draws = run.run(i, label)
+            torch.cuda.synchronize()
+            counts = _kernels.launch_counts()
+            want = model(i, kw, (draws.cutoff, draws.cutoff2))
+            assert counts == want, (dtype, label, counts, want)
+            calls[f"gan {dtype} {label}"] = prec.unique()
+            values = {k: float(v) for k, v in metrics.items()}
+            assert all(math.isfinite(v) for v in values.values()), (dtype, label, values)
+            assert (values["r1"] > 0) == (i % 16 == 0), (label, values)
+            assert (values["pl_lengths"] > 0) == (label in ("r1+ppl", "ppl")), (label, values)
+            # beta1 = 0: each Adam's first moment is the step's gradient.
+            zero = [f"{who}.{n}" for who, module, opt in (("G", run.g, run.state.g_opt),
+                                                         ("D", run.d, run.state.d_opt))
+                    for n, p in module.named_parameters()
+                    if not (float(opt.state[p]["exp_avg"].abs().max()) > 0
+                            and bool(torch.isfinite(opt.state[p]["exp_avg"]).all()))]
+            assert not zero, (dtype, label, zero)
+            n_leaves = sum(1 for _ in run.g.parameters()) + sum(1 for _ in run.d.parameters())
+            rec[label] = dict(step=i, launches=counts, cutoffs=(draws.cutoff, draws.cutoff2),
+                              metrics=values)
+            say("gan", f"{dtype} {label} (step {i}, style-mixing cutoffs {draws.cutoff}, "
+                f"{draws.cutoff2} of {num_ws}): launches {counts} = expected (the same step "
+                f"on the CPU at narrow widths); "
+                + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
+                + f"; all {n_leaves} G and D leaves have finite, non-zero gradients")
+
+        # The median step of each cadence type, on the host clock (reading
+        # g_loss ends the step), with PyTorch's TF32 defaults.
+        for label, i, _ in GAN_CADENCES:
+            ms = []
+            for it in range(GAN_WARMUP + GAN_TIMED):
+                t0 = time.perf_counter()
+                metrics, _ = run.run(i, label)
+                float(metrics["g_loss"])
+                if it >= GAN_WARMUP:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            rec[label]["step_ms"] = ms
+            rec[label]["step_ms_median"] = statistics.median(ms)
+
+        # The 16-step cycle: once recorded with the counts reset (the path of
+        # the kernels line), then timed.
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        cutoffs = []
+        with PathRecorder() as crec:
+            for i in range(GAN_CYCLE):
+                _, draws = run.run(i)
+                cutoffs.append((draws.cutoff, draws.cutoff2))
+        torch.cuda.synchronize()
+        cycle_counts = _kernels.launch_counts()
+        want_cycle = {name: sum(model(i, {}, c)[name] for i, c in enumerate(cutoffs))
+                      for name in KERNELS}
+        assert cycle_counts == want_cycle, (dtype, cycle_counts, want_cycle)
+        rec["cycle_launches"] = cycle_counts
+        if dtype == "float32":
+            cycle_calls = crec.unique()
+            recorded = {n: sum(m for c, m in cycle_calls.items() if c[0] == n) for n in KERNELS}
+            assert recorded == cycle_counts, (recorded, cycle_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(GAN_CYCLE):
+            metrics, _ = run.run(i)
+        float(metrics["g_loss"])
+        cycle_s = time.perf_counter() - t0
+        rec["cycle_ms"] = cycle_s * 1e3
+        rec["cycle_img_per_s"] = GAN_CYCLE * GAN_BATCH / cycle_s
+        rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        say("gan", f"{dtype} batch {GAN_BATCH}: step median "
+            + ", ".join(f"{label} {rec[label]['step_ms_median']:.2f} ms"
+                        for label, _, _ in GAN_CADENCES)
+            + f" ({GAN_TIMED} steps after {GAN_WARMUP}); the 16-step cycle (1 R1 + path-length "
+            f"step, 3 path-length, 12 plain) {rec['cycle_ms']:.1f} ms = "
+            f"{rec['cycle_img_per_s']:.1f} img/s, launches {cycle_counts} = expected; peak "
+            f"memory {rec['peak_mib']:.0f} MiB; ada_p {GAN_ADA_P}; TF32 cudnn="
+            f"{torch.backends.cudnn.allow_tf32}, matmul={torch.backends.cuda.matmul.allow_tf32} "
+            f"(PyTorch's defaults); {card}")
+        rec["profile"] = {label: profile_gan_step(run, label, i,
+                                                  kernels_want(calls[f"gan {dtype} {label}"]), dtype)
+                          for label, i, _ in GAN_CADENCES if label in ("r1", "ppl")}
+        out[dtype] = rec
+        del run
+        torch.cuda.empty_cache()
+    out["cycle_calls"] = cycle_calls  # tuple keys: main() takes it out before any JSON
+    return out, calls
+
+
+def profile_gan_step(run: GanRun, label: str, i: int, want: dict[str, int], dtype: str) -> dict:
+    """Device time by kernel class over one GAN step of a regulariser's
+    cadence; a session counts only if it recorded every device kernel of
+    the port's wrappers (``want``, from kernels_want)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        run.run(i, label)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            metrics, _ = run.run(i, label)
+            float(metrics["g_loss"])
+            wall = (time.perf_counter() - t0) * 1e3
+        events = kernel_events(prof)
+        if all(sum(e.count for e in events if KERNEL_SYMBOLS[name] in e.key) >= n
+               for name, n in want.items()):
+            break
+    else:
+        say("profile", f"gan {dtype} {label}: not measured (torch.profiler missed launches in "
+            "three sessions)")
+        return {"wall_ms": wall, "device_ms": None}
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    ours = {name: sum(e.self_device_time_total for e in events if KERNEL_SYMBOLS[name] in e.key)
+            / 1e3 for name in KERNELS}
+    classes: dict[str, list] = {}
+    for e in events:
+        c = classes.setdefault(classify_kernel(e.key), [0.0, 0])
+        c[0] += e.self_device_time_total / 1e3
+        c[1] += e.count
+    top = [dict(name=e.key, device_ms=e.self_device_time_total / 1e3, count=e.count)
+           for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]]
+    say("profile", f"gan {dtype} {label} step: wall {wall:.1f} ms, device busy {total:.1f} ms "
+        f"({100 * total / wall:.1f}%); " + ", ".join(f"{n} {t:.3f} ms" for n, t in ours.items())
+        + "; by class: " + "; ".join(
+            f"{cls} {ms:.2f} ms ({100 * ms / total:.1f}%, {n})"
+            for cls, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0])))
+    for row in top[:5]:
+        say("profile", f"gan {dtype} {label} {row['device_ms']:9.3f} ms  x{row['count']:<5} "
+            f"{row['name'][:100]}")
+    return {"wall_ms": wall, "device_ms": total, "ours_ms": ours, "classes": classes,
+            "top": top}
+
+
+class SameNoise:
+    """While active, a draw of torch.randn from a CUDA generator takes its
+    numbers from a CPU twin of that generator (seeded alike, advancing
+    alike), so the card's synthesis noise is the CPU run's: the
+    counterpart, for the GAN step, of the VisCoIN step's injected dropout
+    mask."""
+
+    def __enter__(self):
+        self._orig = torch.randn
+        twins: dict[int, tuple] = {}
+        orig = self._orig
+
+        def randn(*size, generator=None, device=None, **kw):
+            if generator is not None and generator.device.type == "cuda":
+                # Held with the generator, whose id then stays its own.
+                _, twin = twins.setdefault(id(generator), (generator, torch.Generator().manual_seed(
+                    generator.initial_seed())))
+                return orig(*size, generator=twin, **kw).to(device)
+            return orig(*size, generator=generator, device=device, **kw)
+
+        torch.randn = randn
+        return self
+
+    def __exit__(self, *exc):
+        torch.randn = self._orig
+
+
+class SecondOrderFault:
+    """A planted fault, for the control of phase_gan_cpu: while active,
+    bias_act's second order (the backward of its backward, the launches R1
+    and the path length add) takes the lrelu slope GAN_FAULT_ALPHA where
+    the forward and the first order take 0.2."""
+
+    def __enter__(self):
+        orig = self._orig = ba._BiasActGrad.backward
+
+        def backward(ctx, g_dx, g_db):
+            args = ctx.args
+            if args["act"] == "lrelu":
+                ctx.args = {**args, "alpha": GAN_FAULT_ALPHA}
+            try:
+                return orig(ctx, g_dx, g_db)
+            finally:
+                ctx.args = args
+
+        ba._BiasActGrad.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        ba._BiasActGrad.backward = staticmethod(self._orig)
+
+
+def r1_alone(dd, real: torch.Tensor, aug_p: float, aug_draws) -> tuple[float, dict]:
+    """R1 as ``d_loss_fn`` takes it (the squared gradient of D's logits for
+    the real images, through the real pass's augment pipe) and its gradient
+    for every D leaf, alone: in the step R1 adds about 1e-4 to a D loss of
+    about 1, too little for the step's gradients to show its second order."""
+    real = real.detach().requires_grad_(True)
+    logits = dd(augment(real, aug_p, aug_draws)).float()
+    (grad_real,) = torch.autograd.grad(logits.sum(), real, create_graph=True)
+    r1 = grad_real.float().square().sum(dim=(1, 2, 3)).mean()
+    names, params = zip(*dd.named_parameters())
+    grads = torch.autograd.grad(r1, params, materialize_grads=True)
+    return float(r1.detach()), {f"D.{n}": t.detach().cpu() for n, t in zip(names, grads)}
+
+
+def grad_ratios(got: dict, want: dict) -> dict[str, float]:
+    """max |got - want| / max |want| per leaf; a leaf that is exactly zero
+    in ``want`` (R1 reaches no bias of D's last layers) must be exactly zero
+    in ``got`` (else inf)."""
+    out = {}
+    for key, w in want.items():
+        scale, err = float(w.abs().max()), float((got[key] - w).abs().max())
+        out[key] = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+    return out
+
+
+def phase_gan_cpu(g, d) -> dict:
+    """One fp32 GAN step with both regularisers (step 0) at full width on
+    GAN_CPU_BATCH images (mbstd group 4, the main path's), on the card and
+    on device="cpu", from the same weights (noise strengths 0), draws and
+    synthesis noise, TF32 off: losses within 1e-4, R1 and the mean path
+    length within 1e-3, every G and D gradient (Adam's first moment,
+    beta1 = 0; the noise strengths too) within GAN_GRAD_TOL of its leaf's
+    max |grad|. The learning rate is 0, so that the D phase of both devices
+    runs the same generator: Adam's first update (lr * g / (|g| + eps))
+    turns the last bits of a gradient next to zero into a step of lr, which
+    would make the two D phases see different fakes (a first run with lr
+    2.5e-3 put D's gradients 5e-2 apart). Then R1's gradients alone
+    (r1_alone, on the step's real images and draws), each D leaf within
+    GAN_GRAD_TOL; and the control: the card's step and R1 alone again under
+    SecondOrderFault, whose R1 gradients must miss GAN_GRAD_TOL."""
+    from viscoin_tpu_torch.cli.train import build_gan_modules
+
+    set_tf32(False)
+    sd_g = {k: v.cpu() for k, v in g.state_dict().items()}
+    sd_d = {k: v.cpu() for k, v in d.state_dict().items()}
+    for k in sd_g:
+        if k.endswith("noise_strength"):
+            sd_g[k] = torch.zeros_like(sd_g[k])
+    cfg = TG.GANTrainingParams(compute_dtype="float32", augment_p=GAN_ADA_P,
+                               batch_size=GAN_CPU_BATCH, learning_rate=0.0)
+    images = torch.from_numpy(seeded_images(GAN_CPU_BATCH, GAN_SEED + 6))
+    out = {}
+    t0 = time.perf_counter()
+    for device, fault in (("cpu", False), ("cuda", False), ("cuda", True)):
+        gg, dd = build_gan_modules(RES, CHANNEL_BASE, CHANNEL_MAX, GAN_CPU_BATCH, device=device,
+                                   seed=GAN_SEED)
+        gg.load_state_dict(sd_g)
+        dd.load_state_dict(sd_d)
+        state = TG.create_gan_train_state(gg, dd, cfg)
+        draws = TG.draw_step(cfg, gg, GAN_SEED, 0, "cpu").to(device)
+        real = TG.preprocess_real(images.to(device), draws.flips if cfg.mirror else None)
+        _kernels.reset_launch_counts()
+        with SameNoise(), (SecondOrderFault() if fault else contextlib.nullcontext()):
+            r1, r1_grads = r1_alone(dd, real, cfg.augment_p, draws.aug_dr)
+            _, m = TG.make_gan_train_step(gg, dd, cfg)(state, images.to(device), draws)
+        grads = {f"{who}.{n}": opt.state[p]["exp_avg"].cpu()
+                 for who, module, opt in (("G", gg, state.g_opt), ("D", dd, state.d_opt))
+                 for n, p in module.named_parameters()}
+        out[device, fault] = dict(metrics={k: float(v) for k, v in m.items()}, grads=grads,
+                                  r1=r1, r1_grads=r1_grads, launches=_kernels.launch_counts(),
+                                  s=time.perf_counter() - t0)
+        del gg, dd, state
+    cpu, card, bad = out["cpu", False], out["cuda", False], out["cuda", True]
+    rel = {k: abs(card["metrics"][k] - cpu["metrics"][k]) / abs(cpu["metrics"][k])
+           for k in ("g_loss", "d_loss", "r1", "pl_lengths")}
+    rel["r1_alone"] = abs(card["r1"] - cpu["r1"]) / cpu["r1"]
+    ratios = grad_ratios(card["grads"], cpu["grads"])
+    assert all(float(t.abs().max()) > 0 for t in cpu["grads"].values()), "a zero CPU gradient"
+    assert all(float(t.abs().max()) > 0 for t in card["grads"].values()), "a zero card gradient"
+    r1_ratios = grad_ratios(card["r1_grads"], cpu["r1_grads"])
+    bad_ratios = grad_ratios(bad["grads"], cpu["grads"])
+    bad_r1 = grad_ratios(bad["r1_grads"], cpu["r1_grads"])
+    live = [k for k, t in cpu["r1_grads"].items() if float(t.abs().max()) > 0]
+    noise = {k for k in ratios if k.endswith("noise_strength")}
+
+    def worst(r: dict, keys) -> str:
+        return max(keys, key=r.get)
+
+    w, wn, wr = worst(ratios, set(ratios) - noise), worst(ratios, noise), worst(r1_ratios, live)
+    bw, bwn, bwr = worst(bad_ratios, set(ratios) - noise), worst(bad_ratios, noise), worst(bad_r1,
+                                                                                          live)
+    say("gan-cpu", f"one fp32 GAN step with R1 and the path length at full width, "
+        f"{GAN_CPU_BATCH} images (mbstd group {GAN_CPU_BATCH}), TF32 off, learning rate 0, noise "
+        f"strengths 0, the same draws and noise: relative card-vs-CPU differences "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f" (card r1 {card['metrics']['r1']:.6g}, pl_lengths "
+        f"{card['metrics']['pl_lengths']:.6f}); {len(ratios)} G and D gradients, max |card - CPU|"
+        f" / leaf max |grad|: worst tensor {w} {ratios[w]:.3e}, median "
+        f"{statistics.median(ratios.values()):.3e}, worst of the {len(noise)} noise strengths "
+        f"{wn} {ratios[wn]:.3e}; R1 alone (r1 {card['r1']:.6g}), its gradients for the "
+        f"{len(live)} D leaves it reaches: worst {wr} {r1_ratios[wr]:.3e}, median "
+        f"{statistics.median(r1_ratios[k] for k in live):.3e}, the other "
+        f"{len(r1_ratios) - len(live)} exactly zero on both (tolerance {GAN_GRAD_TOL:g} for "
+        f"all); launches on the card {card['launches']}; CPU step and R1 {cpu['s']:.1f} s")
+    say("gan-cpu", f"control, the card under SecondOrderFault (the second order's lrelu slope "
+        f"{GAN_FAULT_ALPHA}, not 0.2) against the same CPU run: R1 alone's gradients worst "
+        f"{bwr} {bad_r1[bwr]:.3e}, median {statistics.median(bad_r1[k] for k in live):.3e}; the "
+        f"step's worst tensor {bw} {bad_ratios[bw]:.3e}, worst noise strength {bwn} "
+        f"{bad_ratios[bwn]:.3e}; r1 {bad['metrics']['r1']:.6g}, pl_lengths "
+        f"{bad['metrics']['pl_lengths']:.6f} (tolerance {GAN_GRAD_TOL:g}: R1's must miss it)")
+    assert set(cpu["launches"].values()) == {0} and min(card["launches"].values()) > 0, (
+        card["launches"], cpu["launches"])
+    assert cpu["metrics"]["r1"] > 0 and cpu["metrics"]["pl_lengths"] > 0, cpu["metrics"]
+    assert rel["g_loss"] <= 1e-4 and rel["d_loss"] <= 1e-4, rel
+    assert rel["r1"] <= 1e-3 and rel["pl_lengths"] <= 1e-3 and rel["r1_alone"] <= 1e-3, rel
+    assert ratios[w] <= GAN_GRAD_TOL, (w, ratios[w])
+    assert ratios[wn] <= GAN_GRAD_TOL, (wn, ratios[wn])
+    assert live and r1_ratios[worst(r1_ratios, r1_ratios)] <= GAN_GRAD_TOL, r1_ratios
+    assert bad_r1[bwr] > GAN_GRAD_TOL, ("the control passed", bwr, bad_r1[bwr])
+    return {"metrics_card": card["metrics"], "metrics_cpu": cpu["metrics"], "rel": rel,
+            "grad_rel_err": ratios, "r1_grad_rel_err": r1_ratios,
+            "control_grad_rel_err": bad_ratios, "control_r1_grad_rel_err": bad_r1,
+            "card_launches": card["launches"], "cpu_s": cpu["s"]}
+
+
+def gan_cli_command(args: list[str]) -> list[str]:
+    """`python -m viscoin_tpu_torch <args>` as runpy runs it, with cuDNN's
+    deterministic algorithms on (the resume comparison's condition)."""
+    code = ("import runpy, sys, torch\n"
+            "torch.backends.cudnn.deterministic = True\n"
+            "torch.backends.cudnn.benchmark = False\n"
+            f"sys.argv = ['viscoin_tpu_torch'] + {args!r}\n"
+            "runpy.run_module('viscoin_tpu_torch', run_name='__main__', alter_sys=True)\n")
+    return [sys.executable, "-c", code]
+
+
+def phase_gan_cli(card: str) -> dict:
+    """`python -m viscoin_tpu_torch train gan` at 256² on the card, on 32
+    synthetic images in a temporary directory, under cuDNN deterministic: 4
+    iterations (checkpoint and snapshot every 2), a resume to 6, and an
+    unbroken run to 6; the resumed state within RESUME_RTOL of the unbroken
+    one in every tensor; then `train viscoin --dataset synthetic` for one
+    iteration, which must load the exported EMA generator."""
+    tmp = tempfile.mkdtemp(prefix="viscoin_gan_cli_")
+    repo = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items() if k != "VISCOIN_SYNTH_SIZE"}
+    env.update(VISCOIN_SYNTH_N="32", PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
+    export = "checkpoints/synthetic/gan-synthetic"
+    base = ["train", "gan", "--dataset", "synthetic", "--checkpoint-every", "2",
+            "--snapshot-every", "2"]
+    out = {}
+
+    def run(label, args, cwd):
+        t0 = time.perf_counter()
+        res = subprocess.run(gan_cli_command(args), cwd=cwd, env=env, capture_output=True,
+                             text=True, timeout=600)
+        out[f"{label}_s"] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"`{' '.join(args[:2])}` ({label}) exited {res.returncode}:\n"
+                               f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        return res.stdout
+
+    try:
+        unbroken = os.path.join(tmp, "unbroken")
+        os.makedirs(unbroken)
+        run("first", base + ["--epochs", "4", "--output-weights", export], tmp)
+        files = set(os.listdir(tmp))
+        assert {"gan_4.jsonl", "fakes_000000.png", "fakes_000002.png",
+                "fakes_000003.png"} <= files, files
+        recs = read_jsonl(os.path.join(tmp, "gan_4.jsonl"))
+        assert [r["iteration"] for r in recs] == [0, 3], recs
+        assert recs[0]["r1"] > 0 and recs[0]["pl_lengths"] > 0, recs[0]
+        assert all(math.isfinite(v) for r in recs for v in r.values()), recs
+        run("resume", base + ["--epochs", "6", "--resume", f"{export}.train_state",
+                              "--output-weights", export], tmp)
+        run("unbroken", base + ["--epochs", "6", "--output-weights", export], unbroken)
+        states = [torch.load(os.path.join(d, f"{export}.train_state", "train_state.pt"),
+                             weights_only=True) for d in (tmp, unbroken)]
+        assert states[0]["step"] == states[1]["step"] == 6
+        dev = tree_deviation(*states)
+        worst = max(dev, key=dev.get)
+        out["resume_deviation"] = dev
+        differ = sum(1 for v in dev.values() if v > 0)
+        say("gan-cli", f"python -m viscoin_tpu_torch train gan --dataset synthetic at 256², 32 "
+            f"images, batch 16, cuDNN deterministic: 4 iterations (checkpoint and snapshot "
+            f"every 2) {out['first_s']:.1f} s, 2 jsonl records (i = 0: r1 {recs[0]['r1']:.4f}, "
+            f"pl_lengths {recs[0]['pl_lengths']:.4f}), snapshots fakes_000000/2/3.png; resume "
+            f"to 6 {out['resume_s']:.1f} s; unbroken run to 6 {out['unbroken_s']:.1f} s; "
+            f"resumed against unbroken, largest relative deviation {dev[worst]:.3e} ({worst}; "
+            f"{differ} of {len(dev)} tensors not bit-equal; tolerance {RESUME_RTOL:g}); {card}")
+        assert dev[worst] <= RESUME_RTOL, ("the resumed GAN run deviates", worst, dev[worst])
+        log = run("viscoin", ["train", "viscoin", "--dataset", "synthetic", "--epochs", "1",
+                              "--batch-size", "8", "--eval-every", "0", "--checkpoint-every",
+                              "0", "--faithfulness-every", "0"], tmp)
+        assert "RANDOM generator" not in log, log[-2000:]
+        say("gan-cli", f"python -m viscoin_tpu_torch train viscoin --dataset synthetic, 1 "
+            f"iteration, in the same directory: loaded the exported EMA generator from {export} "
+            f"(no RANDOM-generator warning), {out['viscoin_s']:.1f} s; {card}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --------------------------------- phase 7 ---------------------------------- #
 
 
@@ -1428,13 +1995,15 @@ def bound_ms(call: tuple) -> tuple[float, float, int]:
         flops = n_in * (2 + (1 if has_bias else 0) + (2 if kw["clamp"] is not None else 0))
     elif op == "bias_act_grad":
         # Reads x and dy, writes dx; reads the bias and writes db (fp32)
-        # where there is one. Per element: the bias add, gain and act'
-        # products, with a clamp the recomputed output and its factor, and
-        # the db sum.
+        # where there is one, reads the second order's dy_add (fp32) where
+        # given. Per element: the bias add, gain and act' products, with a
+        # clamp the recomputed output and its factor, the db sum, the dy_add.
         has_bias, need_db = extra[0] is not None, extra[0] is not None and extra[2]
+        has_add = bool(extra[3])
         nbytes = 3 * n_in * esize + (shape[1] * esize if has_bias else 0) \
-            + (shape[1] * 4 if need_db else 0)
-        flops = n_in * (2 + has_bias + (3 if kw["clamp"] is not None else 0) + need_db)
+            + (shape[1] * 4 if need_db else 0) + (shape[1] * 4 if has_add else 0)
+        flops = n_in * (2 + has_bias + (3 if kw["clamp"] is not None else 0) + need_db
+                        + has_add)
     else:
         b, c, h, w = shape
         (upy, upx), (dny, dnx) = up._pair(kw["up"]), up._pair(kw["down"])
@@ -1451,9 +2020,25 @@ def bound_ms(call: tuple) -> tuple[float, float, int]:
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3, nbytes
 
 
-KERNEL_SYMBOLS = {"bias_act": "bias_act_kernel", "bias_act_grad": "bias_act_grad_kernel",
+# The profiler's kernels of each wrapper, by a substring of their names:
+# "bias_act_grad" holds both kernels of its entry call, bias_act_grad_kernel
+# and, where the call sums db, bias_act_grad_db_kernel (device_kernels).
+KERNEL_SYMBOLS = {"bias_act": "bias_act_kernel", "bias_act_grad": "bias_act_grad",
                   "upfirdn2d": "upfirdn2d_tiled"}
 TOP_SHAPES = {"upfirdn2d": 4, "bias_act": 3, "bias_act_grad": 3}  # per-shape rows in full
+
+
+def device_kernels(call: tuple) -> int:
+    """Kernels one recorded entry call launches on the device: two for a
+    bias_act_grad call that sums db (a bias, need_db), one otherwise."""
+    return 2 if call[0] == "bias_act_grad" and call[3][0] is not None and call[3][2] else 1
+
+
+def kernels_want(calls: dict[tuple, int]) -> dict[str, int]:
+    """Device kernels of each wrapper over recorded calls (call -> times
+    made): what a profiler session of that work must record."""
+    return {name: sum(m * device_kernels(c) for c, m in calls.items() if c[0] == name)
+            for name in KERNELS}
 
 
 def kernel_events(prof) -> list:
@@ -1488,7 +2073,7 @@ def device_ms(fn, symbol: str | None, iters: int = 20, launches: int = 1) -> flo
     events, this does not count the host's pace between launches. Each
     session has a warm-up step before the recorded one (the tracer tends to
     lose the first launches after it starts), and counts only if it recorded
-    all ``launches`` kernels of each call (at least one per call when
+    all ``launches`` device kernels of each call (at least one per call when
     ``symbol`` is None); else it runs again, twice at most, and then the
     time is None, "not measured"."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1560,7 +2145,8 @@ def time_path(label: str, calls: dict[tuple, int], gen: torch.Generator, card: s
             s["lib_all"] = False
         else:
             s["library_ms"] += mult * t_l
-        rows.append(dict(op=call[0], shape=list(call[1]), args=dict(call[4]), calls=mult,
+        rows.append(dict(op=call[0], shape=list(call[1]), args=dict(call[4]), extra=call[3],
+                         dtype=str(call[2]).removeprefix("torch."), calls=mult,
                          ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
                          bytes=nbytes, gb_per_s=nbytes / t_k / 1e6, share=t_b / t_k))
     # The largest shapes of each kernel: device time by the profiler beside
@@ -1571,7 +2157,8 @@ def time_path(label: str, calls: dict[tuple, int], gen: torch.Generator, card: s
             call = next(c for c in calls if c[0] == name and list(c[1]) == r["shape"]
                         and dict(c[4]) == r["args"])
             x, arg, kw = inputs[call]
-            r["device_ms"] = device_ms(lambda: run_kernel(call, x, arg, kw), KERNEL_SYMBOLS[name])
+            r["device_ms"] = device_ms(lambda: run_kernel(call, x, arg, kw), KERNEL_SYMBOLS[name],
+                                       launches=device_kernels(call))
             lib = run_library(call, x, arg, kw)
             r["library_device_ms"] = device_ms(lib, None) if lib is not None else None
             if r["device_ms"]:
@@ -1590,11 +2177,15 @@ def time_path(label: str, calls: dict[tuple, int], gen: torch.Generator, card: s
                    else "library none (no one-call equivalent)") + f"; {card}")
     # Device sum of each kernel over the path: every call, as often as the
     # path makes it, under one profiler session.
+    def run_all(mine):
+        for c, m in mine:
+            for _ in range(m):
+                run_kernel(c, *inputs[c])  # each output freed at once
+
     for name in names:
         mine = [(c, m) for c, m in calls.items() if c[0] == name]
-        sums[name]["device_ms"] = device_ms(
-            lambda: [run_kernel(c, *inputs[c]) for c, m in mine for _ in range(m)],
-            KERNEL_SYMBOLS[name], iters=5, launches=sum(m for _, m in mine))
+        sums[name]["device_ms"] = device_ms(lambda: run_all(mine), KERNEL_SYMBOLS[name], iters=5,
+                                            launches=kernels_want(dict(mine))[name])
     say("timings", f"{label}, summed over the path's calls: " + "; ".join(
         f"{n}: kernel {s['ms']:.4f} ms by events, {fmt_ms(s['device_ms'])} device "
         f"(profiler), plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms, "
@@ -1622,12 +2213,13 @@ def kernel_entry(name: str, s: dict, launches: int, over: str) -> dict:
 
 def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: dict,
                   train_calls: dict[str, dict[tuple, int]], eval_calls: dict[str, dict],
-                  device: dict) -> dict:
+                  gan_cycle_calls: dict, device: dict) -> dict:
     """The loop's run A (``loop_calls``: every call it made, as often as it
     made it), which the kernels line carries: its launches and its times
-    describe the same work; then, for the per-shape rows, serving per
-    reconstruct device batch, training per train step, and the loop's new
-    shapes per probe chunk and per amplify call (fp32)."""
+    describe the same work; beside it the GAN's 16-step fp32 cycle
+    (``gan_cycle_calls``, likewise); then, for the per-shape rows, serving
+    per reconstruct device batch, training per train step, and the loop's
+    new shapes per probe chunk and per amplify call (fp32)."""
     tf32_defaults(device)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     card = device["nvidia_smi"]
@@ -1639,6 +2231,15 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
     kernels = {name: kernel_entry(name, sums[name],
                                   sum(m for c, m in loop_calls.items() if c[0] == name), over)
                for name in KERNELS}
+    gan_over = (f"the GAN's 16-step fp32 cycle at batch {GAN_BATCH} (1 R1 + path-length step, "
+                "3 path-length steps, 12 plain): every kernel call as often as it made it")
+    sums, rows, host = time_path("float32 GAN 16-step cycle (summed)", gan_cycle_calls, gen, card)
+    detail["gan_cycle"] = {"rows": rows, "sums": sums, "host": host}
+    for name, entry in kernels.items():
+        gan = kernel_entry(name, sums[name],
+                           sum(m for c, m in gan_cycle_calls.items() if c[0] == name), gan_over)
+        entry.update({f"gan_cycle_{k}": gan[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "library_ms", "ms_over")})
     for dtype_name, calls in path_calls.items():
         sums, rows, host = time_path(f"{dtype_name} per reconstruct batch of {BATCH}", calls,
                                      gen, card)
@@ -1674,8 +2275,7 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
             say("timings", f"{name} {dtype} batch {BATCH}: median {med:.2f} ms "
                 f"(min {min(times):.2f}), {BATCH / med * 1e3:.1f} img/s, peak memory "
                 f"{peak:.0f} MiB")
-        per_batch = {name: sum(m for c, m in path_calls[dtype].items() if c[0] == name)
-                     for name in KERNELS}
+        per_batch = kernels_want(path_calls[dtype])
         detail[f"profile_{dtype}"] = profile_reconstruct(engine, imgs, dtype, per_batch)
         del engine
         torch.cuda.empty_cache()
@@ -1762,7 +2362,8 @@ def main() -> int:
     record["cpu"] = phase_cpu(models)
     record["server"] = phase_server(models)
     tf32_defaults(record["device"])
-    record["train"], train_launches = phase_train(runs, models, record["device"]["nvidia_smi"])
+    record["train"], train_launches = phase_train(runs, models, record["device"]["nvidia_smi"],
+                                                  train_calls)
     del runs
     torch.cuda.empty_cache()
     record["train_cpu"] = phase_train_cpu(models, lpips)
@@ -1772,14 +2373,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["cli"] = phase_cli(record["device"]["nvidia_smi"])
     assert record["loop"]["launches_per_step"] == train_launches, train_launches
+    g_gan, d_gan = gan_modules()
+    tf32_defaults(record["device"])
+    record["gan"], gan_calls = phase_gan(g_gan, d_gan, record["device"]["nvidia_smi"])
+    gan_cycle_calls = record["gan"].pop("cycle_calls")
+    set_tf32(False)
+    worst_gan = phase_kernels(gan_calls, configurations=False)
+    record["gan_adjoint"] = phase_adjoint({c: m for label, calls in gan_calls.items()
+                                           if "float32" in label for c, m in calls.items()},
+                                          "the GAN step's (every cadence type)")
+    record["gan_cpu"] = phase_gan_cpu(g_gan, d_gan)
+    del g_gan, d_gan
+    torch.cuda.empty_cache()
+    record["gan_cli"] = phase_gan_cli(record["device"]["nvidia_smi"])
     loop_calls = record["loop"].pop("calls_a")
     # Run A's calls against the plain versions too (the kernels line's path).
     worst_loop = phase_kernels({"the loop's run A": loop_calls}, configurations=False)
-    worst = {k: max(v, worst_loop[k]) for k, v in worst.items()}
+    worst = {k: max(v, worst_loop[k], worst_gan[k]) for k, v in worst.items()}
     timings = phase_timings(models, path_calls, loop_calls, train_calls, eval_calls,
-                            record["device"])
+                            gan_cycle_calls, record["device"])
     for name, entry in timings["kernels"].items():
         assert entry["launches"] == record["loop"]["launches"][name], (name, entry)
+        assert entry["gan_cycle_launches"] == record["gan"]["float32"]["cycle_launches"][name]
     record["timings"] = timings
     record["max_abs_err"] = worst
     record["profiler_misses"] = PROFILER_MISSES

@@ -167,7 +167,7 @@ def test_unported_options_raise(argv, match):
         main(["train", "viscoin", "--device", "cpu", "--dataset", "synthetic", *argv])
 
 
-@pytest.mark.parametrize("model", ["classifier", "concept2clip", "gan"])
+@pytest.mark.parametrize("model", ["classifier", "concept2clip"])
 def test_unported_models_raise(model):
     with pytest.raises(NotImplementedError, match=f"train {model}.*ROADMAP"):
         main(["train", model, "--device", "cpu"])

@@ -256,13 +256,122 @@ def test_bias_act_grad_kernel_takes_expanded_dy_and_counts(cuda):
                                                gain=2.0 ** 0.5, clamp=2.0)
         assert torch.equal(x.grad, want_dx)
         assert_db_close(b.grad, want_db)
-        # A second order needs dy to require grad (here dy = 2 y); with a
-        # constant dy the second derivative of these piecewise-linear
-        # activations is zero and autograd records nothing to raise on.
+        # A second order needs dy to require grad (here dy = 2 y): the
+        # backward kernel once as the second order of the first backward
+        # (with dy_add where db is used), and once as the first order of the
+        # forward, through dy = 2 y; a third order raises.
         (gx,) = torch.autograd.grad(bias_act(x, b, act="lrelu").square().sum(), x,
                                     create_graph=True)
+        _kernels.reset_launch_counts()
+        (gg,) = torch.autograd.grad(gx.square().sum(), x, create_graph=True)
+        assert _kernels.launch_counts()["bias_act_grad"] == 2
         with pytest.raises(RuntimeError, match="once_differentiable"):
-            gx.sum().backward()
+            gg.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_bias_act_grad_kernel_with_dy_add_matches_plain(cuda, dtype):
+    """The second-order mode: the per-channel fp32 dy_add (g_db) added to dy
+    in the pass, without db, in both row modes, aligned and misaligned:
+    bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for shape in ((8, 64, 32, 32), (8, 512), (16, 512, 4, 4), (3, 5, 7, 3)):
+        n = math.prod(shape)
+        base = (torch.randint(-24, 25, (n + 1,), device=cuda, generator=g) / 8).to(dtype)
+        dy = torch.randn(shape, device=cuda, generator=g).to(dtype)
+        b = (torch.randint(-8, 9, (shape[1],), device=cuda, generator=g) / 8).to(dtype)
+        add = torch.randn(shape[1], device=cuda, generator=g)
+        for x in (base[:-1].view(shape), base[1:].view(shape)):
+            for kw in GRAD_KW:
+                dx, db = _bias_act_grad_cuda(x, b, dy, dy_add=add, need_db=False, **kw)
+                want, _ = bias_act_grad_plain(x, b, dy, dy_add=add, need_db=False, **kw)
+                assert db is None and torch.equal(dx, want), (shape, kw)
+
+
+def test_bias_act_grad_db_is_deterministic(cuda):
+    """db has no atomics: a fixed-order sum of per-(row, chunk) partials, so
+    repeated calls give the same bits (planes of several chunks, small
+    planes and (B, F) features), within 1e-5 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    for shape in ((16, 64, 256, 256), (16, 512, 4, 4), (16, 512)):
+        x = torch.randn(shape, device=cuda, generator=g)
+        dy = torch.randn(shape, device=cuda, generator=g)
+        b = torch.randn(shape[1], device=cuda, generator=g)
+        kw = GRAD_KW[0]
+        dbs = [_bias_act_grad_cuda(x, b, dy, **kw)[1] for _ in range(5)]
+        assert all(torch.equal(dbs[0], d) for d in dbs[1:]), shape
+        assert_db_close(dbs[0], bias_act_grad_plain(x, b, dy, **kw)[1])
+
+
+def test_r1_penalty_through_both_kernels_on_the_card_matches_the_cpu(cuda):
+    """An R1-shaped second order through a discriminator block (fromrgb,
+    the FIR-then-stride-2 convs, lrelu with a clamp): the gradients of
+    sum((d sum(D(x)) / dx)^2) for every parameter, card against CPU in fp32,
+    within 1e-3 of each leaf's max |grad|; the second order launched
+    bias_act_grad and upfirdn2d on the card."""
+    from viscoin_tpu_torch.models.stylegan import DiscriminatorBlock
+
+    x = torch.from_numpy(np.random.default_rng(13).uniform(-1, 1, (4, 3, 32, 32))
+                         .astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        block = init_models(DiscriminatorBlock(0, 16, 32, conv_clamp=0.5, device="cpu"), 3)
+        block = block.to(device)
+        xd = x.to(device).requires_grad_()
+        (gx,) = torch.autograd.grad(block(None, xd).sum(), xd, create_graph=True)
+        _kernels.reset_launch_counts()
+        grads = torch.autograd.grad(gx.square().sum(), list(block.parameters()),
+                                    materialize_grads=True)
+        out[device] = ([t.cpu() for t in grads], _kernels.launch_counts())
+    (g_cpu, c_cpu), (g_gpu, c_gpu) = out["cpu"], out["cuda"]
+    assert set(c_cpu.values()) == {0} and c_gpu["bias_act_grad"] > 0 and c_gpu["upfirdn2d"] > 0
+    for want, got in zip(g_cpu, g_gpu):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-3 * max(scale, 1e-12)
+
+
+def test_toy_gan_step_on_the_card_matches_the_cpu(cuda):
+    """One GAN step at step 0 (R1 and path length on) at toy widths, on the
+    card and on the CPU from the same weights and draws (noise strengths
+    zero): the losses within 1e-4, R1 and the path lengths within 1e-3,
+    both Adams' first moments (the gradients) within 1e-2 of each leaf's
+    max |grad|, but for the noise strengths, whose gradient projects onto
+    each device's own random noise (finite there); every kernel launched on
+    the card. The learning rate is 0 so that both D phases run the same
+    generator (Adam's first update turns the last bits of a gradient near
+    zero into a step of lr)."""
+    from viscoin_tpu_torch.models.stylegan import Discriminator, Generator
+    from viscoin_tpu_torch.train import gan as TG
+
+    cfg = TG.GANTrainingParams(batch_size=4, augment_p=0.3, learning_rate=0.0)
+    images = torch.from_numpy(np.random.default_rng(14).integers(0, 256, (4, 32, 32, 3),
+                                                                  dtype=np.uint8))
+    out = {}
+    for device in ("cpu", "cuda"):
+        g = init_models(Generator(z_dim=16, w_dim=32, img_resolution=32, channel_base=256,
+                                  channel_max=16, mapping_layers=2, device="cpu"), 4)
+        d = init_models(Discriminator(img_resolution=32, channel_base=256, channel_max=16,
+                                      mbstd_group_size=4, device="cpu"), 5)
+        g, d = g.to(device), d.to(device)
+        state = TG.create_gan_train_state(g, d, cfg)
+        draws = TG.draw_step(cfg, g, 0, 0, "cpu").to(device)
+        _kernels.reset_launch_counts()
+        _, m = TG.make_gan_train_step(g, d, cfg)(state, images.to(device), draws)
+        moments = [state.g_opt.state[p]["exp_avg"].cpu()
+                   for n, p in g.named_parameters() if not n.endswith("noise_strength")] + [
+            state.d_opt.state[p]["exp_avg"].cpu() for p in d.parameters()]
+        assert all(bool(torch.isfinite(state.g_opt.state[p]["exp_avg"]).all())
+                   for p in g.parameters())
+        out[device] = ({k: float(v) for k, v in m.items()}, moments, _kernels.launch_counts())
+    (m_cpu, g_cpu, c_cpu), (m_gpu, g_gpu, c_gpu) = out["cpu"], out["cuda"]
+    assert set(c_cpu.values()) == {0} and min(c_gpu.values()) > 0, c_gpu
+    for k in ("g_loss", "d_loss"):
+        assert abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * abs(m_cpu[k]), k
+    for k in ("r1", "pl_lengths"):
+        assert m_cpu[k] > 0 and abs(m_gpu[k] - m_cpu[k]) <= 1e-3 * m_cpu[k], k
+    for want, got in zip(g_cpu, g_gpu):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-2 * max(scale, 1e-12)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

@@ -145,11 +145,80 @@ def test_bias_act_gradcheck_float64(shape):
 
 
 def test_bias_act_double_backward_raises():
-    """First order only: a second backward through the Function raises."""
+    """Two orders, not three: the second backward runs (it is the backward
+    kernel again, see the second-order tests below), a backward through it
+    raises."""
     x = torch.randn(2, 3, 4, 4, requires_grad=True)
-    (g,) = torch.autograd.grad(bias_act(x, act="lrelu").square().sum(), x, create_graph=True)
+    b = torch.randn(3, requires_grad=True)
+    (g,) = torch.autograd.grad(bias_act(x, b, act="lrelu").square().sum(), x, create_graph=True)
+    (gg,) = torch.autograd.grad(g.square().sum(), x, create_graph=True)
+    assert gg.requires_grad
     with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
+        gg.sum().backward()
+
+
+def _jax_second_order(x, b, dy, u, w, act, kw):
+    """jax.grad of <(dx, db), (u, w)> for (dx, db) = jax.grad of
+    sum(bias_act(x, b) * dy): the gradients of x, b and dy."""
+    def first(x, b, dy):
+        return jax.grad(lambda x, b: jnp.sum(jax_bias_act(x, b, axis=1, act=act, **kw) * dy),
+                        argnums=(0, 1))(x, b)
+
+    def inner(x, b, dy):
+        gx, gb = first(x, b, dy)
+        return jnp.sum(gx * u) + jnp.sum(gb * w)
+
+    return [np.asarray(g) for g in jax.grad(inner, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(b), jnp.asarray(dy))]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("act,kw", GRAD_CASES, ids=[f"{a}-{k}" for a, k in GRAD_CASES])
+def test_bias_act_second_order_matches_jax(act, kw, shape):
+    """The Hessian-vector value of the second-order backward against
+    jax.grad of jax.grad of the XLA path, on the tie grid (t = 0 and
+    y0 = +-clamp occur): g_dy within 1e-6 (fp32, the same products in the
+    same order up to one rounding), g_x and g_b zero in both."""
+    x, b, dy = _grid_inputs(shape, 21)
+    rng = np.random.default_rng(22)
+    u = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(shape[1]).astype(np.float32)
+    xt, bt, dyt = (torch.from_numpy(a).requires_grad_() for a in (x, b, dy))
+    gx, gb = torch.autograd.grad(bias_act(xt, bt, act=act, **kw), (xt, bt), dyt,
+                                 create_graph=True)
+    got = torch.autograd.grad((gx * torch.from_numpy(u)).sum() + (gb * torch.from_numpy(w)).sum(),
+                              (xt, bt, dyt), allow_unused=True)
+    want_x, want_b, want_dy = _jax_second_order(x, b, dy, u, w, act, kw)
+    assert got[0] is None and got[1] is None
+    assert not want_x.any() and not want_b.any()
+    np.testing.assert_allclose(got[2].numpy(), want_dy, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_bias_act_gradgradcheck_float64(shape):
+    """torch.autograd.gradgradcheck in float64, away from kinks: the second
+    order with both incoming gradients (g_dx and g_db)."""
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn(shape, dtype=torch.float64, generator=gen).requires_grad_()
+    b = torch.randn(shape[1], dtype=torch.float64, generator=gen).requires_grad_()
+    for act, kw in (("lrelu", dict()), ("relu", dict(clamp=1.0)), ("linear", dict(gain=3.0))):
+        assert torch.autograd.gradgradcheck(lambda x, b: bias_act(x, b, act=act, **kw), (x, b))
+
+
+def test_bias_act_second_order_is_the_backward_kernel_with_dy_add():
+    """On the CPU the second order is bias_act_grad_plain with dy = g_dx and
+    dy_add = g_db, bit for bit (the kernel's call on the card)."""
+    x, b, dy = _grid_inputs((2, 5, 4, 3), 24)
+    rng = np.random.default_rng(25)
+    u = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(x.shape[1]).astype(np.float32))
+    xt, bt, dyt = (torch.from_numpy(a).requires_grad_() for a in (x, b, dy))
+    gx, gb = torch.autograd.grad(bias_act(xt, bt, act="lrelu", clamp=1.0), (xt, bt), dyt,
+                                 create_graph=True)
+    (g_dy,) = torch.autograd.grad((gx * u).sum() + (gb * w).sum(), dyt)
+    want, db = bias_act_grad_plain(torch.from_numpy(x), torch.from_numpy(b), u, act="lrelu",
+                                   gain=2.0 ** 0.5, clamp=1.0, need_db=False, dy_add=w)
+    assert db is None and torch.equal(g_dy, want)
 
 
 def test_bias_act_grad_plain_is_the_cpu_backward():
@@ -266,3 +335,47 @@ def test_modulated_conv2d_grads_match_jax_vjp(up, demodulate):
     for got, want in ((xt.grad, np.asarray(gx).transpose(0, 3, 1, 2)),
                       (wt.grad, np.asarray(gw).transpose(3, 2, 0, 1)), (st.grad, np.asarray(gs))):
         np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max())
+
+
+# (kernel size, up, down, flip_weight): the discriminator's conv1 (3x3, FIR
+# pad 2, stride 2) and skip (1x1, FIR pad 1, stride 2), and the generator's
+# up-conv (3x3, up 2, then the FIR).
+SECOND_ORDER_CONVS = [(3, 1, 2, True), (1, 1, 2, True), (3, 2, 1, False)]
+
+
+@pytest.mark.parametrize("k,up,down,flip_weight", SECOND_ORDER_CONVS,
+                         ids=["d-conv1", "d-skip", "g-upconv"])
+def test_second_order_through_conv2d_resample_matches_jax(k, up, down, flip_weight):
+    """An R1-shaped penalty through both kernels: gx = d/dx sum(bias_act(
+    conv2d_resample(x, w), b, lrelu) * dy), then the gradients of sum(gx^2)
+    for w and b against jax.grad of jax.grad; the FIRs' backward is their
+    adjoint through the same Function, bias_act's second order the backward
+    kernel; b's is zero in both. 1e-4 of the gradient's scale (summation
+    orders differ)."""
+    rng = np.random.default_rng(26)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    w = rng.standard_normal((k, k, 4, 5)).astype(np.float32)
+    b = rng.standard_normal(5).astype(np.float32)
+    jf, f = jax_setup_filter(F1D), setup_filter(F1D)
+    kw = dict(up=up, down=down, padding=k // 2, flip_weight=flip_weight)
+    out = 8 * up // down
+    dy = rng.standard_normal((2, out, out, 5)).astype(np.float32)
+
+    def jax_penalty(w, b):
+        def loss(x):
+            y = jax_conv2d_resample(x, w, f=jf, **kw)
+            return jnp.sum(jax_bias_act(y, b, act="lrelu") * dy)
+        return jnp.sum(jnp.square(jax.grad(loss)(jnp.asarray(x))))
+
+    want_w, want_b = jax.grad(jax_penalty, argnums=(0, 1))(jnp.asarray(w), jnp.asarray(b))
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_()
+    wt = torch.from_numpy(w.transpose(3, 2, 0, 1).copy()).requires_grad_()
+    bt = torch.from_numpy(b).requires_grad_()
+    y = bias_act(conv2d_resample(xt, wt, f=f, **kw), bt, act="lrelu")
+    (gx,) = torch.autograd.grad(y, xt, torch.from_numpy(dy.transpose(0, 3, 1, 2).copy()),
+                                create_graph=True)
+    got_w, got_b = torch.autograd.grad(gx.square().sum(), (wt, bt), allow_unused=True)
+    want_w = np.asarray(want_w).transpose(3, 2, 0, 1)
+    np.testing.assert_allclose(got_w.numpy(), want_w, atol=1e-4 * np.abs(want_w).max())
+    # gx meets b only through act'(x + b), piecewise constant: no gradient.
+    assert got_b is None and not np.asarray(want_b).any()

@@ -33,7 +33,8 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.data.loader", "viscoin_tpu_torch.data.datasets",
             "viscoin_tpu_torch.native", "viscoin_tpu_torch.eval.viscoin",
             "viscoin_tpu_torch.utils.checkpoints", "viscoin_tpu_torch.cli.train",
-            "viscoin_tpu_torch.__main__"} <= set(mods)
+            "viscoin_tpu_torch.__main__", "viscoin_tpu_torch.train.gan",
+            "viscoin_tpu_torch.train.augment"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -77,6 +78,38 @@ def test_train_command_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["train", "viscoin", "--dataset", "synthetic"])
+
+
+def test_train_gan_command_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    """`python -m viscoin_tpu_torch train gan` runs on the card unless given
+    --device cpu; without a card it raises before building anything."""
+    from viscoin_tpu_torch.__main__ import build_parser, main
+
+    assert build_parser().parse_args(["train", "gan"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "gan", "--dataset", "synthetic"])
+
+
+def test_gan_trainer_entry_points_default_to_cuda(monkeypatch):
+    """The GAN trainer's modules are built on the card by default (and fail
+    without one); its per-step draws name their device explicitly; the
+    command's function defaults to cuda and raises without a card."""
+    import inspect
+
+    from viscoin_tpu_torch.cli.train import _train_gan, build_gan_modules
+    from viscoin_tpu_torch.train.gan import draw_step
+
+    assert inspect.signature(build_gan_modules).parameters["device"].default == "cuda"
+    assert inspect.signature(_train_gan).parameters["device"].default == "cuda"
+    assert inspect.signature(draw_step).parameters["device"].default is inspect.Parameter.empty
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _train_gan("synthetic", None, 1, 4, False, "out")
+    if torch.backends.cuda.is_built():
+        pytest.skip("a CUDA build of torch may create CUDA tensors lazily")
+    with pytest.raises((RuntimeError, AssertionError)):
+        build_gan_modules(8, 64, 8, 2)
 
 
 def test_train_viscoin_and_bundle_loading_default_to_cuda(monkeypatch):

@@ -70,6 +70,29 @@ def path_adjoint_calls():
             + [((8, 3, r, r), SKIP_UP_ADJ) for r in RESOLUTIONS])
 
 
+# The discriminator (256², channel_base 16384, batch 16) filters before each
+# stride-2 conv: conv1's 3x3 with FIR pad 2 ((16, C_r, r, r) -> r + 1) and
+# the 1x1 skip with FIR pad 1 (r -> r - 1); their adjoints take the flipped
+# taps with pad 1 (r + 1 -> r) and pad 2 (r - 1 -> r). R1's second order
+# runs the adjoint's adjoint, the forward geometry again.
+D_CONV_FIR = dict(up=1, down=1, padding=(2, 2, 2, 2), gain=1.0)
+D_SKIP_FIR = dict(up=1, down=1, padding=(1, 1, 1, 1), gain=1.0)
+D_CONV_FIR_ADJ = dict(up=1, down=1, padding=(1, 1, 1, 1), gain=1.0, flip_filter=True)
+D_SKIP_FIR_ADJ = dict(up=1, down=1, padding=(2, 2, 2, 2), gain=1.0, flip_filter=True)
+
+
+def d_fir_calls():
+    """(input shape, call, output side) of the discriminator's FIRs and their
+    adjoints at full width."""
+    calls = []
+    for r in RESOLUTIONS:
+        c = channels(r)
+        calls += [((16, c, r, r), D_CONV_FIR, r + 1), ((16, c, r, r), D_SKIP_FIR, r - 1),
+                  ((16, c, r + 1, r + 1), D_CONV_FIR_ADJ, r),
+                  ((16, c, r - 1, r - 1), D_SKIP_FIR_ADJ, r)]
+    return calls
+
+
 def path_bias_act_shapes():
     """13 synthesis layers, 7 ToRGB, 20 affines, 2 mapping groups (42)."""
     synth = [(8, 512, 4, 4)] + [(8, channels(r), r, r) for r in RESOLUTIONS for _ in range(2)]
@@ -330,6 +353,38 @@ def test_fir_plan_walk_adjoint_plans(case, x_shape, down):
     assert all(pl.ho == (h + 1 if down == 1 else h) for pl in plans)
 
 
+@pytest.mark.parametrize("case,side", [(D_CONV_FIR, 9), (D_SKIP_FIR, 9),
+                                       (D_CONV_FIR_ADJ, 10), (D_SKIP_FIR_ADJ, 8)],
+                         ids=["conv1-fir", "skip-fir", "conv1-fir-adjoint", "skip-fir-adjoint"])
+def test_fir_plan_walk_discriminator_plans(case, side):
+    """The discriminator's FIR calls and their adjoints walked against the
+    JAX kernel and oracle on ragged planes; the adjoints' paddings are what
+    adjoint_padding gives for the forward calls (the discriminator's conv,
+    down 2, through conv2d_resample: FIR pad 2 or 1, then the strided conv)."""
+    f = setup_filter(F1D)
+    assert adjoint_padding((2, 3, 9, 9), (2, 3, 10, 10), f, padding=2) == (1, 1, 1, 1)
+    assert adjoint_padding((2, 3, 9, 9), (2, 3, 8, 8), f, padding=1) == (2, 2, 2, 2)
+    x = np.random.default_rng(10).standard_normal((2, side, side, 3)).astype(np.float32)
+    plans = check_fir(x, F1D, **case)
+    assert {pl.variant for pl in plans} == {VARIANTS[(4, 1, 1)]}
+
+
+@pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,kw,side", d_fir_calls(),
+                         ids=[f"{s}-pad{kw['padding'][0]}{'-adj' if 'flip_filter' in kw else ''}"
+                              for s, kw, _ in d_fir_calls()])
+def test_fir_plan_geometry_at_discriminator_shapes(shape, kw, side, is_bf16):
+    """The discriminator's FIRs and their adjoints at every full-width shape
+    (batch 16): the compiled (4, 1, 1) instantiation, each output once,
+    every read in its window, shared memory within the card's limit."""
+    plan = fir_plan(shape, _taps(setup_filter(F1D)), is_bf16=is_bf16, **kw)
+    assert plan.variant == VARIANTS[(4, 1, 1)] and plan.sliding
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert (plan.ho, plan.wo) == (side, side)
+    ragged_axis_check(plan, 0, shape[2], plan.ho, kw["padding"][3])
+    ragged_axis_check(plan, 1, shape[3], plan.wo, kw["padding"][1])
+
+
 @pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape,kw", path_adjoint_calls(),
                          ids=[f"{s}-down{kw['down']}" for s, kw in path_adjoint_calls()])
@@ -405,6 +460,53 @@ def test_bias_act_plan_walk_is_bit_equal_to_plain(shape, dtype):
             assert torch.equal(got, bias_act_plain(x, b, **kw))
             got = walk_bias_act(plan, x, None, **kw)
             assert torch.equal(got, bias_act_plain(x, None, **kw))
+
+
+def walk_bias_act_db(plan, g: np.ndarray) -> np.ndarray:
+    """db as csrc/bias_act.cu's backward sums it: a partial per (row, chunk)
+    of the fp32 dx in mode 0 (the dx itself in mode 1), at the index the
+    kernel writes, then per channel over the partials in the order
+    bias_act_grad_db_kernel reads them. Asserts every element lands in
+    exactly one partial and every partial is read exactly once."""
+    rows = g.reshape(plan.rows, plan.row_len).astype(np.float64)
+    if plan.bias_mode == 0:
+        per = plan.block_x * BIAS_ACT_ITEMS * plan.vec  # elements of a chunk
+        n = plan.rows * plan.chunks
+        partial, seen = np.zeros(n), np.zeros(plan.row_len, np.int64)
+        for k in range(plan.chunks):
+            seen[k * per:(k + 1) * per] += 1
+        assert (seen == 1).all()
+        for r in range(plan.rows):
+            for k in range(plan.chunks):
+                partial[r * plan.chunks + k] = rows[r, k * per:(k + 1) * per].sum()
+        outer, inner = plan.rows // plan.channels, plan.chunks
+    else:
+        partial, n = rows.reshape(-1), plan.rows * plan.row_len
+        outer, inner = plan.rows, 1
+    db, read = np.zeros(plan.channels), np.zeros(n, np.int64)
+    for c in range(plan.channels):
+        for i in range(outer):
+            for k in range(inner):
+                db[c] += partial[(i * plan.channels + c) * inner + k]
+                read[(i * plan.channels + c) * inner + k] += 1
+    assert (read == 1).all()
+    return db
+
+
+@pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 5, 4, 3), (1, 2, 128, 128), (3, 16), (2, 4, 40),
+                                   (16, 512), (2, 6, 1, 1)], ids=str)
+def test_bias_act_grad_db_walk_sums_each_element_once(shape, is_bf16):
+    """The backward's deterministic db (no atomics): partials per (row,
+    chunk), several chunks per row included ((1, 2, 128, 128) in fp32), then
+    a fixed-order sum per channel; equal to the sum of dx over every dim but
+    1 (float64 walk, 1e-12)."""
+    g = np.random.default_rng(1).standard_normal(shape)
+    plan = bias_act_plan(shape, is_bf16, aligned=True)
+    if shape == (1, 2, 128, 128) and not is_bf16:
+        assert plan.chunks > 1
+    want = g.sum(axis=tuple(d for d in range(g.ndim) if d != 1))
+    np.testing.assert_allclose(walk_bias_act_db(plan, g), want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])

@@ -113,3 +113,26 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
     return x.detach().permute(0, 2, 3, 1).numpy()
+
+
+def jax_augment_draws(key, batch: int):
+    """The random numbers JAX's ``viscoin_tpu.train.augment.augment`` draws
+    from ``key`` for ``batch`` images (its lines 138-275, in order), as the
+    port's ``AugmentDraws``."""
+    from viscoin_tpu_torch.train.augment import AugmentDraws
+
+    keys = jax.random.split(key, 16)
+    ck = jax.random.split(keys[15], 10)
+    u = lambda k, lo=0.0, hi=1.0: jax.random.uniform(k, (batch,), minval=lo, maxval=hi)  # noqa
+    n = lambda k, *shape: jax.random.normal(k, (batch, *shape))  # noqa
+    pi = np.pi
+    arrays = dict(
+        flip_do=u(keys[0]), flip_coin=u(keys[1]), r90_do=u(keys[2]),
+        r90_k=jax.random.randint(keys[3], (batch,), 0, 4), xint_do=u(keys[4]),
+        tx=u(keys[5], -0.125, 0.125), ty=u(keys[6], -0.125, 0.125), iso_do=u(keys[7]),
+        iso=n(keys[8]), rot_do=u(keys[9]), theta=u(keys[10], -pi, pi), aniso_do=u(keys[11]),
+        aniso=n(keys[12]), frac_do=u(keys[13]), frac=n(keys[14], 2),
+        bright_do=u(ck[0]), bright=n(ck[1]), contrast_do=u(ck[2]), contrast=n(ck[3]),
+        lumaflip_do=u(ck[4]), lumaflip_coin=u(ck[5]), hue_do=u(ck[6]), hue=u(ck[7], -pi, pi),
+        sat_do=u(ck[8]), sat=n(ck[9]))
+    return AugmentDraws.from_arrays({k: np.asarray(v) for k, v in arrays.items()})

@@ -1,9 +1,10 @@
 """``python -m viscoin_tpu_torch <command> ...``: the port's command line.
 
     python -m viscoin_tpu_torch train viscoin --dataset synthetic --epochs 100
+    python -m viscoin_tpu_torch train gan --dataset synthetic --epochs 100
     python -m viscoin_tpu_torch train viscoin --device cpu ...   # the plain versions
 
-Only ``train viscoin`` is ported; see ``cli/train.py``.
+Only ``train viscoin`` and ``train gan`` are ported; see ``cli/train.py``.
 """
 
 from __future__ import annotations

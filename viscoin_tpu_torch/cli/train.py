@@ -1,16 +1,27 @@
-"""The ``train`` command: ``python -m viscoin_tpu_torch train viscoin ...``.
+"""The ``train`` command: ``python -m viscoin_tpu_torch train viscoin|gan ...``.
 
-Counterpart of ``viscoin_tpu/cli/train.py`` for the ``viscoin`` model, with
-its options and defaults: ``--compute-dtype`` bfloat16, ``--prefetch`` 1,
-eval every 2000 iterations, checkpoints every 20 000, the faithfulness probe
-every 25 000 (``--epochs`` counts iterations). Metrics go to
-``viscoin_<iterations>.jsonl`` in the working directory, bundles to
-``viscoin<i>-<n>/`` and the resumable training state to ``train_state/``.
-The pretrained pieces come from the JAX package's checkpoint paths
-(``checkpoints/<dataset>/classifier-<dataset>``, ``gan-<dataset>``,
-``checkpoints/lpips-vgg``) in the npz layout; a missing one is replaced by
-seeded random weights, with a warning. The ``classifier``, ``concept2clip``
-and ``gan`` models are not ported yet.
+Counterpart of ``viscoin_tpu/cli/train.py`` for the ``viscoin`` and ``gan``
+models, with their options and defaults (``--epochs`` counts iterations).
+
+``viscoin``: ``--compute-dtype`` bfloat16, ``--prefetch`` 1, eval every 2000
+iterations, checkpoints every 20 000, the faithfulness probe every 25 000.
+Metrics go to ``viscoin_<iterations>.jsonl`` in the working directory,
+bundles to ``viscoin<i>-<n>/`` and the resumable training state to
+``train_state/``. The pretrained pieces come from the JAX package's
+checkpoint paths (``checkpoints/<dataset>/classifier-<dataset>``,
+``gan-<dataset>``, ``checkpoints/lpips-vgg``) in the npz layout; a missing
+one is replaced by seeded random weights, with a warning.
+
+``gan``: StyleGAN2 (z 512, w 512, 2 mapping layers, ``--channel-base``
+16384, ``--channel-max`` 512, the mbstd group min(4, batch)) trained on the
+dataset's ``gan`` transform, batch 16, ``--compute-dtype`` bfloat16,
+``--prefetch`` 0, checkpoints every 10 000 to ``<output-weights>.train_state``.
+Metrics go to ``gan_<iterations>.jsonl``; at the end the EMA generator, with
+its tracked w_avg, is written to ``--output-weights`` in the npz layout that
+``train viscoin`` reads at ``checkpoints/<dataset>/gan-<dataset>``.
+``--fid-every`` needs the FID detector, which is not ported yet.
+
+The ``classifier`` and ``concept2clip`` models are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +38,6 @@ from viscoin_tpu_torch.utils.logging import configure_score_logging
 NOT_PORTED = {
     "classifier": "queue 1: classifier (train/classifiers.py)",
     "concept2clip": "queue 1: Concept2CLIP (train/concept2clip.py)",
-    "gan": "queue 1: GAN trainer (train/gan.py)",
 }
 DATA_PARALLEL = "queue 1: data parallelism (parallel/mesh.py as DDP)"
 FID_DETECTOR = "queue 1: the FID detector (models/inception.py)"
@@ -36,7 +46,7 @@ FID_DETECTOR = "queue 1: the FID detector (models/inception.py)"
 def add_parser(subparsers) -> argparse.ArgumentParser:
     p = subparsers.add_parser("train", help="Train a model on a dataset; metrics are logged "
                                             "to a jsonl file.")
-    p.add_argument("model_name", help="viscoin (classifier, concept2clip and gan are not "
+    p.add_argument("model_name", help="viscoin or gan (classifier and concept2clip are not "
                                       "ported yet)")
     add_common_options(p)
     p.add_argument("--gradient-accumulation-steps", type=int, default=1,
@@ -63,13 +73,33 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
     p.add_argument("--eval-every", type=int, default=None,
                    help="Full test-set eval cadence in iterations (default 2000); 0 disables")
     p.add_argument("--checkpoint-every", type=int, default=None,
-                   help="Checkpoint cadence in iterations (default 20000); 0 disables")
+                   help="Checkpoint cadence in iterations (default 20000 for viscoin, 10000 "
+                        "for gan); 0 disables")
     p.add_argument("--faithfulness-every", type=int, default=None,
                    help="200-image faithfulness probe cadence (default 25000); 0 disables")
     p.add_argument("--prefetch", type=int, default=None,
                    help="Batches loaded and placed on the device ahead of the running step "
-                        "(background thread, order-preserving); 0 = synchronous (default 1)")
-    p.set_defaults(func=train)
+                        "(background thread, order-preserving); 0 = synchronous (default 1 "
+                        "for viscoin, 0 for gan)")
+    p.add_argument("--channel-base", type=int, default=16384,
+                   help="[gan] StyleGAN2 channel base (16384 is the reference 256² config)")
+    p.add_argument("--channel-max", type=int, default=512,
+                   help="[gan] StyleGAN2 channel cap per layer")
+    p.add_argument("--fid-every", type=int, default=0,
+                   help="[gan] FID every N iterations (needs the FID detector, not ported "
+                        "yet); 0 disables")
+    p.add_argument("--init-from", default=None, type=existing_path,
+                   help="[gan] Warm start: generator variables in the npz layout (a `train "
+                        "gan` export; + <path>.discriminator if present) into a fresh run")
+    p.add_argument("--ema-rampup", type=float, default=None,
+                   help="[gan] EMA half-life warm-up cap as a fraction of images seen "
+                        "(default 0 = off)")
+    p.add_argument("--mirror", action=argparse.BooleanOptionalAction, default=True,
+                   help="[gan] Dataset x-flip doubling (default on)")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="[gan] Write a fakes_<it>.png grid of 16 EMA-generator samples every "
+                        "N iterations, from fixed latents; 0 disables")
+    p.set_defaults(func=train, parser=p)
     return p
 
 
@@ -79,6 +109,23 @@ def train(args: argparse.Namespace) -> None:
     if args.model_name in NOT_PORTED:
         raise NotImplementedError(f"`train {args.model_name}` is not ported yet "
                                   f"(ROADMAP.md, {NOT_PORTED[args.model_name]})")
+    if args.model_name == "gan":
+        if args.fid_every:
+            args.parser.error(f"--fid-every needs the FID detector, which is not ported yet "
+                              f"(ROADMAP.md, {FID_DETECTOR})")
+        _train_gan(args.dataset, args.learning_rate, args.epochs, args.batch_size,
+                   args.data_parallel, args.output_weights, args.channel_base,
+                   args.channel_max, resume_from=args.resume_from,
+                   model_parallel=args.model_parallel, compute_dtype=args.compute_dtype,
+                   fid_every=args.fid_every, mirror=args.mirror,
+                   snapshot_every=args.snapshot_every, init_from=args.init_from,
+                   ema_rampup=args.ema_rampup,
+                   prefetch=0 if args.prefetch is None else args.prefetch,
+                   ds_kwargs=_dataset_kwargs(args.dataset, args.image_size),
+                   device=args.device,
+                   **({"checkpoint_every": args.checkpoint_every}
+                      if args.checkpoint_every is not None else {}))
+        return
     if args.model_name != "viscoin":
         raise ValueError(f"Unknown model name: {args.model_name}")
     cadences = {k: getattr(args, k) for k in ("eval_every", "checkpoint_every",
@@ -193,3 +240,140 @@ def _train_viscoin(dataset: str, learning_rate, epochs, batch_size, gradient_acc
                   resume_from=resume_from, profile_dir=profile_dir, eval_every=eval_every,
                   checkpoint_every=checkpoint_every, faithfulness_every=faithfulness_every,
                   prefetch=prefetch, device=device)
+
+
+def build_gan_modules(size: int, channel_base: int, channel_max: int, batch_size: int,
+                      device="cuda", seed: int = 0):
+    """The ``train gan`` generator and discriminator, as the JAX command
+    builds them: z 512, w 512, 2 mapping layers, the given channels, the
+    mbstd group min(4, batch); random weights from ``seed`` (G) and
+    ``seed + 1`` (D), on ``device``."""
+    from viscoin_tpu_torch.models.bundle import init_models
+    from viscoin_tpu_torch.models.stylegan import Discriminator, Generator
+
+    generator = Generator(z_dim=512, w_dim=512, img_resolution=size, channel_base=channel_base,
+                          channel_max=channel_max, mapping_layers=2, device=device)
+    discriminator = Discriminator(img_resolution=size, channel_base=channel_base,
+                                  channel_max=channel_max,
+                                  mbstd_group_size=min(4, batch_size), device=device)
+    return init_models(generator, seed), init_models(discriminator, seed + 1)
+
+
+_SNAPSHOT_TAG = 0x7FFFFFFF  # the snapshot grid's fixed seed, apart from the step seeds
+
+
+def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, output_weights,
+               channel_base=16384, channel_max=512, resume_from=None, checkpoint_every=10_000,
+               seed=0, model_parallel=1, compute_dtype="bfloat16", fid_every=0, mirror=True,
+               snapshot_every=0, init_from=None, ema_rampup=None, ds_kwargs=None, prefetch=0,
+               device="cuda"):
+    """StyleGAN2 training (``epochs`` counts iterations): the metrics every
+    100 iterations and the last to ``gan_<iterations>.jsonl``, the training
+    state every ``checkpoint_every`` iterations (i > start) and at the end to
+    ``<output_weights>.train_state``, and at the end the EMA generator to
+    ``output_weights``. ``resume_from`` continues a run exactly (the loader
+    fast-forwards, step draws come from (seed, step)); ``init_from`` warm
+    starts a fresh one."""
+    import json
+
+    import numpy as np
+
+    from viscoin_tpu_torch.data.loader import DataLoader, DevicePrefetcher, loop_iter
+    from viscoin_tpu_torch.data.utils import get_datasets
+    from viscoin_tpu_torch.eval.viscoin import to_device
+    from viscoin_tpu_torch.train.gan import (
+        GANTrainingParams,
+        create_gan_train_state,
+        draw_step,
+        export_generator_vars,
+        make_gan_snapshot_fn,
+        make_gan_train_step,
+        warm_start_gan_state,
+    )
+    from viscoin_tpu_torch.train.viscoin import fold_seed
+    from viscoin_tpu_torch.utils import checkpoints as ckpt
+    from viscoin_tpu_torch.utils.logging import get_logger
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train gan --device cuda: no CUDA device is available; pass "
+                           "--device cpu to train with the plain versions on the CPU")
+    _check_parallelism(device, data_parallel, model_parallel)
+    if fid_every:
+        raise NotImplementedError(f"--fid-every needs the FID detector, which is not ported "
+                                  f"yet (ROADMAP.md, {FID_DETECTOR})")
+    if init_from and resume_from:
+        raise ValueError("--init-from is a fresh warm start (weights only); --resume "
+                         "continues a run exactly: pick one")
+    cfg = GANTrainingParams(**{k: v for k, v in dict(
+        iterations=epochs, learning_rate=learning_rate, batch_size=batch_size,
+        compute_dtype=compute_dtype, mirror=mirror, ema_rampup=ema_rampup).items()
+        if v is not None})
+    train_ds, _ = get_datasets(dataset, "gan", train_only=True, **(ds_kwargs or {}))
+    loader = DataLoader(train_ds, cfg.batch_size, shuffle=True)
+    if len(train_ds) < cfg.batch_size:
+        raise ValueError(f"dataset has {len(train_ds)} samples < batch_size={cfg.batch_size}: "
+                         "no full batch can ever be formed")
+    size = train_ds.out_size
+    generator, discriminator = build_gan_modules(size, channel_base, channel_max,
+                                                 cfg.batch_size, device, seed)
+    configure_score_logging(f"gan_{cfg.iterations}.jsonl")
+    logger = get_logger()
+    state = create_gan_train_state(generator, discriminator, cfg)
+    if init_from:
+        d_path = f"{init_from}.discriminator"
+        d_params = ckpt.restore_pytree(d_path) if os.path.exists(d_path) else None
+        warm_start_gan_state(state, ckpt.restore_pytree(init_from), d_params)
+        print(f"warm start from {init_from} (generator"
+              + (" + discriminator)" if d_params is not None else "; fresh discriminator)"))
+    step = make_gan_train_step(generator, discriminator, cfg)
+    snapshot_fn = make_gan_snapshot_fn(16) if snapshot_every else None
+
+    state_path = f"{output_weights}.train_state"
+    resume_meta = {"batch_size": cfg.batch_size, "seed": seed, "augment": cfg.augment,
+                   "compute_dtype": cfg.compute_dtype, "mirror": cfg.mirror,
+                   "ema_rampup": cfg.ema_rampup}
+    if resume_from:
+        ckpt.restore_gan_train_state(state, resume_from, expect_meta=resume_meta)
+    start = state.step
+    if start:
+        # Replay the position: only full batches become steps.
+        steps_per_epoch = len(train_ds) // cfg.batch_size
+        epochs_done, rem = divmod(start, steps_per_epoch)
+        loader.skip_batches(epochs_done * len(loader) + rem)
+    it = loop_iter(loader)
+
+    def next_images():
+        images, _ = next(it)
+        while images.shape[0] != cfg.batch_size:
+            images, _ = next(it)
+        return to_device(images, device)
+
+    prefetcher = DevicePrefetcher(next_images, prefetch) if prefetch > 0 else None
+    next_batch = prefetcher.next if prefetcher is not None else next_images
+    try:
+        for i in range(start, cfg.iterations):
+            images = next_batch()
+            state, metrics = step(state, images, draw_step(cfg, generator, seed, i, device))
+            if i % 100 == 0 or i == cfg.iterations - 1:
+                values = torch.stack([v.float().cpu() for v in metrics.values()]).double()
+                logger.info(json.dumps({"iteration": i, **{
+                    k: float(v) for k, v in zip(metrics, values)}}))
+            if snapshot_fn is not None and (i % snapshot_every == 0 or i == cfg.iterations - 1):
+                from PIL import Image
+
+                u8 = snapshot_fn(state.g_ema, fold_seed(seed, _SNAPSHOT_TAG)).cpu().numpy()
+                n, h, w, c = u8.shape  # 16 -> a 4x4 grid
+                grid = u8.reshape(4, 4, h, w, c).transpose(0, 2, 1, 3, 4).reshape(4 * h, 4 * w, c)
+                Image.fromarray(np.ascontiguousarray(grid)).save(f"fakes_{i:06d}.png")
+            if checkpoint_every and i > start and i % checkpoint_every == 0:
+                ckpt.save_gan_train_state(state, state_path, meta=resume_meta, async_save=True)
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+        it.close()
+    ckpt.wait_for_saves()
+    ckpt.save_gan_train_state(state, state_path, meta=resume_meta)
+    ckpt.save_pytree(export_generator_vars(state), output_weights)
+    print(f"saved EMA generator variables to {output_weights} (+ resumable train state at "
+          f"{state_path})")

@@ -18,9 +18,22 @@
 // -clamp or +clamp (jnp.clip is a maximum then a minimum), 0 outside. The
 // factors are applied in jax.grad's order (clip', gain, act'), so fp32 is
 // bit-equal to it. dx is rounded once to x's type; db is summed in fp32
-// from the unrounded dx: per row in registers and warp shuffles, then one
-// atomicAdd per row (mode 0) or per element (mode 1, (B, F) features).
-// It reads x and dy and writes dx: bytes-bound like the forward.
+// from the unrounded dx, in an order fixed by the shape (no atomics, so a
+// run repeats bit for bit): per (row, chunk) in registers and warp shuffles
+// into a scratch buffer (mode 0), or the unrounded dx itself (mode 1, (B, F)
+// features), then a second small kernel (bias_act_grad_db_kernel) sums the
+// scratch per channel in a fixed order. It reads x and dy and writes dx:
+// bytes-bound like the forward.
+//
+// The same kernel is the second-order backward. dx and db are linear in dy
+// and piecewise constant in x and b, so for incoming gradients (g_dx, g_db)
+// of (dx, db) the gradient of dy is
+//
+//   g_dy = (g_dx + g_db[c]) * clip'(y0) * gain * act'(t),
+//
+// and that of x and b is zero: the kernel with dy = g_dx and the optional
+// per-channel fp32 vector dy_add = g_db added to dy in the same pass, without
+// db. (JAX gets the same value from jax.grad of jax.grad of the XLA path.)
 //
 // Bound on the card: bytes. Each element is read once and written once
 // (4 flops per 8 bytes in fp32), far below the ~20 flop/byte the H100 needs
@@ -161,7 +174,8 @@ __device__ __forceinline__ float grad_at(float t, float g, const Plan& p) {
 template <typename T, int VEC, int MODE>
 __global__ void __launch_bounds__(256)
     bias_act_grad_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                         const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ db,
+                         const T* __restrict__ dy, const float* __restrict__ dy_add,
+                         T* __restrict__ dx, float* __restrict__ partial,
                          const __grid_constant__ Plan p) {
   using V = Pack<T, VEC>;
   const unsigned rowblk = blockIdx.x / static_cast<unsigned>(p.chunks);
@@ -169,8 +183,11 @@ __global__ void __launch_bounds__(256)
   const long long row = static_cast<long long>(rowblk) * p.block_y + threadIdx.y;
   const bool live = row < p.rows;
   const int nvec = static_cast<int>(p.row_len / VEC);
-  float brow = 0.0f;
+  float brow = 0.0f, arow = 0.0f;
   if (MODE == 0 && b != nullptr && live) brow = to_f(b[static_cast<unsigned>(row) % p.channels]);
+  if (MODE == 0 && dy_add != nullptr && live) {
+    arow = dy_add[static_cast<unsigned>(row) % p.channels];
+  }
   const long long base = live ? row * p.row_len : 0;
   const V* xr = reinterpret_cast<const V*>(x + base);
   const V* dyr = reinterpret_cast<const V*>(dy + base);
@@ -186,7 +203,7 @@ __global__ void __launch_bounds__(256)
       gin[k] = dyr[v];
     }
   }
-  float part = 0.0f;  // mode 0: this thread's share of db[row % channels]
+  float part = 0.0f;  // mode 0: this thread's share of the (row, chunk) partial
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int v = v0 + k * p.block_x;
@@ -198,25 +215,29 @@ __global__ void __launch_bounds__(256)
     for (int e = 0; e < VEC; ++e) {
       float t = to_f(in[k].v[e]);
       if (b != nullptr) t += MODE == 0 ? brow : to_f(bv.v[e]);
-      const float g = grad_at(t, to_f(gin[k].v[e]), p);
+      float gi = to_f(gin[k].v[e]);
+      if (dy_add != nullptr) gi += MODE == 0 ? arow : dy_add[v * VEC + e];
+      const float g = grad_at(t, gi, p);
       from_f(out.v[e], g);
-      if (db != nullptr) {
+      if (partial != nullptr) {
         if (MODE == 0) {
           part += g;
         } else {
-          atomicAdd(db + v * VEC + e, g);
+          partial[row * p.row_len + v * VEC + e] = g;
         }
       }
     }
     dxr[v] = out;
   }
-  if (MODE == 0 && db != nullptr) {
+  if (MODE == 0 && partial != nullptr) {
     // Sum over the block_x threads of the row: shuffles within a warp (or
-    // within the row's segment of one), then across the row's warps.
+    // within the row's segment of one), then across the row's warps; one
+    // partial per (row, chunk).
     const int width = p.block_x < 32 ? p.block_x : 32;
     for (int o = width / 2; o > 0; o >>= 1) part += __shfl_down_sync(0xffffffffu, part, o, width);
+    float* out = partial + row * p.chunks + chunk;
     if (p.block_x <= 32) {
-      if (threadIdx.x == 0 && live) atomicAdd(db + static_cast<unsigned>(row) % p.channels, part);
+      if (threadIdx.x == 0 && live) *out = part;
     } else {
       __shared__ float warp_sums[256 / 32];
       const int tid = threadIdx.y * p.block_x + threadIdx.x;
@@ -225,25 +246,48 @@ __global__ void __launch_bounds__(256)
       if (threadIdx.x == 0 && live) {
         float s = 0.0f;
         for (int w = 0; w < p.block_x / 32; ++w) s += warp_sums[(tid >> 5) + w];
-        atomicAdd(db + static_cast<unsigned>(row) % p.channels, s);
+        *out = s;
       }
     }
   }
 }
 
+// db[c] = sum over i < outer, k < inner of partial[(i * channels + c) * inner + k],
+// in that order: mode 0 sums the (n, chunk) partials of channel c (outer = N,
+// inner = chunks), mode 1 the column c of the (B, F) dx (outer = B, inner = 1).
+__global__ void __launch_bounds__(256)
+    bias_act_grad_db_kernel(const float* __restrict__ partial, float* __restrict__ db,
+                            int channels, long long outer, int inner) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= channels) return;
+  float s = 0.0f;
+  for (long long i = 0; i < outer; ++i) {
+    const float* q = partial + (i * channels + c) * inner;
+    for (int k = 0; k < inner; ++k) s += q[k];
+  }
+  db[c] = s;
+}
+
 template <typename T, int VEC>
-void launch_grad(const void* x, const void* b, const void* dy, void* dx, float* db,
-                 const Plan& p, cudaStream_t s) {
+void launch_grad(const void* x, const void* b, const void* dy, const float* dy_add, void* dx,
+                 float* db, float* partial, const Plan& p, cudaStream_t s) {
   const dim3 block(p.block_x, p.block_y);
   const unsigned grid = static_cast<unsigned>(p.blocks);
+  float* part = db != nullptr ? partial : nullptr;
   if (p.bias_mode == 0) {
     bias_act_grad_kernel<T, VEC, 0><<<grid, block, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(dy),
-        static_cast<T*>(dx), db, p);
+        static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(dy), dy_add,
+        static_cast<T*>(dx), part, p);
   } else {
     bias_act_grad_kernel<T, VEC, 1><<<grid, block, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(dy),
-        static_cast<T*>(dx), db, p);
+        static_cast<const T*>(x), static_cast<const T*>(b), static_cast<const T*>(dy), dy_add,
+        static_cast<T*>(dx), part, p);
+  }
+  if (db != nullptr) {
+    const long long outer = p.bias_mode == 0 ? p.rows / p.channels : p.rows;
+    const int inner = p.bias_mode == 0 ? p.chunks : 1;
+    bias_act_grad_db_kernel<<<(p.channels + 255) / 256, 256, 0, s>>>(part, db, p.channels,
+                                                                      outer, inner);
   }
 }
 
@@ -290,25 +334,33 @@ extern "C" int viscoin_bias_act(const void* x, const void* b, void* y, const voi
 }
 
 // The backward: dx from x, b (may be null) and dy, all of x's type and
-// contiguous; db (fp32, zeroed by the caller, may be null) gets the bias
-// gradient added. The same Plan as the forward, for x's shape.
-extern "C" int viscoin_bias_act_grad(const void* x, const void* b, const void* dy, void* dx,
-                                     void* db, const void* plan, void* stream) {
+// contiguous, plus dy_add (fp32, one value per channel, may be null) added to
+// dy; db (fp32, may be null) is written with the bias gradient, through
+// `partial` (fp32 scratch of rows * chunks floats in mode 0, rows * row_len
+// in mode 1; needed with db). The same Plan as the forward, for x's shape.
+extern "C" int viscoin_bias_act_grad(const void* x, const void* b, const void* dy,
+                                     const void* dy_add, void* dx, void* db, void* partial,
+                                     const void* plan, void* stream) {
   const Plan& p = *static_cast<const Plan*>(plan);
-  if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(p) || (db != nullptr && partial == nullptr) ||
+      (p.bias_mode == 0 && p.rows % p.channels != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dbf = static_cast<float*>(db);
+  float* part = static_cast<float*>(partial);
+  const float* addf = static_cast<const float*>(dy_add);
   if (p.is_bf16) {
     if (p.vec == 8) {
-      launch_grad<__nv_bfloat16, 8>(x, b, dy, dx, dbf, p, s);
+      launch_grad<__nv_bfloat16, 8>(x, b, dy, addf, dx, dbf, part, p, s);
     } else {
-      launch_grad<__nv_bfloat16, 1>(x, b, dy, dx, dbf, p, s);
+      launch_grad<__nv_bfloat16, 1>(x, b, dy, addf, dx, dbf, part, p, s);
     }
   } else {
     if (p.vec == 4) {
-      launch_grad<float, 4>(x, b, dy, dx, dbf, p, s);
+      launch_grad<float, 4>(x, b, dy, addf, dx, dbf, part, p, s);
     } else {
-      launch_grad<float, 1>(x, b, dy, dx, dbf, p, s);
+      launch_grad<float, 1>(x, b, dy, addf, dx, dbf, part, p, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,16 +1,18 @@
-"""StyleGAN2 synthesis and VisCoIN's adapted generator, NCHW / OIHW.
+"""StyleGAN2 generators and discriminator, NCHW / OIHW.
 
-Counterpart of ``viscoin_tpu/models/stylegan.py``, restricted to what
-VisCoIN's training step needs: the equalized-LR :class:`FullyConnected`,
-:class:`SynthesisLayer`, :class:`ToRGBLayer`, :class:`SynthesisBlock` (skip
-architecture), :class:`SynthesisNetwork`, :class:`MappingNetworkAdapted`
-(the per-style-layer MLPs stacked into two groups) and
-:class:`GeneratorAdapted`; the original :class:`MappingNetwork` and
-:class:`Generator` (the frozen source of synthetic training images); and
-:func:`adapted_state_from_gan`. ``Conv2dLayer`` and the discriminator belong
-to the GAN trainer and are not ported yet. Parameter names and shapes follow
-the JAX modules, with conv weights in OIHW and the 4x4 constant in CHW, so
-``utils/weights.py`` carries the JAX variables across by name.
+Counterpart of ``viscoin_tpu/models/stylegan.py``: the equalized-LR
+:class:`FullyConnected` and :class:`Conv2dLayer`, :class:`SynthesisLayer`,
+:class:`ToRGBLayer`, :class:`SynthesisBlock` (skip architecture),
+:class:`SynthesisNetwork`, :class:`MappingNetworkAdapted` (the
+per-style-layer MLPs stacked into two groups) and :class:`GeneratorAdapted`;
+the original :class:`MappingNetwork` and :class:`Generator` (the frozen
+source of VisCoIN's synthetic training images, and what ``train gan``
+trains); :class:`MinibatchStdLayer`, :class:`DiscriminatorBlock` (resnet
+architecture) and :class:`Discriminator`; and :func:`adapted_state_from_gan`.
+Parameter names and shapes follow the JAX modules, with conv weights in OIHW
+and the 4x4 constant in CHW, so ``utils/weights.py`` carries the JAX
+variables across by name. The discriminator's epilogue flattens its 4x4
+features in JAX's (h, w, c) order, so the ``fc`` weight is JAX's as it is.
 
 ``noise_mode`` is "random" (drawn from the ``generator`` argument, a
 ``torch.Generator`` on the activations' device), "const" (the ``noise_const``
@@ -25,7 +27,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from viscoin_tpu_torch.ops import bias_act, modulated_conv2d, setup_filter, upsample2d
+from viscoin_tpu_torch.ops import (
+    bias_act,
+    conv2d_resample,
+    modulated_conv2d,
+    setup_filter,
+    upsample2d,
+)
 from viscoin_tpu_torch.ops.bias_act import activation_funcs
 
 RESAMPLE_FILTER = (1.0, 3.0, 3.0, 1.0)
@@ -75,6 +83,40 @@ class FullyConnected(nn.Module):
         if b is not None and self.lr_multiplier != 1.0:
             b = b * self.lr_multiplier
         return bias_act(x @ w.T, b, act=self.activation)
+
+
+class Conv2dLayer(nn.Module):
+    """Plain (not modulated) equalized-LR conv + bias_act, with optional
+    up/down resampling through the FIR filter; ``forward(x, gain)`` scales
+    the activation's gain and the clamp by ``gain``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *,
+                 use_bias: bool = True, activation: str = "linear", up: int = 1, down: int = 1,
+                 resample_filter=RESAMPLE_FILTER, conv_clamp: float | None = None,
+                 device="cuda"):
+        super().__init__()
+        self.activation, self.up, self.down, self.conv_clamp = activation, up, down, conv_clamp
+        self.padding = kernel_size // 2
+        self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size * kernel_size)
+        self.resample_filter = (setup_filter(list(resample_filter))
+                                if up > 1 or down > 1 else None)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size,
+                                               kernel_size, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_channels, device=device))
+                     if use_bias else None)
+
+    def init_weights(self, generator: torch.Generator):
+        self.weight.normal_(generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+        w = (self.weight * self.weight_gain).to(x.dtype)
+        x = conv2d_resample(x, w, f=self.resample_filter, up=self.up, down=self.down,
+                            padding=self.padding, flip_weight=(self.up == 1))
+        clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        act_gain = activation_funcs[self.activation].def_gain * gain
+        return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=clamp)
 
 
 class SynthesisLayer(nn.Module):
@@ -203,7 +245,7 @@ class SynthesisNetwork(nn.Module):
                  conv_clamp: float | None = None, resample_filter=RESAMPLE_FILTER,
                  device="cuda"):
         super().__init__()
-        self.w_dim, self.img_resolution = w_dim, img_resolution
+        self.w_dim, self.img_resolution, self.img_channels = w_dim, img_resolution, img_channels
         self.channel_base, self.channel_max = channel_base, channel_max
         self.block_resolutions = [2**i for i in range(2, int(math.log2(img_resolution)) + 1)]
         for res in self.block_resolutions:
@@ -329,7 +371,11 @@ class Generator(nn.Module):
                  img_channels: int = 3, mapping_layers: int = 2, channel_base: int = 32768,
                  channel_max: int = 512, conv_clamp: float | None = None, device="cuda"):
         super().__init__()
-        self.z_dim = z_dim
+        self.config = dict(z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
+                           img_channels=img_channels, mapping_layers=mapping_layers,
+                           channel_base=channel_base, channel_max=channel_max,
+                           conv_clamp=conv_clamp)
+        self.z_dim, self.w_dim, self.img_resolution = z_dim, w_dim, img_resolution
         self.synthesis = SynthesisNetwork(
             w_dim=w_dim, img_resolution=img_resolution, img_channels=img_channels,
             channel_base=channel_base, channel_max=channel_max, conv_clamp=conv_clamp,
@@ -341,6 +387,100 @@ class Generator(nn.Module):
                 noise_mode: str = "random", generator: torch.Generator | None = None):
         ws = self.mapping(z, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, noise_mode=noise_mode, generator=generator)
+
+
+class MinibatchStdLayer(nn.Module):
+    """Append the feature stddev across each group of samples as extra
+    channels. Group m holds samples {m, m + B/G, ...} (a (G, B/G) reshape),
+    so the stats are tiled, not interleaved, over the batch."""
+
+    def __init__(self, group_size: int = 4, num_channels: int = 1):
+        super().__init__()
+        self.group_size, self.num_channels = group_size, num_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        G = min(self.group_size, B)
+        G = B // (B // G) if B % G == 0 else 1
+        F_ = self.num_channels
+        y = x.reshape(G, B // G, F_, C // F_, H, W).float()
+        y = y - y.mean(dim=0, keepdim=True)
+        y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
+        y = y.mean(dim=(2, 3, 4))  # (B // G, F)
+        y = y.repeat(G, 1).to(x.dtype)  # (B, F): sample s takes y[s % (B // G)]
+        return torch.cat([x, y[:, :, None, None].expand(B, F_, H, W)], dim=1)
+
+
+class DiscriminatorBlock(nn.Module):
+    """fromRGB (first block only) and two convs, the second down 2, with a
+    residual 1x1 down-2 ``skip`` (the resnet architecture); the ``sqrt(0.5)``
+    gains of skip and conv1 scale their clamps too."""
+
+    def __init__(self, in_channels: int, tmp_channels: int, out_channels: int, *,
+                 img_channels: int = 3, architecture: str = "resnet",
+                 resample_filter=RESAMPLE_FILTER, conv_clamp: float | None = None,
+                 device="cuda"):
+        super().__init__()
+        self.in_channels = in_channels
+        if in_channels == 0:
+            self.fromrgb = Conv2dLayer(img_channels, tmp_channels, 1, activation="lrelu",
+                                       conv_clamp=conv_clamp, device=device)
+        self.skip = (Conv2dLayer(tmp_channels, out_channels, 1, use_bias=False, down=2,
+                                 resample_filter=resample_filter, device=device)
+                     if architecture == "resnet" else None)
+        self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, 3, activation="lrelu",
+                                 conv_clamp=conv_clamp, device=device)
+        self.conv1 = Conv2dLayer(tmp_channels, out_channels, 3, activation="lrelu", down=2,
+                                 resample_filter=resample_filter, conv_clamp=conv_clamp,
+                                 device=device)
+
+    def forward(self, x, img):
+        if self.in_channels == 0:
+            x_in = self.fromrgb(img)
+            x = x_in if x is None else x + x_in
+        y = self.skip(x, gain=math.sqrt(0.5)) if self.skip is not None else None
+        x = self.conv0(x)
+        x = self.conv1(x, gain=math.sqrt(0.5) if y is not None else 1.0)
+        return y + x if y is not None else x
+
+
+class Discriminator(nn.Module):
+    """The StyleGAN2 discriminator: resnet blocks ``b<res>`` from
+    ``img_resolution`` down to 8, then the 4x4 epilogue (``mbstd``, ``conv``,
+    ``fc``, ``out``); ``forward(img)`` -> (B, 1) logits."""
+
+    def __init__(self, *, img_resolution: int = 256, img_channels: int = 3,
+                 channel_base: int = 32768, channel_max: int = 512, mbstd_group_size: int = 4,
+                 conv_clamp: float | None = None, device="cuda"):
+        super().__init__()
+        self.config = dict(img_resolution=img_resolution, img_channels=img_channels,
+                           channel_base=channel_base, channel_max=channel_max,
+                           mbstd_group_size=mbstd_group_size, conv_clamp=conv_clamp)
+        self.channel_base, self.channel_max = channel_base, channel_max
+        self.resolutions = [2**i for i in range(int(math.log2(img_resolution)), 2, -1)]
+        for i, res in enumerate(self.resolutions):
+            self.add_module(f"b{res}", DiscriminatorBlock(
+                0 if i == 0 else self.channels(res), self.channels(res),
+                self.channels(res // 2), img_channels=img_channels, conv_clamp=conv_clamp,
+                device=device))
+        ch4 = self.channels(4)
+        self.mbstd = MinibatchStdLayer(mbstd_group_size)
+        self.conv = Conv2dLayer(ch4 + 1, ch4, 3, activation="lrelu", conv_clamp=conv_clamp,
+                                device=device)
+        self.fc = FullyConnected(ch4 * 16, ch4, activation="lrelu", device=device)
+        self.out = FullyConnected(ch4, 1, device=device)
+
+    def channels(self, res: int) -> int:
+        return min(self.channel_base // res, self.channel_max)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        x = None
+        for i, res in enumerate(self.resolutions):
+            x = getattr(self, f"b{res}")(x, img if i == 0 else None)
+        x = self.conv(self.mbstd(x))
+        # JAX flattens NHWC: the fc's input runs over (h, w, c).
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.out(self.fc(x))
 
 
 def adapted_state_from_gan(adapted_state: dict, gan_state: dict) -> dict:

@@ -43,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # built once per shape by the op's wrapper), then the stream.
 _SIGNATURES = {
     "bias_act": ("bias_act", "viscoin_bias_act", 5),            # x, b, y, plan, stream
-    "bias_act_grad": ("bias_act", "viscoin_bias_act_grad", 7),  # x, b, dy, dx, db, plan, stream
+    # x, b, dy, dy_add, dx, db, db's scratch, plan, stream
+    "bias_act_grad": ("bias_act", "viscoin_bias_act_grad", 9),
     "upfirdn2d": ("upfirdn2d", "viscoin_upfirdn2d", 4),         # x, y, plan, stream
 }
 KERNELS = tuple(_SIGNATURES)

@@ -9,12 +9,17 @@ Dispatch follows the JAX rule (``impl="pallas"`` only for linear / relu /
 lrelu on rank >= 2): those three go through one ``torch.autograd.Function``
 whose forward is the hand-written CUDA kernel (``csrc/bias_act.cu``) for a
 CUDA tensor and :func:`bias_act_plain` for a CPU tensor, and whose backward
-is the hand-written backward kernel of the same source for a CUDA tensor and
-:func:`bias_act_grad_plain` for a CPU tensor. The backward is the value of
-``jax.grad`` of the JAX package's XLA path, ties included, to first order
-only (a second backward raises). The other six activations take the composed
-torch path on every device, as in JAX, with torch's autograd. There is no
-fallback: a CUDA tensor launches the kernel or raises.
+is a second Function, ``(x, b, dy) -> (dx, db)``: the hand-written backward
+kernel of the same source for a CUDA tensor and :func:`bias_act_grad_plain`
+for a CPU tensor. Its own backward, the second order (R1 and path-length
+regularisation), is that kernel again: dx and db are linear in dy and
+piecewise constant in x and b, so the gradient of dy is
+``(g_dx + g_db) * clip' * gain * act'`` (the kernel with ``dy_add = g_db``)
+and those of x and b are zero. Both orders are the value of ``jax.grad`` of
+the JAX package's XLA path, ties included; a third order raises. The other
+six activations take the composed torch path on every device, as in JAX,
+with torch's autograd. There is no fallback: a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -80,9 +85,9 @@ def bias_act(
 
 
 class _BiasAct(torch.autograd.Function):
-    """The kernel activations with their backward: kernels for CUDA tensors,
-    the plain versions for CPU tensors. x and b are saved and the
-    pre-activation is recomputed in the backward."""
+    """The kernel activations: the forward kernel for CUDA tensors, the plain
+    version for CPU tensors. x and b are saved and the pre-activation is
+    recomputed in the backward, :class:`_BiasActGrad`."""
 
     @staticmethod
     def forward(ctx, x, b, act, alpha, gain, clamp):
@@ -93,13 +98,40 @@ class _BiasAct(torch.autograd.Function):
         return bias_act_plain(x, b, **ctx.args)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         x, b = ctx.saved_tensors
         need_dx, need_db = ctx.needs_input_grad[:2]
-        grad = _bias_act_grad_cuda if x.device.type != "cpu" else bias_act_grad_plain
-        dx, db = grad(x, b, dy, need_db=need_db, **ctx.args)
+        dx, db = _BiasActGrad.apply(x, b, dy, ctx.args, need_db)
         return (dx if need_dx else None), db, None, None, None, None
+
+
+class _BiasActGrad(torch.autograd.Function):
+    """``(x, b, dy) -> (dx, db)``: the backward kernel for CUDA tensors, the
+    plain version for CPU tensors (db None without a bias or when not
+    ``need_db``). Differentiable once more, in dy only (see the module's
+    docstring): the same kernel with the incoming g_db added to g_dx."""
+
+    @staticmethod
+    def forward(ctx, x, b, dy, args, need_db):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, b)
+        ctx.args = args
+        return _grad_route(x)(x, b, dy, need_db=need_db, **args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_dx, g_db):
+        if not ctx.needs_input_grad[2] or (g_dx is None and g_db is None):
+            return None, None, None, None, None
+        x, b = ctx.saved_tensors
+        if g_dx is None:
+            g_dx = torch.zeros_like(x)
+        g_dy, _ = _grad_route(x)(x, b, g_dx, dy_add=g_db, need_db=False, **ctx.args)
+        return None, None, g_dy, None, None
+
+
+def _grad_route(x: torch.Tensor):
+    return _bias_act_grad_cuda if x.device.type != "cpu" else bias_act_grad_plain
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -114,6 +146,14 @@ def _bias_view(b: torch.Tensor, x: torch.Tensor, ct: torch.dtype) -> torch.Tenso
     shape = [1] * x.ndim
     shape[1] = -1
     return b.to(x.dtype).to(ct).reshape(shape)
+
+
+def _add_view(dy_add: torch.Tensor, x: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
+    """The second-order addend as the kernel reads it: in ``ct`` (fp32, or
+    float64 for float64 inputs), shaped to broadcast along dim 1."""
+    shape = [1] * x.ndim
+    shape[1] = -1
+    return dy_add.to(ct).reshape(shape)
 
 
 def _activate(t: torch.Tensor, act: str, alpha) -> torch.Tensor:
@@ -141,18 +181,22 @@ def bias_act_plain(x, b=None, *, act="linear", alpha=None, gain=None, clamp=None
     return y.to(x.dtype)
 
 
-def bias_act_grad_plain(x, b, dy, *, act, alpha=None, gain, clamp=None, need_db=True):
+def bias_act_grad_plain(x, b, dy, *, act, alpha=None, gain, clamp=None, need_db=True,
+                        dy_add=None):
     """The plain version of the backward kernel, for linear / relu / lrelu:
-    ``(dx, db)`` with dx = dy * clip'(y0) * gain * act'(t) (t = x + b,
-    y0 = gain * act(t)) in x's type and db = sum of dx over every dim but 1
-    in b's type and device (None without a bias or when not ``need_db``).
-    Ties take jax.grad's values: relu'(0) = 1/2, lrelu'(0) = 1, and
-    clip' = 1/2 at y0 = -clamp or +clamp."""
+    ``(dx, db)`` with dx = g * clip'(y0) * gain * act'(t) (t = x + b,
+    y0 = gain * act(t), g = dy, plus the per-channel vector ``dy_add``
+    broadcast along dim 1 where given, computed in fp32) in x's type and
+    db = sum of dx over every dim but 1 in b's type and device (None without
+    a bias or when not ``need_db``). Ties take jax.grad's values:
+    relu'(0) = 1/2, lrelu'(0) = 1, and clip' = 1/2 at y0 = -clamp or +clamp."""
     ct = _compute_dtype(x.dtype)
     t = x.to(ct)
     if b is not None:
         t = t + _bias_view(b, x, ct)
     g = dy.to(ct)
+    if dy_add is not None:
+        g = g + _add_view(dy_add, x, ct)
     half = torch.tensor(0.5, dtype=ct, device=x.device)
     if clamp is not None and clamp >= 0:
         y = _activate(t, act, alpha) * gain
@@ -286,23 +330,34 @@ def _bias_act_cuda(x, b, *, act, alpha, gain, clamp):
     return y
 
 
-def _bias_act_grad_cuda(x, b, dy, *, act, alpha, gain, clamp, need_db=True):
+def _bias_act_grad_cuda(x, b, dy, *, act, alpha, gain, clamp, need_db=True, dy_add=None):
     """The backward kernel: ``(dx, db)`` as :func:`bias_act_grad_plain`
     returns them. ``dy`` may be any layout (autograd hands over expanded
-    and non-contiguous gradients); it is made contiguous in x's type."""
+    and non-contiguous gradients); it is made contiguous in x's type.
+    ``dy_add`` (the second order's g_db) is read in fp32."""
     b_orig = b
     x, b = _kernel_inputs("bias_act_grad", x, b)
     fn = _kernels.entry("bias_act_grad")
     if dy.shape != x.shape:
         raise ValueError(f"dy shape {tuple(dy.shape)} != x shape {tuple(x.shape)}")
     dy = dy.to(device=x.device, dtype=x.dtype).contiguous()
+    if dy_add is not None:
+        if dy_add.shape != (x.shape[1],):
+            raise ValueError(f"dy_add shape {tuple(dy_add.shape)} != ({x.shape[1]},)")
+        dy_add = dy_add.to(device=x.device, dtype=torch.float32).contiguous()
     dx = torch.empty_like(x)
-    db = None
-    if b is not None and need_db:
-        db = torch.zeros(x.shape[1], device=x.device, dtype=torch.float32)
     params = _kernel_params(x, vector_aligned(x, b, dy, dx), act, alpha, gain, clamp)
-    rc = fn(x.data_ptr(), None if b is None else b.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            None if db is None else db.data_ptr(), ctypes.addressof(params),
+    db = scratch = None
+    if b is not None and need_db:
+        db = torch.empty(x.shape[1], device=x.device, dtype=torch.float32)
+        # The kernel's per-(row, chunk) partial sums of db (per element for
+        # (B, F) features), summed per channel in a fixed order.
+        n = params.rows * (params.chunks if params.bias_mode == 0 else params.row_len)
+        scratch = torch.empty(n, device=x.device, dtype=torch.float32)
+    rc = fn(x.data_ptr(), None if b is None else b.data_ptr(), dy.data_ptr(),
+            None if dy_add is None else dy_add.data_ptr(), dx.data_ptr(),
+            None if db is None else db.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), ctypes.addressof(params),
             _kernels.current_stream(x))
     _kernels.check("bias_act_grad", rc)
     if db is not None:

@@ -17,7 +17,10 @@ Counterpart of ``viscoin_tpu/utils/checkpoints.py``.
     :func:`restore_train_state`) is a directory with ``train_state.pt``
     (step, trainable parameters, both Adam ``state_dict``s, gradient
     accumulation buffers) and ``train_state_meta.json``, the run's
-    invariants under the JAX package's keys and mismatch rule.
+    invariants under the JAX package's keys and mismatch rule. The GAN
+    trainer's (:func:`save_gan_train_state`, :func:`restore_gan_train_state`)
+    has the same two files, with the generator, discriminator and EMA state
+    dicts, both Adams, w_avg, pl_mean and the ADA state.
 
 Every save is atomic: written into ``<path>.tmp`` and swapped in by two
 renames, so a crash leaves the old or the new checkpoint loadable (between
@@ -309,5 +312,64 @@ def restore_train_state(state, path: str, expect_meta: dict | None = None):
         for g, grp in state.acc.items():
             for n, buf in grp.items():
                 buf.copy_(saved["acc"][g][n])
+    state.step = int(saved["step"])
+    return state
+
+
+# -------------------------- the GAN training state -------------------------- #
+
+
+def gan_train_state_dict(state) -> dict:
+    """A ``train.gan.GANTrainState`` as host tensors: step, the generator's,
+    discriminator's and EMA's state dicts, both Adam state_dicts, w_avg,
+    pl_mean, ada_p and the r_t accumulator."""
+    return _to_host({
+        "step": int(state.step),
+        "generator": state.generator.state_dict(),
+        "discriminator": state.discriminator.state_dict(),
+        "g_ema": state.g_ema.state_dict(),
+        "g_opt": state.g_opt.state_dict(),
+        "d_opt": state.d_opt.state_dict(),
+        "w_avg": state.w_avg, "pl_mean": state.pl_mean, "ada_p": state.ada_p,
+        "ada_rt": state.ada_rt,
+    })
+
+
+def save_gan_train_state(state, path: str, meta: dict | None = None,
+                         async_save: bool = False) -> None:
+    """Save a ``GANTrainState`` (snapshot to the host now) as
+    ``train_state.pt`` + ``train_state_meta.json``, like
+    :func:`save_train_state`."""
+    snapshot = gan_train_state_dict(state)
+    extra = {META_NAME: json.dumps(meta, indent=2)} if meta is not None else {}
+
+    def write(tmp):
+        torch.save(snapshot, os.path.join(tmp, STATE_NAME))
+        _write_text(tmp, extra)
+
+    _save(path, write, async_save)
+
+
+@torch.no_grad()
+def restore_gan_train_state(state, path: str, expect_meta: dict | None = None):
+    """Restore into a freshly created GANTrainState of the same config (in
+    place: the three modules, both optimizers, w_avg, pl_mean, the ADA
+    state, step). ``expect_meta``: the current run's invariants; a mismatch
+    raises, as does a module whose keys or shapes differ."""
+    wait_for_saves()
+    _check_meta(path, expect_meta)
+    file = os.path.join(_resolve_existing(path), STATE_NAME)
+    if not os.path.exists(file):
+        raise ValueError(f"{path}: no {STATE_NAME}; the port resumes `train gan` from its own "
+                         f"training state ({STATE_NAME} + {META_NAME}, written by "
+                         "save_gan_train_state)")
+    saved = torch.load(file, map_location="cpu", weights_only=True)
+    for key in ("generator", "discriminator", "g_ema"):
+        getattr(state, key).load_state_dict(saved[key])
+    state.g_opt.load_state_dict(saved["g_opt"])
+    state.d_opt.load_state_dict(saved["d_opt"])
+    for key in ("w_avg", "pl_mean", "ada_rt"):
+        setattr(state, key, saved[key].to(getattr(state, key).device))
+    state.ada_p = saved["ada_p"].to(torch.float32)
     state.step = int(saved["step"])
     return state
