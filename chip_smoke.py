@@ -46,12 +46,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                loader with 8 threads, prefetch 1): run A (8 iterations,
                eval, checkpoint and probe every 4), run B (checkpoint every
                3, stopped after 4, resumed to 8: the same batches, step
-               seeds and sampler seeds as A; with cuDNN deterministic,
-               within RESUME_RTOL of A2, the unbroken run, in every loss
-               and every tensor of the training state saved at step 7
-               (parameters, both Adam states) and of the final parameters;
-               run B3, a resume that drops the Adam moments, must fail
-               that check by 100x), run C
+               seeds and sampler seeds as A; under deterministic
+               algorithms (cuDNN's, torch.use_deterministic_algorithms
+               with warn_only, whose warnings are reported),
+               bit-equal to A2, the unbroken run, in every loss and every
+               tensor of the training state saved at step 7 (parameters,
+               both Adam states) and of the final parameters; run B3, a
+               resume that drops the Adam moments, must fail that check),
+               run C
                (gradient accumulation 2: the parameters move after
                micro-steps 2 and 4 only), run D (device busy
                share over 3 profiled steps), run E (no cadences, 12
@@ -86,9 +88,35 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                (checkpoint and snapshot every 2), a resume to 6 within
                RESUME_RTOL of an unbroken run to 6, then `train viscoin`
                loading the exported EMA generator;
- 14. timings   per kernel (CUDA events at the path's shapes, summed over the
-               loop's run A and the GAN's 16-step cycle as they made each
-               call, and over one reconstruct
+ 14. port      seeded sources in the reference's layouts at the manifests'
+               full shapes (ResNet-50 with 200 and 10 classes, LPIPS-VGG,
+               pytorch-fid Inception, the 256² NVlabs generator and
+               discriminator in a fabricated network pickle), clean against
+               the manifests; `port-weights --strict` on each (loaded on
+               the card) to the commands' default paths; `--check` exits 1
+               on a mis-shaped copy; each result on the card, exported and
+               imported again, bit-equal to its source; `train viscoin`
+               then reads the ported classifier, GAN and LPIPS (phase 15);
+ 15. fid       Inception features card against the host CPU (TF32 at the
+               defaults); the inception-nvlabs route (a traced full-width
+               detector in that convention, ported, both compared on the
+               card); `train gan --fid-every 2 --fid-samples 64` at 256²,
+               full width, 4 iterations, its last FID against a
+               recomputation from its export with the same draws; the FID
+               sampling's launches against the CPU's count; `train viscoin
+               --fid-detector` on the ported pieces, one eval, finite
+               fid_score; an Inception batch of 64 and an estimate of 64
+               fakes timed;
+ 16. classifier one fp32 train step (ResNet-50, 200 classes, 256², batch
+               8) card against the host CPU: loss, every gradient, the BN
+               running statistics; the step at batch 32 in fp32 and bf16
+               (median of 10 after 3, img/s, peak memory, busy share);
+               `train classifier` from the ported classifier, then `test
+               classifier` on its output (the best epoch's accuracy), which
+               loads as `train viscoin` loads its classifier;
+ 17. timings   per kernel (CUDA events at the path's shapes, summed over the
+               loop's run A, the GAN's 16-step cycle and one FID estimate as
+               they made each call, and over one reconstruct
                batch or one train step) beside its plain version,
                a one-call PyTorch yardstick where one exists, and its
                memory/compute bound; for the largest shapes the profiler's
@@ -99,15 +127,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                smallest path shape; the same for a probe chunk (N = 32) and
                an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
                and peak memory, and a torch.profiler breakdown of reconstruct;
- 15. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+ 18. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
                library_ms all over the loop's run A (``ms_over`` says so),
-               and the same over the GAN cycle (``gan_cycle_*``); then the
-               device line, last.
+               the same over the GAN cycle (``gan_cycle_*``) and over one
+               FID estimate (``fid_sampling_*``); then the device line,
+               last.
 
 It imports torch and viscoin_tpu_torch only.
 """
 
 from __future__ import annotations
+
+import os
+
+# cuBLAS is deterministic only with a fixed workspace, set before CUDA starts
+# (the loop phase holds a resumed run bit-equal to the unbroken one).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
 import contextlib
@@ -116,7 +151,6 @@ import importlib
 import io
 import json
 import math
-import os
 import shutil
 import statistics
 import subprocess
@@ -125,6 +159,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -147,8 +182,11 @@ from viscoin_tpu_torch.serve.server import VisCoINServer
 from viscoin_tpu_torch.train import gan as TG
 from viscoin_tpu_torch.train.augment import augment
 from viscoin_tpu_torch.train import viscoin as T
+from viscoin_tpu_torch.train.viscoin import fold_seed
 from viscoin_tpu_torch.utils import checkpoints as ckpt
+from viscoin_tpu_torch.utils import exporting, porting
 from viscoin_tpu_torch.utils.logging import configure_score_logging
+from viscoin_tpu_torch.utils.weights import load_jax_tree, module_to_jax_tree
 
 ba = importlib.import_module("viscoin_tpu_torch.ops.bias_act")
 up = importlib.import_module("viscoin_tpu_torch.ops.upfirdn2d")
@@ -978,15 +1016,15 @@ EVAL_BATCHES = math.ceil(LOOP_N_TEST / BATCH)
 # weight gradients) two identical runs drift apart by 1e-3 of the loss within
 # 4 steps: Adam's first updates (lr * g / |g|) turn any gradient difference
 # near zero into a step of lr. So B and A2 run with cuDNN's deterministic
-# algorithms. What stays free is the order of atomic adds, as in the backward
-# of the concept extractor's adaptive 3x3 pooling (no deterministic CUDA
-# version): the losses came out bit-equal in every card run, but once the
-# state differed in the last bits of conv5 (the layer before that pooling)
-# and its Adam moments. So every loss and every tensor of the state and of
-# the final parameters is held within RESUME_RTOL of A2's, relative (||B -
-# A2|| / ||A2||, a tensor's deviation spread over its elements), far below
-# the drift of the default algorithms; run B3 plants a fault (the resume
-# drops the Adam moments) and must deviate by over 100x that.
+# algorithms and under torch.use_deterministic_algorithms(True, warn_only=True),
+# whose warnings name any operation that still has no deterministic version
+# (cuBLAS's workspace is fixed by CUBLAS_WORKSPACE_CONFIG, set before CUDA
+# starts). The concept extractor's 3x3 pooling is two matrix products (its
+# adaptive_avg_pool2d's backward added with atomics), so every loss and every
+# tensor of the state and of the final parameters is held bit-equal to A2's;
+# run B3 plants a fault (the resume drops the Adam moments) and must fail
+# that. ``tree_deviation`` reports ||B - A2|| / ||A2|| per tensor.
+# The GAN command's resume (phase gan-cli) is held within RESUME_RTOL.
 RESUME_RTOL = 1e-5
 WATCHED = (("explainer", "linear.weight"), ("mapping", "fixed_w_avg"),
            ("concept_extractor", "conv5.weight"))
@@ -1265,6 +1303,10 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         os.makedirs(dir_b)
         kw_b = dict(kw_a, checkpoint_every=3)
         torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        caught = warnings.catch_warnings(record=True)
+        nondeterministic = caught.__enter__()
+        warnings.simplefilter("always")
         try:
             _, rec_b1, _, counts_b1, tl_b1 = loop_run(models, gen, lpips, dir_b, "b1.jsonl",
                                                       dict(iterations=8),
@@ -1288,7 +1330,11 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
                     dict(kw_b, eval_every=0, faithfulness_every=0,
                          resume_from=os.path.join(dir_b3, "train_state")))
         finally:
+            caught.__exit__(None, None, None)
+            torch.use_deterministic_algorithms(False)
             torch.backends.cudnn.deterministic = False
+        flagged = sorted({str(w.message).splitlines()[0][:200] for w in nondeterministic
+                          if "deterministic" in str(w.message)})
         want_b1 = loop_expected(step_want, sampler_want, per_pass, 4, 2, EVAL_BATCHES, 0)
         want_b2 = loop_expected(step_want, sampler_want, per_pass, 4, 2, EVAL_BATCHES, 1)
         assert counts_b1 == want_b1, ("run B1 launches", counts_b1, want_b1)
@@ -1312,23 +1358,25 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         del m_b, m_a2, m_b3
         out["resume"] = dict(loss_a=loss_a, loss_a2=loss_a2, loss_b=loss_b,
                              rel_a_a2=rel_default, launches_b1=counts_b1, launches_b2=counts_b2,
-                             deviation_b=dev_b, deviation_planted_fault=dev_b3)
+                             deviation_b=dev_b, deviation_planted_fault=dev_b3,
+                             nondeterministic_ops=flagged)
         worst_b = {k: max(v.values(), default=0.0) for k, v in dev_b.items()}
         worst_b3 = {k: max(v.values(), default=0.0) for k, v in dev_b3.items()}
         differ = {k: sorted(p for p, d in v.items() if d > 0) for k, v in dev_b.items()}
         say("loop", f"run B (checkpoint every 3, stopped after 4 at step 4, resumed to 8): "
             f"launches {counts_b1} then {counts_b2} (expected {want_b1}, {want_b2}); the same "
             f"8 batches of dataset indices, step seeds and {len(rec_a.sampler)} sampler seed "
-            f"groups as runs A and A2; cuDNN deterministic for B and A2: largest relative "
-            f"deviation from A2 " + ", ".join(f"{k} {v:.3e}" for k, v in worst_b.items())
-            + f" (tolerance {RESUME_RTOL:g}; tensors not bit-equal: {differ}); run B3 (the "
-            f"resume with the Adam moments dropped, a planted fault): "
+            f"groups as runs A and A2; deterministic algorithms for B and A2 (operations "
+            f"without one: {flagged or 'none'}): largest relative deviation from A2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst_b.items())
+            + f" (held bit-equal; tensors not bit-equal: {differ}); run B3 (the resume with "
+            f"the Adam moments dropped, a planted fault): "
             + ", ".join(f"{k} {v:.3e}" for k, v in worst_b3.items())
             + f"; A (PyTorch's defaults) against A2, loss steps 5-8: max relative "
             f"{max(rel_default[4:]):.3e} (not held); A2's losses "
             + ", ".join(f"{v:.5f}" for v in loss_a2))
-        assert max(worst_b.values()) <= RESUME_RTOL, ("run B deviates from A2", dev_b)
-        assert min(worst_b3[k] for k in ("state", "final")) > 100 * RESUME_RTOL, \
+        assert max(worst_b.values()) == 0.0, ("run B is not bit-equal to A2", differ, dev_b)
+        assert min(worst_b3[k] for k in ("state", "final")) > 0.0, \
             ("the resume check would miss dropped Adam moments", dev_b3)
 
         # Run C: gradient accumulation 2, 4 micro-steps.
@@ -1977,6 +2025,591 @@ def phase_gan_cli(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------- weights, FID, the classifier ----------------------- #
+
+# The three phases share one directory, laid out as a user's: the ported
+# checkpoints at the paths the commands read.
+PIPE_N = 64  # synthetic images per split for the pipeline's commands
+FID_SAMPLES, FID_BATCH = 64, GAN_BATCH
+CPU_FEATURE_TOL = 1e-2  # Inception features, card (TF32 defaults) vs CPU, of the features' scale
+FID_RECOMPUTE_RTOL = 1e-4
+CLS_CPU_BATCH, CLS_BATCH = 8, 32
+# The classifier step card vs CPU. In float64: loss, every gradient (of the
+# leaf's scale) and the running statistics. In fp32 the loss and the running
+# statistics; the fp32 gradients of this random, train-mode-BN ResNet-50 are
+# not held: on the CPU alone they are 2e-2 (median) and up to 0.19 of their
+# leaf's scale from its float64 gradients (the same at 128² and batch 32, with
+# a fast or a two-pass variance), an fp32 spread the card cannot beat.
+CLS_LOSS_RTOL, CLS_STATS_TOL = 1e-5, 1e-4
+CLS_F64_TOL = (1e-10, 1e-6, 1e-10)  # loss, gradients, running statistics (float64)
+
+
+def _torch_sd(sd: dict) -> dict:
+    return {k: torch.as_tensor(np.asarray(v)).clone() for k, v in sd.items()}
+
+
+def lpips_state_dict(params: dict) -> dict:
+    """The pip-lpips state_dict of LPIPS params (JAX layout): the inverse of
+    ``convert_torch_lpips``, to build a source in the reference's layout."""
+    sd = {}
+    convs = [(s, li) for s, layers in porting._LPIPS_SLICES.items() for li in layers]
+    for k, (s, li) in enumerate(convs):
+        sd[f"net.slice{s}.{li}.weight"] = exporting._conv_back(params["vgg"][f"conv{k}"]["kernel"])
+        sd[f"net.slice{s}.{li}.bias"] = np.asarray(params["vgg"][f"conv{k}"]["bias"])
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = np.asarray(params[f"lin{i}"]).reshape(1, -1, 1, 1)
+    return sd
+
+
+def _reconstruct_persistent_obj(meta):  # what NVlabs pickles name, by reference
+    return meta
+
+
+_reconstruct_persistent_obj.__module__ = "torch_utils.persistence"
+
+
+class _Persisted:
+    """Pickles as torch_utils.persistence._reconstruct_persistent_obj(meta),
+    as NVlabs' persistent modules do."""
+
+    def __init__(self, meta):
+        self.meta = meta
+
+    def __reduce__(self):
+        import torch_utils.persistence as pers
+
+        return pers._reconstruct_persistent_obj, (self.meta,)
+
+
+def fabricate_nvlabs_pickle(path: str, g_sd: dict, d_sd: dict) -> None:
+    """{'G_ema', 'G', 'D'} in NVlabs' persistence layout (children under
+    ``_modules``, tensors under ``_parameters``/``_buffers``), written with a
+    ``torch_utils`` that exists only for the write."""
+    import pickle
+    import types
+
+    buffers = ("w_avg", "noise_const", "resample_filter")
+
+    def meta(sd: dict) -> dict:
+        root: dict = {}
+        for key, value in sd.items():
+            node = root
+            *parts, leaf = key.split(".")
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[leaf] = value
+
+        def build(node):
+            state = {"training": False,
+                     "_parameters": {k: torch.as_tensor(v) for k, v in node.items()
+                                     if not isinstance(v, dict) and k not in buffers},
+                     "_buffers": {k: torch.as_tensor(v) for k, v in node.items()
+                                  if not isinstance(v, dict) and k in buffers},
+                     "_modules": {k: _Persisted(build(v)) for k, v in node.items()
+                                  if isinstance(v, dict)}}
+            return {"type": "class", "version": 3, "module_src": "# source elided",
+                    "class_name": "Module", "state": state}
+
+        return build(root)
+
+    pers = types.ModuleType("torch_utils.persistence")
+    pers._reconstruct_persistent_obj = _reconstruct_persistent_obj
+    tu = types.ModuleType("torch_utils")
+    tu.persistence = pers
+    sys.modules["torch_utils"], sys.modules["torch_utils.persistence"] = tu, pers
+    try:
+        g = _Persisted(meta(g_sd))
+        with open(path, "wb") as f:
+            pickle.dump({"G_ema": g, "G": g, "D": _Persisted(meta(d_sd))}, f)
+    finally:
+        del sys.modules["torch_utils"], sys.modules["torch_utils.persistence"]
+
+
+def assert_trees_equal(a, b, path: str = "") -> None:
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (path, sorted(set(a) ^ set(b))[:5])
+        for k in a:
+            assert_trees_equal(a[k], b[k], f"{path}/{k}")
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), path
+
+
+def _port_main(argv: list[str]) -> int:
+    """``python -m viscoin_tpu_torch <argv>`` in this process; the exit code."""
+    from viscoin_tpu_torch.__main__ import main
+
+    try:
+        return main(argv)
+    except SystemExit as done:
+        return int(done.code or 0)
+
+
+def pipe_env() -> dict:
+    repo = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items() if k != "VISCOIN_SYNTH_SIZE"}
+    env.update(VISCOIN_SYNTH_N=str(PIPE_N), PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH",
+                                                                                     ""))
+    return env
+
+
+def run_command(label: str, args: list[str], cwd: str, out: dict, deterministic=False) -> str:
+    """``python -m viscoin_tpu_torch <args>`` in a process of its own; its
+    standard output. Raises on a non-zero exit."""
+    cmd = gan_cli_command(args) if deterministic else [sys.executable, "-m",
+                                                       "viscoin_tpu_torch", *args]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=cwd, env=pipe_env(), capture_output=True, text=True,
+                         timeout=900)
+    out[f"{label}_s"] = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"`{' '.join(args[:2])}` ({label}) exited {res.returncode}:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def phase_port(work: str, card: str) -> dict:
+    """Seeded sources in the reference's layouts at the manifests' full
+    shapes (ResNet-50 classifiers with 200 and with 10 classes, LPIPS-VGG,
+    pytorch-fid Inception, the 256² NVlabs generator and discriminator in a
+    fabricated network pickle), each held against its manifest; `port-weights`
+    on each (loading it on the card) to the commands' default paths; `--check`
+    on a mis-shaped copy must exit 1; each result loaded onto the card, then
+    exported and imported again, bit-equal to the source and to the port."""
+    from viscoin_tpu_torch.cli import port_weights as pw
+    from viscoin_tpu_torch.cli.train import build_gan_modules
+    from viscoin_tpu_torch.models.inception import InceptionV3Features, inception_from_tree
+    from viscoin_tpu_torch.models.resnet import Classifier
+
+    t_start = time.perf_counter()
+    src = os.path.join(work, "sources")
+    os.makedirs(src)
+    out: dict = {"ported": {}}
+    sources: dict = {}
+    for n in (200, 10):
+        m = init_models(Classifier(output_classes=n, device="cuda"), SEED + 90 + n)
+        perturb_constants(m, SEED + 91 + n)
+        sources[f"classifier{n}"] = exporting.export_classifier_torch(module_to_jax_tree(m))
+    lp = init_models(LPIPS(device="cuda"), SEED + 93)
+    perturb_constants(lp, SEED + 94)
+    sources["lpips"] = lpips_state_dict(module_to_jax_tree(lp)["params"])
+    inc = InceptionV3Features(device="cuda")
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 95)
+        for mod in inc.modules():
+            if isinstance(mod, torch.nn.Conv2d):  # He-normal: the features keep the signal
+                mod.weight.normal_(0.0, math.sqrt(2.0 / mod.weight[0].numel()), generator=gen)
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.uniform_(-0.2, 0.2, generator=gen)
+    sources["inception"] = porting.state_dict_to_numpy(inc.state_dict())
+    g, d = build_gan_modules(RES, CHANNEL_BASE, CHANNEL_MAX, GAN_BATCH, device="cuda",
+                             seed=SEED + 96)
+    perturb_constants(g, SEED + 97)
+    perturb_constants(d, SEED + 98)
+    sources["G"] = exporting.export_generator_torch(module_to_jax_tree(g))
+    sources["D"] = exporting.export_discriminator_torch(module_to_jax_tree(d)["params"])
+    del m, lp, inc, g, d
+    manifests = {"classifier200": "classifier", "classifier10": "classifier",
+                 "lpips": "lpips", "inception": "inception", "G": "stylegan_generator"}
+    for key, kind in manifests.items():
+        problems = porting.validate_state_dict(sources[key], kind, strict=False)
+        assert not problems, (key, problems[:5])
+    files = {}
+    for key in ("classifier200", "classifier10", "lpips", "inception"):
+        files[key] = os.path.join(src, f"{key}.pth")
+        torch.save(_torch_sd(sources[key]), files[key])
+    files["stylegan"] = os.path.join(src, "network-snapshot.pkl")
+    fabricate_nvlabs_pickle(files["stylegan"], sources["G"], sources["D"])
+    out["source_params_m"] = {k: sum(np.asarray(v).size for v in sd.values()) / 1e6
+                              for k, sd in sources.items()}
+
+    dst = {"classifier200": "checkpoints/cub/classifier-cub",
+           "classifier10": "checkpoints/synthetic/classifier-synthetic",
+           "lpips": "checkpoints/lpips-vgg", "inception": "checkpoints/inception",
+           "stylegan": "checkpoints/synthetic/gan-synthetic"}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for key, path in dst.items():
+            kind = "classifier" if key.startswith("classifier") else key
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                code = _port_main(["port-weights", kind, files[key], path, "--strict"])
+            assert code == 0, (key, code, log.getvalue()[-2000:])
+            assert "OK" in log.getvalue(), log.getvalue()[-1000:]
+            out["ported"][key] = time.perf_counter() - t0
+        bad = os.path.join(src, "misshaped.pth")
+        mis = dict(sources["classifier10"])
+        mis_key = "resnet.encoder.stages.1.layers.0.layer.1.convolution.weight"
+        mis[mis_key] = mis[mis_key][:, :, :2]
+        torch.save(_torch_sd(mis), bad)
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            codes = (_port_main(["port-weights", "classifier", files["classifier10"], "--check"]),
+                     _port_main(["port-weights", "classifier", bad, "--check"]))
+        assert codes == (0, 1), (codes, log.getvalue()[-2000:])
+        assert f"shape mismatch: {mis_key}" in log.getvalue()
+
+        # Each result on the card, then out to the reference's layout and
+        # back in: bit-equal to the source and to what was written.
+        for key in ("classifier200", "classifier10"):
+            tree = ckpt.restore_pytree(dst[key])
+            model = pw.classifier_from_tree(tree, "cuda")
+            sd = exporting.export_classifier_torch(module_to_jax_tree(model))
+            assert_trees_equal(sd, sources[key], key)
+            assert_trees_equal(porting.convert_torch_classifier(sd), tree, key)
+        tree = ckpt.restore_pytree(dst["lpips"])
+        lp = load_jax_tree(LPIPS(device="cuda"), {"params": tree})
+        assert_trees_equal(lpips_state_dict(module_to_jax_tree(lp)["params"]), sources["lpips"])
+        assert_trees_equal(module_to_jax_tree(lp)["params"], tree, "lpips")
+        tree = ckpt.restore_pytree(dst["inception"])
+        inc = inception_from_tree(tree, "cuda")
+        assert_trees_equal(porting.convert_torch_inception(porting.state_dict_to_numpy(
+            inc.state_dict())), tree, "inception")
+        assert_trees_equal(module_to_jax_tree(inc), tree, "inception")
+        tree = ckpt.restore_pytree(dst["stylegan"])
+        g = pw.generator_from_tree(tree, "cuda")
+        sd = exporting.export_generator_torch(module_to_jax_tree(g))
+        assert_trees_equal(sd, sources["G"], "G")
+        assert_trees_equal(porting.convert_torch_generator(sd), tree, "G")
+        d_tree = ckpt.restore_pytree(dst["stylegan"] + ".discriminator")
+        d = pw.discriminator_from_tree(d_tree, "cuda")
+        sd = exporting.export_discriminator_torch(module_to_jax_tree(d)["params"])
+        assert_trees_equal(sd, sources["D"], "D")
+        assert_trees_equal(porting.convert_torch_discriminator(sd), d_tree, "D")
+    finally:
+        os.chdir(cwd)
+    out["seconds"] = time.perf_counter() - t_start
+    say("port", f"sources at the manifests' full shapes ("
+        + ", ".join(f"{k} {v:.1f} M" for k, v in out["source_params_m"].items())
+        + " values), each clean against its manifest; port-weights --strict on each, loaded "
+        "on the card: " + ", ".join(f"{k} {v:.1f} s" for k, v in out["ported"].items())
+        + f"; --check exits 0 on the clean classifier and 1 on a mis-shaped copy ({mis_key}); "
+        "every "
+        "result loaded on the card, exported and converted again: bit-equal to its source and "
+        f"to what port-weights wrote; the phase took {out['seconds']:.1f} s; {card}")
+    return out
+
+
+class NvlabsStyleDetector(torch.nn.Module):
+    """A detector in the NVlabs convention, as the TorchScript file is
+    built: its own bilinear resize to 299², (x - 128) / 128, then the
+    Inception network (whose parameters trace in the TF graph's order)."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x):
+        if x.shape[2] != 299 or x.shape[3] != 299:
+            x = F.interpolate(x, size=(299, 299), mode="bilinear", align_corners=False)
+        return self.net((x - 128.0) / 128.0)
+
+
+def _rel_dev(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def phase_fid(work: str, device: dict) -> tuple[dict, dict]:
+    """Inception on the card against the card's host CPU (TF32 at
+    PyTorch's defaults); the NVlabs route (a traced full-width detector,
+    ported, the two compared on the card); `train gan --fid-every 2
+    --fid-samples 64` at 256², full width, 4 iterations, under cuDNN
+    deterministic, its last FID against a recomputation from its export with
+    the same draws; `train viscoin --fid-detector` reading the ported
+    classifier, GAN and LPIPS from the default paths, one eval; the FID
+    sampling's launches (one estimate: 4 batches of 16) against the CPU's
+    count, its kernel calls recorded; an Inception batch and a whole FID
+    estimate timed. Returns (record, the FID sampling's kernel calls)."""
+    from viscoin_tpu_torch.cli import port_weights as pw
+    from viscoin_tpu_torch.cli.train import _FID_TAG, _load_fid_detector
+    from viscoin_tpu_torch.eval.fid import fid_from_stats
+    from viscoin_tpu_torch.models import inception as tinc
+
+    card = device["nvidia_smi"]
+    out: dict = {}
+    tf32_defaults(device)
+    det_dir = os.path.join(work, "checkpoints/inception")
+    tree = ckpt.restore_pytree(det_dir)
+    detect = tinc.make_fid_detector(tree, "cuda")
+    x = torch.from_numpy(seeded_images(8, SEED + 100)).cuda()
+    x = device_preprocess(x)
+    feats = detect(x)
+    cpu_feats = tinc.make_fid_detector(tree, "cpu")(x.cpu())
+    out["card_vs_cpu"] = _rel_dev(feats, cpu_feats)
+    assert torch.isfinite(feats).all() and feats.shape == (8, 2048)
+    assert out["card_vs_cpu"] <= CPU_FEATURE_TOL, out["card_vs_cpu"]
+    say("fid", f"Inception features of 8 images at 256² (resized to 299²), ported pytorch-fid "
+        f"weights: card (TF32 at PyTorch's defaults: cudnn {torch.backends.cudnn.allow_tf32}) "
+        f"against the host CPU, max |card - CPU| / max |CPU| = {out['card_vs_cpu']:.3e} "
+        f"(tolerance {CPU_FEATURE_TOL:g})")
+
+    # The NVlabs route: a traced detector in that convention, ported.
+    ts_path = os.path.join(work, "sources", "inception-nvlabs-style.pt")
+    with torch.no_grad():
+        net = tinc.inception_from_tree(tree, "cuda")
+        torch.jit.trace(NvlabsStyleDetector(net).eval(),
+                        torch.zeros(1, 3, 256, 256, device="cuda")).save(ts_path)
+    nv_dir = os.path.join(work, "checkpoints/inception-nvlabs")
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        code = _port_main(["port-weights", "inception-nvlabs", ts_path, nv_dir])
+    assert code == 0, log.getvalue()[-2000:]
+    ts_detect = tinc.make_torchscript_fid_detector(ts_path, "cuda")
+    nv_detect = _load_fid_detector(nv_dir, torch.device("cuda"))
+    x299 = torch.rand(8, 3, 299, 299, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(SEED + 101)) * 4.7 - 2.1
+    out["nvlabs_299"] = _rel_dev(nv_detect(x299), ts_detect(x299))
+    out["nvlabs_256"] = _rel_dev(nv_detect(x), ts_detect(x))
+    assert out["nvlabs_299"] <= pw.NVLABS_TOL, out["nvlabs_299"]
+    say("fid", f"inception-nvlabs: a full-width detector in the NVlabs convention traced on the "
+        f"card and ported ({log.getvalue().strip().splitlines()[-2]}); the ported detector "
+        f"against the TorchScript one on the card, 8 images: {out['nvlabs_299']:.3e} at 299² "
+        f"(tolerance {pw.NVLABS_TOL:g}), {out['nvlabs_256']:.3e} at 256² (the export's own "
+        "half-pixel resize against the TF1 convention, not held)")
+
+    # train gan --fid-every, then the same FID from the export.
+    export = "checkpoints/synthetic/gan-fid"
+    args = ["train", "gan", "--dataset", "synthetic", "--epochs", "4", "--fid-every", "2",
+            "--fid-samples", str(FID_SAMPLES), "--fid-detector", "checkpoints/inception",
+            "--checkpoint-every", "0", "--output-weights", export]
+    log = run_command("train_gan_fid", args, work, out, deterministic=True)
+    recs = [r for r in read_jsonl(os.path.join(work, "gan_4.jsonl")) if "fid" in r]
+    assert [r["iteration"] for r in recs] == [2, 3], recs
+    assert all(math.isfinite(r["fid"]) for r in recs), recs
+    torch.backends.cudnn.deterministic = True
+    try:
+        g = pw.generator_from_tree(ckpt.restore_pytree(os.path.join(work, export)), "cuda").eval()
+        fake_fn, real_fn = TG.make_gan_fid_fns(FID_BATCH)
+        train_ds = SyntheticDataset(n=PIPE_N, image_size=RES, mode="train", transform="gan")
+        t0 = time.perf_counter()
+        real = TG.accumulate_real_fid_stats(detect, real_fn, train_ds, FID_BATCH, FID_SAMPLES,
+                                            device="cuda")
+        out["real_stats_s"] = time.perf_counter() - t0
+        _kernels.reset_launch_counts()
+        with PathRecorder() as rec:
+            fake = TG.accumulate_fake_fid_stats(detect, fake_fn, g, fold_seed(SEED, _FID_TAG, 3),
+                                                FID_SAMPLES)
+        launches = _kernels.launch_counts()
+        fid = fid_from_stats(real, fake)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["fid_logged"], out["fid_recomputed"] = recs[-1]["fid"], fid
+    rel = abs(fid - recs[-1]["fid"]) / abs(recs[-1]["fid"])
+    assert rel <= FID_RECOMPUTE_RTOL, (fid, recs)
+    say("fid", f"python -m viscoin_tpu_torch {' '.join(args)} at 256², full width, {PIPE_N} "
+        f"images, cuDNN deterministic: {out['train_gan_fid_s']:.1f} s; FID records at i = 2 "
+        f"({recs[0]['fid']:.4f}) and i = 3 ({recs[-1]['fid']:.4f}), finite; recomputed here from "
+        f"the exported EMA generator with the draws of i = 3: {fid:.4f} (relative difference "
+        f"{rel:.3e}, tolerance {FID_RECOMPUTE_RTOL:g}); {card}")
+
+    # The FID sampling's launches: the card's count against the CPU's.
+    fake_batches = -(-FID_SAMPLES // FID_BATCH)
+    narrow = init_models(Generator(z_dim=8, w_dim=8, img_resolution=RES, channel_base=256,
+                                   channel_max=8, mapping_layers=2, device="cpu"), 1).eval()
+    per_batch = count_plain_calls(lambda: TG.make_gan_fid_fns(FID_BATCH)[0](narrow, 1))
+    want = {k: v * fake_batches for k, v in per_batch.items()}
+    assert launches == want, (launches, want)
+    calls = rec.unique()
+    assert {n: sum(m for c, m in calls.items() if c[0] == n) for n in KERNELS} == launches
+    out["launches"] = launches
+    say("fid", f"one FID estimate ({FID_SAMPLES} fakes, {fake_batches} EMA-generator batches "
+        f"of {FID_BATCH} at 256², no_grad): launches {launches} = the same sampling's plain "
+        f"calls on the CPU at narrow widths x {fake_batches} ({len(calls)} distinct calls)")
+
+    # train viscoin on the ported pieces, with the FID detector, one eval.
+    args = ["train", "viscoin", "--dataset", "synthetic", "--epochs", "2", "--batch-size",
+            str(BATCH), "--eval-every", "2", "--checkpoint-every", "0", "--faithfulness-every",
+            "0", "--fid-detector", "checkpoints/inception"]
+    log = run_command("train_viscoin_fid", args, work, out)
+    assert "RANDOM" not in log, log[-3000:]
+    evals = [r for r in read_jsonl(os.path.join(work, "viscoin_2.jsonl"))
+             if "test_fid_score" in r]
+    assert len(evals) == 1 and math.isfinite(evals[0]["test_fid_score"]), evals
+    out["viscoin_fid_score"] = evals[0]["test_fid_score"]
+    say("port", f"python -m viscoin_tpu_torch {' '.join(args)} at 256², full width, in the "
+        "directory the port phase filled: it read the ported classifier, GAN and LPIPS from "
+        f"the default paths (no RANDOM warning), {out['train_viscoin_fid_s']:.1f} s")
+    say("fid", f"the same train viscoin run's eval with --fid-detector checkpoints/inception: "
+        f"fid_score {out['viscoin_fid_score']:.4f}, finite; {card}")
+
+    # Timings: an Inception batch of 64, a whole estimate of 64 fakes.
+    batch64 = device_preprocess(torch.from_numpy(seeded_images(64, SEED + 102)).cuda())
+    out["inception_batch_ms"] = cuda_ms(lambda: detect(batch64), iters=5, warmup=2)
+    walls, sqrtm = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fake = TG.accumulate_fake_fid_stats(detect, fake_fn, g, fold_seed(SEED, 7, i),
+                                            FID_SAMPLES)
+        t1 = time.perf_counter()
+        fid_from_stats(real, fake)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        sqrtm.append((time.perf_counter() - t1) * 1e3)
+    out["fid_estimate_ms"], out["fid_sqrtm_ms"] = statistics.median(walls), statistics.median(sqrtm)
+    say("fid", f"an Inception batch of 64 at 256² (resize to 299² included): "
+        f"{out['inception_batch_ms']:.2f} ms on the card (events, mean of 5); a whole FID "
+        f"estimate of {FID_SAMPLES} fakes against cached real statistics: "
+        f"{out['fid_estimate_ms']:.1f} ms on the host clock (median of 2), of which the "
+        f"2048² matrix square root on the host {out['fid_sqrtm_ms']:.1f} ms; the real side "
+        f"({FID_SAMPLES} images, loader included) {1e3 * out['real_stats_s']:.1f} ms; {card}")
+    del g, detect, ts_detect, nv_detect, net
+    torch.cuda.empty_cache()
+    return out, calls
+
+
+def _grad_ratios(got: dict, want: dict) -> dict[str, float]:
+    return {k: float((got[k].double().cpu() - want[k].double()).abs().max()
+                     / want[k].double().abs().max().clamp_min(1e-30)) for k in want}
+
+
+def phase_classifier(work: str, device: dict) -> dict:
+    """The classifier stage at full width (ResNet-50, 200 classes, 256²):
+    one fp32 train step card against the host CPU (TF32 off, the same
+    flips); the step's time at batch 32 in fp32 and bf16; `train classifier`
+    from the ported classifier, then `test classifier` on its output, which
+    then loads as `train viscoin` loads its classifier."""
+    from viscoin_tpu_torch.cli import port_weights as pw
+    from viscoin_tpu_torch.models.resnet import Classifier
+    from viscoin_tpu_torch.train import classifiers as TC
+
+    card = device["nvidia_smi"]
+    out: dict = {}
+    tree = ckpt.restore_pytree(os.path.join(work, "checkpoints/cub/classifier-cub"))
+    set_tf32(False)
+    model = pw.classifier_from_tree(tree, "cuda")
+    rng = np.random.default_rng(SEED + 110)
+    images = torch.from_numpy(seeded_images(CLS_CPU_BATCH, SEED + 111))
+    labels = torch.from_numpy(rng.integers(0, N_CLASSES, CLS_CPU_BATCH))
+    flips = TC.draw_flips(SEED, 0, CLS_CPU_BATCH, "cpu")
+
+    # The float64 twin takes one preprocessed input: the card's fp32 divide by
+    # 255 (a product with the reciprocal) is an ulp off the CPU's in places,
+    # and this step amplifies an input change by ~1e6 in its gradients.
+    x64 = device_preprocess(images, flips).double()
+
+    def step_grads(dev: str, dtype: torch.dtype):
+        """The step's loss (classifier_loss in fp32; its float64 twin on one
+        preprocessed input), every gradient and the running statistics after
+        the forward."""
+        m = copy.deepcopy(model).to(dev, dtype)
+        params = dict(m.named_parameters())
+        if dtype == torch.float32:
+            loss, _ = TC.classifier_loss(m, images.to(dev), labels.to(dev), flips.to(dev))
+        else:
+            logits, _ = m(x64.to(dev), train=True)
+            loss = F.cross_entropy(logits, labels.to(dev))
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        stats = {k: v.detach().double().cpu() for k, v in m.named_buffers() if "running" in k}
+        return float(loss), {k: g.double().cpu() for k, g in grads.items()}, stats
+
+    runs = {(dev, str(dt).removeprefix("torch.")): step_grads(dev, dt)
+            for dev in ("cuda", "cpu") for dt in (torch.float64, torch.float32)}
+    out["card_vs_cpu"] = {}
+    for dt, (loss_tol, grad_tol, stats_tol) in (("float64", CLS_F64_TOL),
+                                                 ("float32", (CLS_LOSS_RTOL, None,
+                                                              CLS_STATS_TOL))):
+        (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = runs["cuda", dt], runs["cpu", dt]
+        rec = dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=abs(l_card - l_cpu) / abs(l_cpu),
+                   grad_rel=_grad_ratios(g_card, g_cpu), stats_rel=_grad_ratios(s_card, s_cpu))
+        # fp32's own spread: each device's fp32 gradients against its float64 ones.
+        if dt == "float32":
+            rec["card_f32_vs_f64"] = _grad_ratios(g_card, runs["cuda", "float64"][1])
+            rec["cpu_f32_vs_f64"] = _grad_ratios(g_cpu, runs["cpu", "float64"][1])
+        out["card_vs_cpu"][dt] = rec
+        wg = max(rec["grad_rel"], key=rec["grad_rel"].get)
+        ws = max(rec["stats_rel"], key=rec["stats_rel"].get)
+        spread = "" if dt == "float64" else (
+            "; fp32's own spread, each device's fp32 gradients against its float64 ones: card "
+            f"worst {max(rec['card_f32_vs_f64'].values()):.3e}, median "
+            f"{statistics.median(rec['card_f32_vs_f64'].values()):.3e}; CPU worst "
+            f"{max(rec['cpu_f32_vs_f64'].values()):.3e}, median "
+            f"{statistics.median(rec['cpu_f32_vs_f64'].values()):.3e} (the gradients are not "
+            "held in fp32: the CPU alone misses 1e-2 against float64)")
+        say("classifier", f"one train step at full width (ResNet-50, {N_CLASSES} classes, "
+            f"{RES}², batch {CLS_CPU_BATCH}, the same flips), {dt}, TF32 off, card against the "
+            f"host CPU: loss {l_card:.9f} / {l_cpu:.9f} (relative {rec['loss_rel']:.3e}, "
+            f"tolerance {loss_tol:g}); {len(rec['grad_rel'])} gradients, max |card - CPU| / "
+            f"the leaf's max: worst {wg} {rec['grad_rel'][wg]:.3e}, median "
+            f"{statistics.median(rec['grad_rel'].values()):.3e}"
+            + (f" (tolerance {grad_tol:g})" if grad_tol else " (reported)")
+            + f"; {len(rec['stats_rel'])} BN running statistics after the forward: worst {ws} "
+            f"{rec['stats_rel'][ws]:.3e} (tolerance {stats_tol:g})" + spread)
+        assert rec["loss_rel"] <= loss_tol, (dt, rec["loss_rel"])
+        assert grad_tol is None or rec["grad_rel"][wg] <= grad_tol, (dt, wg, rec["grad_rel"][wg])
+        assert rec["stats_rel"][ws] <= stats_tol, (dt, ws, rec["stats_rel"][ws])
+    del runs
+
+    # The step's time at batch 32, TF32 at PyTorch's defaults.
+    tf32_defaults(device)
+    batch = torch.from_numpy(seeded_images(CLS_BATCH, SEED + 112)).cuda()
+    blabels = torch.from_numpy(rng.integers(0, N_CLASSES, CLS_BATCH)).cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype in ("float32", "bfloat16"):
+        m = pw.classifier_from_tree(tree, "cuda")
+        state = TC.create_classifier_state(m, TC.ClassifierTrainingParams(), 100)
+        step = TC.make_classifier_train_step(dtype)
+
+        def one(i):
+            loss, _ = step(state, batch, blabels, TC.draw_flips(SEED, i, CLS_BATCH, "cuda"))
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(13):
+            t0 = time.perf_counter()
+            loss = float(one(i))
+            times.append((time.perf_counter() - t0) * 1e3)
+        assert math.isfinite(loss), loss
+        med = statistics.median(times[3:])
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        one(13)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(14, 17):
+                one(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in kernel_events(prof)) / 1e3
+        out[dtype] = dict(step_ms=times, step_ms_median=med, img_per_s=CLS_BATCH / med * 1e3,
+                          peak_mib=peak, busy_ms=busy, wall_ms=wall, busy_share=busy / wall)
+        say("classifier", f"train step {dtype}, batch {CLS_BATCH}, {RES}²: median "
+            f"{med:.2f} ms of 10 after 3 (min {min(times[3:]):.2f}), {CLS_BATCH / med * 1e3:.1f} "
+            f"img/s, peak memory {peak:.0f} MiB; 3 profiled steps: device kernels {busy:.1f} ms "
+            f"of {wall:.1f} ms = {100 * busy / wall:.1f}% busy; {card}")
+        del m, state
+        torch.cuda.empty_cache()
+
+    # The commands: train from the ported classifier, test its output.
+    args = ["train", "classifier", "--dataset", "synthetic", "--epochs", "2", "--batch-size",
+            "16", "--checkpoints", "checkpoints/synthetic/classifier-synthetic",
+            "--output-weights", "classifier-trained"]
+    run_command("train_classifier", args, work, out)
+    recs = read_jsonl(os.path.join(work, "classifier_2.jsonl"))
+    assert len(recs) == 2 and all(math.isfinite(v) for r in recs for v in r.values()), recs
+    best = max(r["test_accuracy"] for r in recs)
+    test_args = ["test", "classifier", "--dataset", "synthetic", "--batch-size", "16",
+                 "--checkpoints", "classifier-trained"]
+    log = run_command("test_classifier", test_args, work, out)
+    assert f"Accuracy: {100 * best:.2f}%" in log, (best, log[-1000:])
+    # As `train viscoin` loads checkpoints/<dataset>/classifier-<dataset>.
+    load_jax_tree(Classifier(output_classes=10, device="cuda"),
+                  ckpt.restore_pytree(os.path.join(work, "classifier-trained")))
+    out["records"] = recs
+    say("classifier", f"python -m viscoin_tpu_torch {' '.join(args)} ({PIPE_N} images of "
+        f"{RES}², on the card): {out['train_classifier_s']:.1f} s, test accuracy per epoch "
+        + ", ".join(f"{r['test_accuracy']:.4f}" for r in recs)
+        + f"; `{' '.join(test_args)}` reports the best epoch's {100 * best:.2f}% "
+        f"({out['test_classifier_s']:.1f} s); the output loads into train viscoin's "
+        f"classifier; {card}")
+    return out
+
+
 # --------------------------------- phase 7 ---------------------------------- #
 
 
@@ -2213,7 +2846,7 @@ def kernel_entry(name: str, s: dict, launches: int, over: str) -> dict:
 
 def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: dict,
                   train_calls: dict[str, dict[tuple, int]], eval_calls: dict[str, dict],
-                  gan_cycle_calls: dict, device: dict) -> dict:
+                  gan_cycle_calls: dict, fid_calls: dict, device: dict) -> dict:
     """The loop's run A (``loop_calls``: every call it made, as often as it
     made it), which the kernels line carries: its launches and its times
     describe the same work; beside it the GAN's 16-step fp32 cycle
@@ -2240,6 +2873,20 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
                            sum(m for c, m in gan_cycle_calls.items() if c[0] == name), gan_over)
         entry.update({f"gan_cycle_{k}": gan[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms", "ms_over")})
+    fid_over = (f"one in-loop FID estimate of `train gan --fid-every`: {FID_SAMPLES} fakes, "
+                f"{-(-FID_SAMPLES // FID_BATCH)} EMA-generator batches of {FID_BATCH} at {RES}² "
+                "under no_grad; every kernel call as often as it made it (it makes no "
+                "bias_act_grad call)")
+    sums, rows, host = time_path("float32 FID sampling (summed)", fid_calls, gen, card)
+    detail["fid_sampling"] = {"rows": rows, "sums": sums, "host": host}
+    none = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, lib_all=False, bytes_ms=0.0,
+                ops_ms=0.0)
+    for name, entry in kernels.items():
+        fid = kernel_entry(name, sums.get(name, none),
+                           sum(m for c, m in fid_calls.items() if c[0] == name), fid_over)
+        entry.update({f"fid_sampling_{k}": fid[k] for k in ("launches", "ms", "plain_ms",
+                                                              "bound_ms", "bound_by",
+                                                              "library_ms", "ms_over")})
     for dtype_name, calls in path_calls.items():
         sums, rows, host = time_path(f"{dtype_name} per reconstruct batch of {BATCH}", calls,
                                      gen, card)
@@ -2386,15 +3033,29 @@ def main() -> int:
     del g_gan, d_gan
     torch.cuda.empty_cache()
     record["gan_cli"] = phase_gan_cli(record["device"]["nvidia_smi"])
+    # The pipeline: weights in and out, the FID detector, the classifier stage.
+    work = tempfile.mkdtemp(prefix="viscoin_pipeline_")
+    try:
+        record["port"] = phase_port(work, record["device"]["nvidia_smi"])
+        torch.cuda.empty_cache()
+        record["fid"], fid_calls = phase_fid(work, record["device"])
+        record["classifier"] = phase_classifier(work, record["device"])
+    finally:
+        ckpt.wait_for_saves()
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    set_tf32(False)
+    worst_fid = phase_kernels({"the FID sampling": fid_calls}, configurations=False)
     loop_calls = record["loop"].pop("calls_a")
     # Run A's calls against the plain versions too (the kernels line's path).
     worst_loop = phase_kernels({"the loop's run A": loop_calls}, configurations=False)
-    worst = {k: max(v, worst_loop[k], worst_gan[k]) for k, v in worst.items()}
+    worst = {k: max(v, worst_loop[k], worst_gan[k], worst_fid[k]) for k, v in worst.items()}
     timings = phase_timings(models, path_calls, loop_calls, train_calls, eval_calls,
-                            gan_cycle_calls, record["device"])
+                            gan_cycle_calls, fid_calls, record["device"])
     for name, entry in timings["kernels"].items():
         assert entry["launches"] == record["loop"]["launches"][name], (name, entry)
         assert entry["gan_cycle_launches"] == record["gan"]["float32"]["cycle_launches"][name]
+        assert entry["fid_sampling_launches"] == record["fid"]["launches"][name], (name, entry)
     record["timings"] = timings
     record["max_abs_err"] = worst
     record["profiler_misses"] = PROFILER_MISSES

@@ -32,7 +32,8 @@ from viscoin_tpu_torch.utils.weights import load_jax_tree, module_to_jax_tree
 GAN_OPTIONS = {
     "batch_size", "device", "dataset", "epochs", "learning_rate", "output_weights",
     "data_parallel", "model_parallel", "compute_dtype", "resume_from", "channel_base",
-    "channel_max", "fid_every", "init_from", "ema_rampup", "mirror",
+    "channel_max", "fid_every", "fid_samples", "fid_detector_path", "init_from", "ema_rampup",
+    "mirror",
     "image_size", "snapshot_every", "checkpoint_every", "prefetch",
 }
 TOY_G = dict(z_dim=8, w_dim=16, channel_base=256, channel_max=16, mapping_layers=1)
@@ -208,8 +209,9 @@ def test_init_from_warm_starts_a_fresh_run(toy_cli, monkeypatch, capsys):
 
 
 def test_fid_every_is_a_usage_error(toy_cli, capsys):
-    """--fid-every needs the FID detector, which is not ported: a usage error
-    naming it (exit code 2), before anything is built."""
+    """--fid-every with no FID detector (no --fid-detector and no
+    checkpoints/inception): a usage error naming it (exit code 2), before
+    anything is built."""
     with pytest.raises(SystemExit) as done:
         main([*BASE, "--fid-every", "5"])
     assert done.value.code == 2

@@ -13,6 +13,7 @@ Without a card every test skips (the check is made inside a fixture).
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +28,9 @@ from viscoin_tpu_torch.serve.engine import InferenceEngine
 from viscoin_tpu_torch.train import viscoin as T
 
 pytestmark = pytest.mark.gpu
+# cuBLAS is deterministic only with a fixed workspace, set before it starts
+# (test_concept_extractor_backward_is_deterministic).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 F1D = [1.0, 3.0, 3.0, 1.0]
 UPFIRDN_CASES = [
@@ -521,3 +525,95 @@ def test_toy_amplify_on_the_card_matches_the_cpu(cuda):
                                atol=1e-4)
     for g, w in zip(got.amplified_images, want.amplified_images):
         np.testing.assert_allclose(g, w, atol=1e-3)
+
+
+def test_concept_extractor_backward_is_deterministic(cuda):
+    """The flagship concept extractor's backward at 256² shapes runs under
+    torch.use_deterministic_algorithms(True) (no op on it lacks a
+    deterministic version: the 3x3 pooling is two matrix products) and gives
+    bit-equal gradients twice."""
+    from viscoin_tpu_torch.models.concept_extractor import ConceptExtractor
+
+    psi = init_models(ConceptExtractor(device="cuda"), 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    latents = [torch.randn(s, device="cuda", generator=gen).relu()
+               for s in ((4, 512, 32, 32), (4, 1024, 16, 16), (4, 2048, 8, 8))]
+    params = list(psi.parameters())
+
+    def grads():
+        phi, phi_prime = psi(latents)
+        loss = phi.square().mean() + phi_prime.square().mean()
+        return torch.autograd.grad(loss, params)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, second = grads(), grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert any(float(g.abs().max()) > 0 for g in first)
+
+
+def test_inception_on_the_card_matches_the_cpu(cuda):
+    """The FID detector's Inception (cuDNN convolutions, TF32 off) at 299²,
+    batch 2, the same random weights: features within 1e-4 of their scale."""
+    from viscoin_tpu_torch.models.inception import InceptionV3Features
+
+    assert torch.backends.cudnn.is_available() and torch.backends.cudnn.enabled
+    torch.manual_seed(0)
+    cpu = InceptionV3Features(device="cpu").eval()
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.2, 0.2)
+                m.running_var.uniform_(0.5, 1.5)
+    card = InceptionV3Features(device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 3, 299, 299) * 2 - 1
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.cuda()).cpu()
+    assert got.shape == (2, 2048)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_fid_sampling_launches_match_the_cpu(cuda):
+    """`train gan --fid-every`'s sampling of the EMA generator (under
+    no_grad, random noise): the kernels it launches on the card, counted by
+    the wrappers, equal the plain-version calls of the same sampling on the
+    CPU."""
+    import importlib
+
+    from viscoin_tpu_torch.models.stylegan import Generator
+    from viscoin_tpu_torch.train.gan import make_gan_fid_fns
+
+    ba = importlib.import_module("viscoin_tpu_torch.ops.bias_act")
+    up = importlib.import_module("viscoin_tpu_torch.ops.upfirdn2d")
+
+    kw = dict(z_dim=8, w_dim=16, img_resolution=32, channel_base=256, channel_max=16,
+              mapping_layers=2)
+    fake, _ = make_gan_fid_fns(4)
+    counts = {"bias_act": 0, "upfirdn2d": 0}
+    orig = ba.bias_act_plain, up.upfirdn2d_plain
+
+    def counted(name, f):
+        def wrapped(*a, **k):
+            counts[name] += 1
+            return f(*a, **k)
+        return wrapped
+
+    ba.bias_act_plain, up.upfirdn2d_plain = counted("bias_act", orig[0]), counted("upfirdn2d",
+                                                                                  orig[1])
+    try:
+        fake(init_models(Generator(**kw, device="cpu"), 1).eval(), 5)
+    finally:
+        ba.bias_act_plain, up.upfirdn2d_plain = orig
+    g = init_models(Generator(**kw, device="cuda"), 1).eval()
+    _kernels.reset_launch_counts()
+    fake(g, 5)
+    torch.cuda.synchronize()
+    got = _kernels.launch_counts()
+    assert {k: got[k] for k in counts} == counts and got["bias_act_grad"] == 0
+    assert min(counts.values()) > 0

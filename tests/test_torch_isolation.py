@@ -34,7 +34,12 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.native", "viscoin_tpu_torch.eval.viscoin",
             "viscoin_tpu_torch.utils.checkpoints", "viscoin_tpu_torch.cli.train",
             "viscoin_tpu_torch.__main__", "viscoin_tpu_torch.train.gan",
-            "viscoin_tpu_torch.train.augment"} <= set(mods)
+            "viscoin_tpu_torch.train.augment", "viscoin_tpu_torch.utils.porting",
+            "viscoin_tpu_torch.utils.exporting", "viscoin_tpu_torch.utils.dataclasses",
+            "viscoin_tpu_torch.cli.port_weights", "viscoin_tpu_torch.cli.test",
+            "viscoin_tpu_torch.models.inception", "viscoin_tpu_torch.eval.fid",
+            "viscoin_tpu_torch.eval.classifiers",
+            "viscoin_tpu_torch.train.classifiers"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,6 +94,36 @@ def test_train_gan_command_defaults_to_cuda_and_raises_without_a_card(monkeypatc
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["train", "gan", "--dataset", "synthetic"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["port-weights", "lpips", "src", "dst"],
+    ["port-weights", "export-classifier", "src", "dst"],
+    ["train", "classifier", "--dataset", "synthetic"],
+    ["test", "classifier", "--dataset", "synthetic"],
+], ids=lambda a: " ".join(a[:2]))
+def test_new_commands_default_to_cuda_and_raise_without_a_card(monkeypatch, argv):
+    """`port-weights` (its export kinds too), `train classifier` and `test`
+    run on the card unless given --device cpu; without a card they raise
+    before reading or building anything."""
+    from viscoin_tpu_torch.__main__ import build_parser, main
+
+    assert build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
+def test_fid_detectors_and_the_classifier_trainer_default_to_cuda():
+    import inspect
+
+    from viscoin_tpu_torch.cli.train import build_classifier
+    from viscoin_tpu_torch.models import inception
+
+    for fn in (inception.make_fid_detector, inception.make_nvlabs_fid_detector,
+               inception.make_torchscript_fid_detector, inception.InceptionV3Features,
+               build_classifier):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
 def test_gan_trainer_entry_points_default_to_cuda(monkeypatch):

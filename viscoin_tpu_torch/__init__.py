@@ -9,18 +9,25 @@ Layout:
                forward and backward, plain torch versions for CPU tensors),
                conv2d_resample, modulated_conv2d.
     models/    ResNet-50 classifier f, ConceptExtractor Psi, Explainer Theta,
-               the adapted and the original StyleGAN2 generators, LPIPS-VGG,
-               and the VisCoINModels bundle.
+               the adapted and the original StyleGAN2 generators and the
+               discriminator, LPIPS-VGG, the FID Inception, and the
+               VisCoINModels bundle.
+    manifests/ the key and shape inventories of the reference's torch
+               networks (copies of the JAX package's).
     data/      datasets, the DataLoader and DevicePrefetcher, host transforms
                and the on-device preprocess.
     native/    the host crop + resize of the loader (C++, built with g++).
-    eval/      the ensemble's test metrics, amplification, the faithfulness
-               probe, FID statistics.
+    eval/      the ensemble's and the classifier's test metrics,
+               amplification, the faithfulness probe, FID, KID and
+               precision/recall.
     serve/     InferenceEngine (classify, reconstruct, amplify), MicroBatcher,
                and the stdlib HTTP server.
-    train/     the VisCoIN training step, its losses and the loop.
-    utils/     weights (JAX variables <-> modules), checkpoints, jsonl logging.
-    cli/       `python -m viscoin_tpu_torch train viscoin`.
+    train/     the classifier, VisCoIN and StyleGAN2 trainers (steps, losses,
+               loops), ADA.
+    utils/     weights (JAX variables <-> modules), porting and exporting
+               (the reference's torch state_dicts <-> JAX variables),
+               checkpoints, jsonl logging.
+    cli/       `python -m viscoin_tpu_torch port-weights | train | test`.
     csrc/      CUDA C++ sources, built at first use into csrc/build/.
 """
 

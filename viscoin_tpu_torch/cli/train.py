@@ -1,7 +1,16 @@
-"""The ``train`` command: ``python -m viscoin_tpu_torch train viscoin|gan ...``.
+"""The ``train`` command: ``python -m viscoin_tpu_torch train classifier|viscoin|gan ...``.
 
-Counterpart of ``viscoin_tpu/cli/train.py`` for the ``viscoin`` and ``gan``
-models, with their options and defaults (``--epochs`` counts iterations).
+Counterpart of ``viscoin_tpu/cli/train.py`` for the ``classifier``,
+``viscoin`` and ``gan`` models, with their options and defaults.
+
+``classifier``: the ResNet-50 classifier (random weights from seed 0, or
+``--checkpoints``) for ``--epochs`` epochs (default 90), Adam (or
+``--optimizer sgd`` with ``--momentum``) at ``--learning-rate`` (default
+1e-3) x0.1 after 30 and 60 epochs, ``--compute-dtype`` bfloat16, a test pass
+per epoch. Metrics go to ``classifier_<epochs>.jsonl``; the best test
+accuracy's variables to ``--output-weights`` in the npz layout that ``train
+viscoin`` reads at ``checkpoints/<dataset>/classifier-<dataset>`` and
+``test classifier --checkpoints`` reads.
 
 ``viscoin``: ``--compute-dtype`` bfloat16, ``--prefetch`` 1, eval every 2000
 iterations, checkpoints every 20 000, the faithfulness probe every 25 000.
@@ -9,8 +18,10 @@ Metrics go to ``viscoin_<iterations>.jsonl`` in the working directory,
 bundles to ``viscoin<i>-<n>/`` and the resumable training state to
 ``train_state/``. The pretrained pieces come from the JAX package's
 checkpoint paths (``checkpoints/<dataset>/classifier-<dataset>``,
-``gan-<dataset>``, ``checkpoints/lpips-vgg``) in the npz layout; a missing
-one is replaced by seeded random weights, with a warning.
+``gan-<dataset>``, ``checkpoints/lpips-vgg``) in the npz layout, as
+``port-weights`` writes them; a missing one is replaced by seeded random
+weights, with a warning. The FID detector of the eval is ``--fid-detector``
+or ``checkpoints/inception`` when present (``_load_fid_detector``).
 
 ``gan``: StyleGAN2 (z 512, w 512, 2 mapping layers, ``--channel-base``
 16384, ``--channel-max`` 512, the mbstd group min(4, batch)) trained on the
@@ -19,9 +30,13 @@ dataset's ``gan`` transform, batch 16, ``--compute-dtype`` bfloat16,
 Metrics go to ``gan_<iterations>.jsonl``; at the end the EMA generator, with
 its tracked w_avg, is written to ``--output-weights`` in the npz layout that
 ``train viscoin`` reads at ``checkpoints/<dataset>/gan-<dataset>``.
-``--fid-every`` needs the FID detector, which is not ported yet.
+``--fid-every N`` adds the upstream trainer's snapshot metric: every N
+iterations and at the last, the FID of ``--fid-samples`` (default 8192)
+EMA-generator samples against as many training images, logged to the jsonl
+as ``{"iteration", "fid"}``; the detector is ``--fid-detector`` or
+``checkpoints/inception``.
 
-The ``classifier`` and ``concept2clip`` models are not ported yet.
+The ``concept2clip`` model is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,18 +50,15 @@ from viscoin_tpu_torch.cli.utils import add_common_options, existing_path
 from viscoin_tpu_torch.data.utils import default_checkpoints, get_dataloaders
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
-NOT_PORTED = {
-    "classifier": "queue 1: classifier (train/classifiers.py)",
-    "concept2clip": "queue 1: Concept2CLIP (train/concept2clip.py)",
-}
+NOT_PORTED = {"concept2clip": "queue 1: Concept2CLIP (train/concept2clip.py)"}
 DATA_PARALLEL = "queue 1: data parallelism (parallel/mesh.py as DDP)"
-FID_DETECTOR = "queue 1: the FID detector (models/inception.py)"
+DEFAULT_FID_DETECTOR = "checkpoints/inception"
 
 
 def add_parser(subparsers) -> argparse.ArgumentParser:
     p = subparsers.add_parser("train", help="Train a model on a dataset; metrics are logged "
                                             "to a jsonl file.")
-    p.add_argument("model_name", help="viscoin or gan (classifier and concept2clip are not "
+    p.add_argument("model_name", help="classifier, viscoin or gan (concept2clip is not "
                                       "ported yet)")
     add_common_options(p)
     p.add_argument("--gradient-accumulation-steps", type=int, default=1,
@@ -57,6 +69,11 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
                         "are not ported yet)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="Devices per model-parallel group (not ported yet beyond 1)")
+    p.add_argument("--optimizer", choices=["adam", "sgd"], default=None,
+                   help="[classifier] Optimizer (default adam; sgd for the reference README's "
+                        "SGD recipe)")
+    p.add_argument("--momentum", type=float, default=None,
+                   help="[classifier] SGD momentum (default 0.9)")
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16",
                    help="Training compute precision: fp32 Adam masters and losses either way "
                         "(default: bfloat16)")
@@ -67,7 +84,11 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="Write a torch.profiler trace of training steps 2-5 into this directory")
     p.add_argument("--fid-detector", dest="fid_detector_path", type=existing_path,
-                   default=None, help="FID feature detector (not ported yet)")
+                   default=None,
+                   help="[viscoin/gan] FID feature detector: a ported directory (pytorch-fid or "
+                        "inception-nvlabs convention, told apart by its fid_convention.json) or "
+                        "the NVlabs TorchScript inception-2015-12-05.pt itself. Default: "
+                        "checkpoints/inception if present")
     p.add_argument("--image-size", type=int, default=None,
                    help="[image-folder datasets] Square resolution images are trained at")
     p.add_argument("--eval-every", type=int, default=None,
@@ -86,8 +107,10 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
     p.add_argument("--channel-max", type=int, default=512,
                    help="[gan] StyleGAN2 channel cap per layer")
     p.add_argument("--fid-every", type=int, default=0,
-                   help="[gan] FID every N iterations (needs the FID detector, not ported "
-                        "yet); 0 disables")
+                   help="[gan] FID of EMA-generator samples against the training images every "
+                        "N iterations (needs a FID detector, see --fid-detector); 0 disables")
+    p.add_argument("--fid-samples", type=int, default=8192,
+                   help="[gan] Samples per side of each in-loop FID estimate")
     p.add_argument("--init-from", default=None, type=existing_path,
                    help="[gan] Warm start: generator variables in the npz layout (a `train "
                         "gan` export; + <path>.discriminator if present) into a fresh run")
@@ -109,20 +132,29 @@ def train(args: argparse.Namespace) -> None:
     if args.model_name in NOT_PORTED:
         raise NotImplementedError(f"`train {args.model_name}` is not ported yet "
                                   f"(ROADMAP.md, {NOT_PORTED[args.model_name]})")
+    ds_kwargs = _dataset_kwargs(args.dataset, args.image_size)
+    if args.model_name == "classifier":
+        _train_classifier(args.dataset, args.checkpoints, args.batch_size, args.learning_rate,
+                          args.epochs, args.output_weights, args.data_parallel,
+                          compute_dtype=args.compute_dtype, optimizer=args.optimizer,
+                          momentum=args.momentum, ds_kwargs=ds_kwargs, device=args.device)
+        return
     if args.model_name == "gan":
-        if args.fid_every:
-            args.parser.error(f"--fid-every needs the FID detector, which is not ported yet "
-                              f"(ROADMAP.md, {FID_DETECTOR})")
+        detector = args.fid_detector_path or DEFAULT_FID_DETECTOR
+        if args.fid_every and not os.path.exists(detector):
+            args.parser.error(f"--fid-every needs a FID detector; none at {detector} (port one "
+                              "with `python -m viscoin_tpu_torch port-weights inception`, or "
+                              "pass --fid-detector)")
         _train_gan(args.dataset, args.learning_rate, args.epochs, args.batch_size,
                    args.data_parallel, args.output_weights, args.channel_base,
                    args.channel_max, resume_from=args.resume_from,
                    model_parallel=args.model_parallel, compute_dtype=args.compute_dtype,
-                   fid_every=args.fid_every, mirror=args.mirror,
+                   fid_detector_path=args.fid_detector_path, fid_every=args.fid_every,
+                   fid_samples=args.fid_samples, mirror=args.mirror,
                    snapshot_every=args.snapshot_every, init_from=args.init_from,
                    ema_rampup=args.ema_rampup,
                    prefetch=0 if args.prefetch is None else args.prefetch,
-                   ds_kwargs=_dataset_kwargs(args.dataset, args.image_size),
-                   device=args.device,
+                   ds_kwargs=ds_kwargs, device=args.device,
                    **({"checkpoint_every": args.checkpoint_every}
                       if args.checkpoint_every is not None else {}))
         return
@@ -134,8 +166,7 @@ def train(args: argparse.Namespace) -> None:
     _train_viscoin(args.dataset, args.learning_rate, args.epochs, args.batch_size,
                    args.gradient_accumulation_steps, args.data_parallel, args.resume_from,
                    args.profile_dir, args.fid_detector_path, model_parallel=args.model_parallel,
-                   compute_dtype=args.compute_dtype,
-                   ds_kwargs=_dataset_kwargs(args.dataset, args.image_size),
+                   compute_dtype=args.compute_dtype, ds_kwargs=ds_kwargs,
                    prefetch=1 if args.prefetch is None else args.prefetch, device=args.device,
                    **cadences)
 
@@ -162,6 +193,71 @@ def _check_parallelism(device: torch.device, data_parallel: bool, model_parallel
             f"--data-parallel over {visible} visible cards is not ported yet (ROADMAP.md, "
             f"{DATA_PARALLEL}); make one card visible (CUDA_VISIBLE_DEVICES) or pass "
             "--no-data-parallel")
+
+
+def _card_or_cpu(command: str, device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{command} --device cuda: no CUDA device is available; pass "
+                           "--device cpu to run with the plain versions on the CPU")
+    return device
+
+
+def _train_classifier(dataset: str, checkpoints, batch_size, learning_rate, epochs,
+                      output_weights, data_parallel=True, compute_dtype="bfloat16",
+                      optimizer=None, momentum=None, ds_kwargs=None, device="cuda"):
+    """The classifier stage: train, then save the best test accuracy's
+    variables to ``output_weights`` (npz layout)."""
+    from viscoin_tpu_torch.train.classifiers import ClassifierTrainingParams, train_classifier
+    from viscoin_tpu_torch.utils import checkpoints as ckpt
+    from viscoin_tpu_torch.utils.weights import load_jax_tree
+
+    device = _card_or_cpu("train classifier", device)
+    _check_parallelism(device, data_parallel, 1)
+    params = ClassifierTrainingParams(epochs, learning_rate, batch_size,
+                                      compute_dtype=compute_dtype, optimizer=optimizer,
+                                      momentum=momentum)
+    configure_score_logging(f"classifier_{params.epochs}.jsonl")
+    train_loader, test_loader = get_dataloaders(dataset, params.batch_size, **(ds_kwargs or {}))
+    model = build_classifier(train_loader.dataset.N_CLASSES, device)
+    if checkpoints is not None:
+        load_jax_tree(model, ckpt.restore_pytree(checkpoints))
+    else:
+        print("NOTE: no --checkpoints given: random init (port pretrained torch weights with "
+              "`python -m viscoin_tpu_torch port-weights classifier`).")
+    best, _ = train_classifier(model, train_loader, test_loader, params)
+    ckpt.save_pytree(best, output_weights)
+    ckpt.wait_for_saves()
+
+
+def build_classifier(n_classes: int, device="cuda"):
+    """The ResNet-50 classifier of the JAX command, random from seed 0."""
+    from viscoin_tpu_torch.models.bundle import init_models
+    from viscoin_tpu_torch.models.resnet import Classifier
+
+    return init_models(Classifier(output_classes=n_classes, device=device), 0)
+
+
+def _load_fid_detector(path: str, device):
+    """The FID detector at ``path``: the NVlabs TorchScript file (``.pt``,
+    run as it is), a ported NVlabs-convention directory (its
+    ``fid_convention.json`` says so), or a pytorch-fid-convention one."""
+    import json
+
+    from viscoin_tpu_torch.models import inception
+    from viscoin_tpu_torch.utils import checkpoints as ckpt
+
+    if path.endswith(".pt"):
+        print(f"FID: the NVlabs TorchScript detector itself ({path}, on {device})")
+        return inception.make_torchscript_fid_detector(path, device)
+    marker = os.path.join(path, "fid_convention.json")
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if json.load(f).get("convention") == "nvlabs":
+                print(f"FID: ported NVlabs-convention detector ({path})")
+                return inception.make_nvlabs_fid_detector(ckpt.restore_pytree(path), device)
+    print(f"FID: ported pytorch-fid-convention detector ({path})")
+    return inception.make_fid_detector(ckpt.restore_pytree(path), device)
 
 
 def build_viscoin_modules(n_classes: int, size: int, device="cuda"):
@@ -193,14 +289,8 @@ def _train_viscoin(dataset: str, learning_rate, epochs, batch_size, gradient_acc
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.weights import load_jax_tree
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train viscoin --device cuda: no CUDA device is available; pass "
-                           "--device cpu to train with the plain versions on the CPU")
+    device = _card_or_cpu("train viscoin", device)
     _check_parallelism(device, data_parallel, model_parallel)
-    if fid_detector_path is not None:
-        raise NotImplementedError(f"--fid-detector: the Inception detector is not ported yet "
-                                  f"(ROADMAP.md, {FID_DETECTOR})")
 
     # Unset options fall back to the dataclass defaults, as the JAX command's do.
     params = VisCoINTrainingParams(**{k: v for k, v in dict(
@@ -230,14 +320,17 @@ def _train_viscoin(dataset: str, learning_rate, epochs, batch_size, gradient_acc
         load_jax_tree(lpips, {"params": ckpt.restore_pytree(lpips_path)})
     else:
         print("WARNING: no LPIPS weights at checkpoints/lpips-vgg — random-VGG perceptual loss.")
-    if os.path.exists("checkpoints/inception"):
-        print(f"NOTE: checkpoints/inception is not used: the FID detector is not ported yet "
-              f"(ROADMAP.md, {FID_DETECTOR}); in-training eval skips FID.")
+    fid_detector = None
+    detector_path = fid_detector_path or DEFAULT_FID_DETECTOR
+    if os.path.exists(detector_path):
+        fid_detector = _load_fid_detector(detector_path, device)
     else:
-        print("NOTE: no checkpoints/inception — in-training eval skips FID.")
+        print(f"NOTE: no {DEFAULT_FID_DETECTOR}: in-training eval skips FID (port weights with "
+              "`python -m viscoin_tpu_torch port-weights inception`, or pass --fid-detector).")
 
     train_viscoin(models, generator, lpips, train_loader, test_loader, params,
-                  resume_from=resume_from, profile_dir=profile_dir, eval_every=eval_every,
+                  resume_from=resume_from, profile_dir=profile_dir, fid_detector=fid_detector,
+                  eval_every=eval_every,
                   checkpoint_every=checkpoint_every, faithfulness_every=faithfulness_every,
                   prefetch=prefetch, device=device)
 
@@ -259,21 +352,26 @@ def build_gan_modules(size: int, channel_base: int, channel_max: int, batch_size
     return init_models(generator, seed), init_models(discriminator, seed + 1)
 
 
-_SNAPSHOT_TAG = 0x7FFFFFFF  # the snapshot grid's fixed seed, apart from the step seeds
+# The fixed tags of the FID draws and of the snapshot grid's seed, apart from
+# the step seeds (and from --epochs, so a resume keeps them).
+_FID_TAG, _SNAPSHOT_TAG = 0x7FFFFFFE, 0x7FFFFFFF
 
 
 def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, output_weights,
                channel_base=16384, channel_max=512, resume_from=None, checkpoint_every=10_000,
-               seed=0, model_parallel=1, compute_dtype="bfloat16", fid_every=0, mirror=True,
-               snapshot_every=0, init_from=None, ema_rampup=None, ds_kwargs=None, prefetch=0,
-               device="cuda"):
+               seed=0, model_parallel=1, compute_dtype="bfloat16", fid_detector_path=None,
+               fid_every=0, fid_samples=8192, mirror=True, snapshot_every=0, init_from=None,
+               ema_rampup=None, ds_kwargs=None, prefetch=0, device="cuda"):
     """StyleGAN2 training (``epochs`` counts iterations): the metrics every
     100 iterations and the last to ``gan_<iterations>.jsonl``, the training
     state every ``checkpoint_every`` iterations (i > start) and at the end to
     ``<output_weights>.train_state``, and at the end the EMA generator to
     ``output_weights``. ``resume_from`` continues a run exactly (the loader
     fast-forwards, step draws come from (seed, step)); ``init_from`` warm
-    starts a fresh one."""
+    starts a fresh one. ``fid_every``: the FID of ``fid_samples`` EMA samples
+    (batch j of the estimate at iteration i seeded ``fold_seed(fold_seed(seed,
+    FID_TAG, i), j)``) against the first ``fid_samples`` training images in
+    order, every ``fid_every`` iterations (i > start) and at the last."""
     import json
 
     import numpy as np
@@ -294,14 +392,13 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.logging import get_logger
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train gan --device cuda: no CUDA device is available; pass "
-                           "--device cpu to train with the plain versions on the CPU")
+    device = _card_or_cpu("train gan", device)
     _check_parallelism(device, data_parallel, model_parallel)
-    if fid_every:
-        raise NotImplementedError(f"--fid-every needs the FID detector, which is not ported "
-                                  f"yet (ROADMAP.md, {FID_DETECTOR})")
+    detector_path = fid_detector_path or DEFAULT_FID_DETECTOR
+    if fid_every and not os.path.exists(detector_path):
+        raise ValueError(f"--fid-every needs a FID detector; none at {detector_path} (port one "
+                         "with `python -m viscoin_tpu_torch port-weights inception`, or pass "
+                         "--fid-detector)")
     if init_from and resume_from:
         raise ValueError("--init-from is a fresh warm start (weights only); --resume "
                          "continues a run exactly: pick one")
@@ -328,6 +425,26 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
               + (" + discriminator)" if d_params is not None else "; fresh discriminator)"))
     step = make_gan_train_step(generator, discriminator, cfg)
     snapshot_fn = make_gan_snapshot_fn(16) if snapshot_every else None
+    fid = None
+    if fid_every:
+        from viscoin_tpu_torch.eval.fid import fid_from_stats
+        from viscoin_tpu_torch.train.gan import (
+            accumulate_fake_fid_stats,
+            accumulate_real_fid_stats,
+            make_gan_fid_fns,
+        )
+
+        detector = _load_fid_detector(detector_path, device)
+        fake_images_fn, real_images_fn = make_gan_fid_fns(cfg.batch_size)
+        stats_real = accumulate_real_fid_stats(detector, real_images_fn, train_ds,
+                                               cfg.batch_size, fid_samples, device=device)
+        print(f"FID every {fid_every} it: {stats_real.num_items} real samples accumulated, "
+              f"{fid_samples} fakes per estimate")
+
+        def fid(i: int) -> float:
+            stats_fake = accumulate_fake_fid_stats(detector, fake_images_fn, state.g_ema,
+                                                   fold_seed(seed, _FID_TAG, i), fid_samples)
+            return fid_from_stats(stats_real, stats_fake)
 
     state_path = f"{output_weights}.train_state"
     resume_meta = {"batch_size": cfg.batch_size, "seed": seed, "augment": cfg.augment,
@@ -359,6 +476,11 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
                 values = torch.stack([v.float().cpu() for v in metrics.values()]).double()
                 logger.info(json.dumps({"iteration": i, **{
                     k: float(v) for k, v in zip(metrics, values)}}))
+            if fid is not None and ((i > start and i % fid_every == 0)
+                                    or i == cfg.iterations - 1):
+                score = fid(i)
+                logger.info(json.dumps({"iteration": i, "fid": score}))
+                print(f"it {i}: fid={score:.3f} ({fid_samples} fakes)")
             if snapshot_fn is not None and (i % snapshot_every == 0 or i == cfg.iterations - 1):
                 from PIL import Image
 

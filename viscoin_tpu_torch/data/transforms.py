@@ -110,6 +110,12 @@ def device_preprocess(images_u8: torch.Tensor, flip: torch.Tensor | None = None)
     return (x - mean) / std
 
 
+def normalize_only(x: torch.Tensor) -> torch.Tensor:
+    """The ImageNet normalization of an NCHW batch in [0, 1]."""
+    mean, std = _stats(x)
+    return (x - mean) / std
+
+
 def denormalize(x: torch.Tensor) -> torch.Tensor:
     """Invert the ImageNet normalization of an NCHW batch."""
     mean, std = _stats(x)

@@ -10,17 +10,57 @@ by conv4 (3x3), then split into two heads:
   * ``Phi'`` — pool(conv4 output) -> channel-major flatten (the natural NCHW
                flatten) -> linear1 -> linear2 (no bias): (B, 9 * n_concepts).
 
-All activations are ReLU. ``F.adaptive_avg_pool2d`` is the torch semantics
-the JAX package reproduces with its pooling matrices.
+All activations are ReLU. The pooling to 3x3 is torch's adaptive average
+pooling (window i covers [floor(i * n / 3), ceil((i + 1) * n / 3))), computed
+as the JAX package computes it: two contractions with fixed averaging
+matrices, whose backward is a matrix product too. ``F.adaptive_avg_pool2d``
+would give the same values, but its CUDA backward adds overlapping windows
+with atomics, in no fixed order, so a resumed run would not be bit-equal to
+the unbroken one.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from viscoin_tpu_torch.models.resnet import lecun_normal_
+
+
+def _adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(in, out) averaging matrix of torch's adaptive average pooling."""
+    m = np.zeros((in_size, out_size), np.float32)
+    for o in range(out_size):
+        lo = (o * in_size) // out_size
+        hi = -(-((o + 1) * in_size) // out_size)  # ceil
+        m[lo:hi, o] = 1.0 / (hi - lo)
+    return m
+
+
+_POOL_MATRICES: dict[tuple, torch.Tensor] = {}
+
+
+def _pool_matrix(in_size: int, out_size: int, like: torch.Tensor) -> torch.Tensor:
+    """The averaging matrix on ``like``'s device and dtype, made once (a copy
+    to the card per call would wait for the stream), outside inference mode
+    so that a matrix first made while serving can enter autograd later."""
+    key = (in_size, out_size, like.device, like.dtype)
+    m = _POOL_MATRICES.get(key)
+    if m is None:
+        with torch.inference_mode(False):
+            m = _POOL_MATRICES[key] = torch.from_numpy(
+                _adaptive_pool_matrix(in_size, out_size)).to(like.device, like.dtype)
+    return m
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Adaptive average pooling of an NCHW tensor to (out_size, out_size):
+    a contraction over H, then one over W."""
+    mh = _pool_matrix(x.shape[2], out_size, x)
+    mw = _pool_matrix(x.shape[3], out_size, x)
+    x = torch.einsum("bchw,hy->bcyw", x, mh)
+    return torch.einsum("bcyw,wx->bcyx", x, mw)
 
 
 class ConceptExtractor(nn.Module):
@@ -58,9 +98,9 @@ class ConceptExtractor(nn.Module):
         x3 = torch.relu(self.conv3(latent_layers[2]))
         x = torch.relu(self.conv4(torch.cat([x1, x2, x3], dim=1)))
 
-        phi = F.adaptive_avg_pool2d(torch.relu(self.conv5(x)), 3)
+        phi = adaptive_avg_pool(torch.relu(self.conv5(x)), 3)
 
-        y = F.adaptive_avg_pool2d(x, 3).reshape(x.shape[0], -1)
+        y = adaptive_avg_pool(x, 3).reshape(x.shape[0], -1)
         y = torch.relu(self.linear1(y))
         y = torch.relu(self.linear2(y))
         return phi, y

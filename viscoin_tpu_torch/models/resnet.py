@@ -5,8 +5,16 @@ architecture): 7x7/2 stem + BN + ReLU + 3x3/2 max-pool, four bottleneck
 stages (depths 3/4/6/3, widths 256/512/1024/2048, stride on the 3x3 conv),
 global average pooling and a linear head. ``forward`` returns
 ``(logits, hidden_states)`` with the 5 hidden states (stem, stage1..stage4)
-in NCHW. BatchNorm runs in eval mode with eps 1e-5. Submodule names follow
-the JAX modules (``resnet.stage{i}_block{j}.conv1.conv``...).
+in NCHW. Submodule names follow the JAX modules
+(``resnet.stage{i}_block{j}.conv1.conv``...).
+
+BatchNorm (eps 1e-5) follows flax's ``nn.BatchNorm(momentum=0.9)``, switched
+by the ``train`` argument of ``forward`` as the JAX modules are (not by
+``nn.Module.train()``): with ``train=False`` it applies the running
+statistics; with ``train=True`` it normalizes with the batch's biased
+variance, computed in fp32, and moves the running statistics towards the
+batch's mean and *biased* variance, r <- 0.9 r + 0.1 v (``nn.BatchNorm2d``
+would move them towards the unbiased variance).
 """
 
 from __future__ import annotations
@@ -24,8 +32,11 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return t.normal_(0.0, 1.0 / math.sqrt(t[0].numel()), generator=generator)
 
 
+BN_MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias) + eval-mode BatchNorm + optional ReLU."""
+    """Conv (no bias) + BatchNorm + optional ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, act: bool = True, device="cuda"):
@@ -39,13 +50,33 @@ class ConvBN(nn.Module):
         lecun_normal_(self.conv.weight, generator)
         self.bn.reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.conv(x)
         bn = self.bn
-        mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
-        shift = bn.bias.float() - bn.running_mean.float() * mul
-        x = x * mul.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        if train:
+            x = self._batch_norm_train(x)
+        else:
+            mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+            shift = bn.bias.float() - bn.running_mean.float() * mul
+            x = x * mul.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
         return torch.relu(x) if self.act else x
+
+    def _batch_norm_train(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's train-mode BatchNorm: the batch's mean and biased variance
+        in at least fp32, the variance as E[x²] - E[x]² clipped at 0 (flax's
+        fast variance, which the gradients differentiate too), y = (x - mean)
+        * rsqrt(var + eps) * scale + bias in that precision, cast back to x's
+        dtype; the running statistics move towards the batch's."""
+        bn = self.bn
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight.to(xf.dtype)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias.to(xf.dtype)[:, None, None]
+        return y.to(x.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -61,10 +92,10 @@ class Bottleneck(nn.Module):
         self.shortcut = (ConvBN(in_channels, out_channels, 1, stride, act=False, device=device)
                          if in_channels != out_channels or stride != 1 else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv3(self.conv2(self.conv1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.conv3(self.conv2(self.conv1(x, train), train), train)
         if self.shortcut is not None:
-            x = self.shortcut(x)
+            x = self.shortcut(x, train)
         return torch.relu(y + x)
 
 
@@ -88,13 +119,13 @@ class ResNetBackbone(nn.Module):
                 ch = out
             self.stages.append(names)
 
-    def forward(self, x: torch.Tensor):
-        x = self.embedder(x)
+    def forward(self, x: torch.Tensor, train: bool = False):
+        x = self.embedder(x, train)
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
         hidden = [x]
         for names in self.stages:
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, train)
             hidden.append(x)
         return x.mean(dim=(2, 3)), tuple(hidden)
 
@@ -119,6 +150,8 @@ class Classifier(nn.Module):
                                    generator=generator)
         self.linear.bias.zero_()
 
-    def forward(self, x: torch.Tensor):
-        pooled, hidden = self.resnet(x)
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """``train``: BatchNorm on the batch's statistics, which it folds into
+        the running ones (the JAX module's ``train=True``)."""
+        pooled, hidden = self.resnet(x, train)
         return self.linear(pooled), hidden

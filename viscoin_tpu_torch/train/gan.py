@@ -25,9 +25,10 @@ What differs from JAX, by design:
     the r_t accumulator stays on the card and is read once per
     ``ada_interval`` steps.
 
-The in-loop FID (``make_gan_fid_fns``, ``accumulate_*_fid_stats``) waits for
-the FID detector, and a device mesh for data parallelism (ROADMAP.md, queue
-1).
+The in-loop FID (``make_gan_fid_fns``, ``accumulate_*_fid_stats``) samples
+the EMA generator with latents and synthesis noise from generators seeded
+per batch, as the draws of a step are. A device mesh for data parallelism
+waits (ROADMAP.md, queue 1: data parallelism).
 """
 
 from __future__ import annotations
@@ -202,6 +203,73 @@ def make_gan_snapshot_fn(n_images: int):
         return u8.permute(0, 2, 3, 1)
 
     return sample
+
+
+# --------------------------------- FID -------------------------------------- #
+
+
+def make_gan_fid_fns(batch_size: int):
+    """The in-loop FID's two image sources, both ImageNet-normalized float
+    NCHW, the domain the detectors take (``models/inception.py``):
+    ``fake_images(g_ema, seed)`` samples ``batch_size`` images of the EMA
+    generator (z and random synthesis noise from one generator seeded
+    ``seed``, no truncation; a test may pass the latents ``z``),
+    ``real_images(images_u8)`` converts a loader batch on its device. Both
+    go through the same [0, 1] -> ImageNet normalization."""
+    from viscoin_tpu_torch.data.transforms import device_preprocess, normalize_only
+
+    @torch.no_grad()
+    def fake_images(g_ema, seed: int, z: torch.Tensor | None = None) -> torch.Tensor:
+        device = next(g_ema.parameters()).device
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        if z is None:
+            z = torch.randn((batch_size, g_ema.z_dim), device=device, generator=gen)
+        img = g_ema(z, noise_mode="random", generator=gen)
+        return normalize_only(((img.float() + 1.0) * 0.5).clamp(0.0, 1.0))
+
+    @torch.no_grad()
+    def real_images(images_u8: torch.Tensor) -> torch.Tensor:
+        return device_preprocess(images_u8)
+
+    return fake_images, real_images
+
+
+def _features(detector, images: torch.Tensor) -> np.ndarray:
+    return detector(images).detach().double().cpu().numpy()
+
+
+def accumulate_real_fid_stats(detector, real_images_fn, dataset, batch_size: int,
+                              max_items: int, capture_all: bool = False, device="cuda"):
+    """The real side's FID moments: one pass in order over ``dataset``
+    through ``real_images_fn`` and ``detector``, stopped at ``max_items``;
+    a partial last batch is skipped, as in the JAX package."""
+    from viscoin_tpu_torch.data.loader import DataLoader
+    from viscoin_tpu_torch.eval.fid import FeatureStats
+
+    stats = FeatureStats(max_items=max_items, capture_all=capture_all)
+    for images, _ in DataLoader(dataset, batch_size, shuffle=False):
+        if images.shape[0] != batch_size:
+            continue
+        batch = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        stats.append(_features(detector, real_images_fn(batch)))
+        if stats.num_items >= max_items:
+            break
+    return stats
+
+
+def accumulate_fake_fid_stats(detector, fake_images_fn, g_ema, base_seed: int, max_items: int,
+                              capture_all: bool = False):
+    """The fake side's FID moments: batch j sampled by ``fake_images_fn``
+    with the seed ``fold_seed(base_seed, j)``, until ``max_items`` (the last
+    batch's overshoot is cut)."""
+    from viscoin_tpu_torch.eval.fid import FeatureStats
+
+    stats = FeatureStats(max_items=max_items, capture_all=capture_all)
+    j = 0
+    while stats.num_items < max_items:
+        stats.append(_features(detector, fake_images_fn(g_ema, fold_seed(base_seed, j))))
+        j += 1
+    return stats
 
 
 # ------------------------------- the draws ---------------------------------- #

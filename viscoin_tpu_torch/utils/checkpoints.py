@@ -177,7 +177,8 @@ def restore_pytree(path: str) -> dict:
             f"{path}: no {NPZ_NAME}. The port reads checkpoints in the JAX package's npz layout "
             f"(a directory holding {NPZ_NAME}, keyed by the pytree paths joined by '/'); an "
             "orbax checkpoint cannot be read without JAX: re-save it there with "
-            "np.savez over the flattened tree")
+            "np.savez over the flattened tree, or port the torch checkpoint it came from with "
+            "`python -m viscoin_tpu_torch port-weights`")
     with np.load(npz) as data:
         return _unflatten({k: data[k] for k in data.files})
 
