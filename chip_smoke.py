@@ -114,9 +114,30 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                `train classifier` from the ported classifier, then `test
                classifier` on its output (the best epoch's accuracy), which
                loads as `train viscoin` loads its classifier;
- 17. timings   per kernel (CUDA events at the path's shapes, summed over the
-               loop's run A, the GAN's 16-step cycle and one FID estimate as
-               they made each call, and over one reconstruct
+ 17. gan-tools the GAN tools at the JAX command's full widths, in the same
+               directory (the ported 256² generator, LPIPS-VGG, Inception):
+               `dataset-tool` packs 32 synthetic images at 256² (each member
+               equals host_gan_transform of its source); `generate --seeds 0-15
+               --batch-size 16` twice, bit-equal, the same seeds at other batch
+               positions measured, 2 seeds card (TF32 off) against the host CPU
+               within 1 u8 level; `style-mixing` with the defaults (the grid),
+               and with every layer from the column seed (each cell its column
+               image); `project --steps 100` (the loss falls), then the
+               projector in-process: launches per step exactly those of the
+               same projection on the CPU at narrow widths, every FIR at batch
+               1 and every bias_act_grad without db, per-step ms, peak memory,
+               busy share; 3 steps card against the host CPU (TF32 off, the
+               same draws: step 0's gradients and the state after 3 steps) and
+               a control under FirstOrderFault, a planted fault that check must
+               catch; `fid --metric ppl` (TF32 off inside), its first 4
+               segments card against the host CPU, with TF32 on beside it and
+               through the JAX package's one-pass LPIPS form; `fid --dataset
+               packed.zip --metric fid --metric kid --metric pr` (one host
+               matrix square root; the features it used equal a recomputation);
+ 18. timings   per kernel (CUDA events at the path's shapes, summed over the
+               loop's run A, the GAN's 16-step cycle, one FID estimate, the
+               projection's 100 timed steps and one PPL batch as they made
+               each call, and over one reconstruct
                batch or one train step) beside its plain version,
                a one-call PyTorch yardstick where one exists, and its
                memory/compute bound; for the largest shapes the profiler's
@@ -127,11 +148,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                smallest path shape; the same for a probe chunk (N = 32) and
                an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
                and peak memory, and a torch.profiler breakdown of reconstruct;
- 18. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+ 19. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
                library_ms all over the loop's run A (``ms_over`` says so),
-               the same over the GAN cycle (``gan_cycle_*``) and over one
-               FID estimate (``fid_sampling_*``); then the device line,
-               last.
+               the same over the GAN cycle (``gan_cycle_*``), one FID
+               estimate (``fid_sampling_*``), the projection's timed steps
+               (``projection_*``) and one PPL batch (``ppl_batch_*``); then
+               the device line, last.
 
 It imports torch and viscoin_tpu_torch only.
 """
@@ -2610,6 +2632,504 @@ def phase_classifier(work: str, device: dict) -> dict:
     return out
 
 
+# -------------------------------- the GAN tools ------------------------------- #
+
+# `dataset-tool`, `generate`, `style-mixing`, `project` and `fid` at the JAX
+# command's full widths, in the pipeline's directory: the ported 256²
+# generator (z = w = 512, 2 mapping layers, channel_base 16384, channel_max
+# 512) at checkpoints/synthetic/gan-synthetic, LPIPS-VGG and Inception.
+TOOLS_N = 32  # synthetic source images packed by dataset-tool
+TOOLS_GAN = "checkpoints/synthetic/gan-synthetic"
+PROJ_STEPS = 100  # `project --steps` here; the command's default is 1000
+PROJ_CPU_STEPS = 3
+# The projection card vs CPU (TF32 off, the same draws): step 0's gradients
+# (w and every noise buffer) of each leaf's largest, and after 3 steps w,
+# every buffer and the losses of their largest. Adam divides each component
+# by its own running RMS, so a component with a small gradient carries its
+# rounding into a full-size update (the CPU tests: 2.8e-4 of w in fp32
+# against float64 at toy widths).
+PROJ_GRAD_TOL, PROJ_TOL = 1e-3, 1e-2
+PPL_SAMPLES, PPL_BATCH, PPL_CPU_SEGMENTS = 64, GAN_BATCH, 4
+PPL_TOL = 1e-2  # per-segment distances, card vs CPU (TF32 off), of the largest
+
+
+class FirstOrderFault:
+    """A planted fault, for the control of the projection check: while
+    active, bias_act's first-order backward (the launches of bias_act_grad a
+    projection step makes) takes the lrelu slope GAN_FAULT_ALPHA where the
+    forward takes 0.2."""
+
+    def __enter__(self):
+        orig = self._orig = ba._BiasAct.backward
+
+        def backward(ctx, dy):
+            args = ctx.args
+            if args["act"] == "lrelu":
+                ctx.args = {**args, "alpha": GAN_FAULT_ALPHA}
+            try:
+                return orig(ctx, dy)
+            finally:
+                ctx.args = args
+
+        ba._BiasAct.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        ba._BiasAct.backward = staticmethod(self._orig)
+
+
+def _quiet_main(argv: list[str]) -> str:
+    """``python -m viscoin_tpu_torch <argv>`` in this process; its standard
+    output. Raises on a non-zero exit."""
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        code = _port_main(argv)
+    assert code == 0, (argv, code, log.getvalue()[-2000:])
+    return log.getvalue()
+
+
+def _png(path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def _u8_dev(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(np.int64) - b).max())
+
+
+def _frozen_lpips(device):
+    lp = load_jax_tree(LPIPS(device=device), {"params": ckpt.restore_pytree(
+        "checkpoints/lpips-vgg")})
+    return lp.eval().requires_grad_(False)
+
+
+def tools_dataset(out: dict, card: str) -> None:
+    """dataset-tool: TOOLS_N synthetic images of several sizes, written as a
+    folder per class, packed at RES²; each member equals host_gan_transform
+    of its source."""
+    import zipfile
+
+    from PIL import Image
+
+    from viscoin_tpu_torch.data.transforms import host_gan_transform
+
+    src = SyntheticDataset(n=TOOLS_N, image_size=RES, mode="train")
+    sources = {}
+    for i in range(TOOLS_N):
+        rel = f"c{i % 4}/{i:03d}.png"
+        os.makedirs(os.path.join("tools_src", os.path.dirname(rel)), exist_ok=True)
+        sources[rel] = src._load_raw(i)
+        Image.fromarray(sources[rel]).save(os.path.join("tools_src", rel))
+    t0 = time.perf_counter()
+    log = _quiet_main(["dataset-tool", "--source", "tools_src", "--dest", "packed.zip",
+                       "--resolution", str(RES)])
+    out["dataset_tool_s"] = time.perf_counter() - t0
+    with zipfile.ZipFile("packed.zip") as zf:
+        names = sorted(n for n in zf.namelist() if n.endswith(".png"))
+        assert len(names) == TOOLS_N, names
+        for name, rel in zip(names, sorted(sources)):
+            got = np.asarray(Image.open(io.BytesIO(zf.read(name))).convert("RGB"))
+            assert np.array_equal(got, host_gan_transform(sources[rel], size=RES)), (name, rel)
+    say("gan-tools", f"{log.strip()}: {TOOLS_N} synthetic images of "
+        f"{min(s.shape[0] for s in sources.values())}-{max(s.shape[0] for s in sources.values())}"
+        f" rows in 4 class folders, {out['dataset_tool_s']:.2f} s; every member's pixels equal "
+        f"host_gan_transform of its source; {card}")
+
+
+def tools_generate(out: dict, device: dict) -> dict:
+    """generate --seeds 0-15 --batch-size 16 twice (TF32 at PyTorch's
+    defaults, as a user runs it): bit-equal PNGs (and, as a control, the
+    distance of a run without the command's deterministic cuDNN); the same seeds at other
+    batch positions (--seeds 8-23); 2 seeds card (TF32 off) against the host
+    CPU at full width, within 1 u8 level; a batch of 16 timed by events.
+    Returns the generate batch's kernel calls."""
+    from viscoin_tpu_torch.cli import generate as gen_cmd
+    from viscoin_tpu_torch.cli.generate import seed_latents
+    from viscoin_tpu_torch.cli.utils import load_generator
+
+    card = device["nvidia_smi"]
+    base = ["generate", "--gan", TOOLS_GAN]
+    walls = []
+    for outdir, seeds in (("gen_a", "0-15"), ("gen_b", "0-15"), ("gen_shift", "8-23")):
+        t0 = time.perf_counter()
+        _quiet_main([*base, "--seeds", seeds, "--batch-size", "16", "--outdir", outdir])
+        walls.append(time.perf_counter() - t0)
+    same = all(np.array_equal(_png(f"gen_a/seed{s:04d}.png"), _png(f"gen_b/seed{s:04d}.png"))
+               for s in range(16))
+    assert same, "generate is not reproducible on the card"
+    # The control: the same run with cuDNN's default (atomic) algorithms.
+    orig = gen_cmd.deterministic_cudnn
+    gen_cmd.deterministic_cudnn = contextlib.nullcontext
+    try:
+        _quiet_main([*base, "--seeds", "0-15", "--batch-size", "16", "--outdir", "gen_nd"])
+    finally:
+        gen_cmd.deterministic_cudnn = orig
+    out["nondeterministic_u8"] = max(_u8_dev(_png(f"gen_a/seed{s:04d}.png"),
+                                             _png(f"gen_nd/seed{s:04d}.png")) for s in range(16))
+    out["batch_position_u8"] = max(_u8_dev(_png(f"gen_a/seed{s:04d}.png"),
+                                           _png(f"gen_shift/seed{s:04d}.png"))
+                                   for s in range(8, 16))
+    set_tf32(False)
+    _quiet_main([*base, "--seeds", "0-1", "--batch-size", "2", "--outdir", "gen_card"])
+    t0 = time.perf_counter()
+    _quiet_main([*base, "--seeds", "0-1", "--batch-size", "2", "--outdir", "gen_cpu",
+                 "--device", "cpu"])
+    out["generate_cpu_s"] = time.perf_counter() - t0
+    tf32_defaults(device)
+    out["card_vs_cpu_u8"] = max(_u8_dev(_png(f"gen_card/seed{s:04d}.png"),
+                                        _png(f"gen_cpu/seed{s:04d}.png")) for s in (0, 1))
+    out["card_tf32_vs_cpu_u8"] = max(_u8_dev(_png(f"gen_a/seed{s:04d}.png"),
+                                             _png(f"gen_cpu/seed{s:04d}.png")) for s in (0, 1))
+    assert out["card_vs_cpu_u8"] <= 1, out
+    g = load_generator(TOOLS_GAN, "cuda")
+    z = seed_latents(list(range(16)), g.z_dim).cuda()
+    with torch.no_grad():
+        out["batch16_ms"] = cuda_ms(lambda: g(z, noise_mode="const"), iters=10)
+        with PathRecorder() as rec:
+            g(z, noise_mode="const")
+    out["generate_s"] = walls
+    out["img_per_s"] = 16 / out["batch16_ms"] * 1e3
+    say("gan-tools", f"generate --seeds 0-15 --batch-size 16 twice (TF32 at PyTorch's defaults): "
+        f"the 16 PNGs bit-equal ({walls[0]:.2f} / {walls[1]:.2f} s a command, the generator's "
+        f"load included; control, without cuDNN's deterministic algorithms: max "
+        f"{out['nondeterministic_u8']} u8 levels from the first run); the same seeds at other "
+        f"batch positions (--seeds 8-23): max "
+        f"{out['batch_position_u8']} u8 levels apart; seeds 0-1 on the card with TF32 off against "
+        f"the host CPU at full width ({out['generate_cpu_s']:.1f} s): max "
+        f"{out['card_vs_cpu_u8']} u8 levels (tolerance 1; with TF32 at the defaults "
+        f"{out['card_tf32_vs_cpu_u8']}); a batch of 16 (mapping + synthesis, no_grad, const "
+        f"noise) {out['batch16_ms']:.2f} ms by events = {out['img_per_s']:.0f} img/s; {card}")
+    del g
+    return rec.unique()
+
+
+def tools_style_mixing(out: dict, card: str) -> None:
+    """style-mixing with the defaults (rows 85,100,75, cols 55,821,1789,
+    col-styles 0-6): the grid and 15 cells; then every layer from the column
+    seed: each cell equals its column image."""
+    from PIL import Image
+
+    from viscoin_tpu_torch.models.stylegan import num_ws_for_resolution
+
+    t0 = time.perf_counter()
+    _quiet_main(["style-mixing", "--gan", TOOLS_GAN, "--outdir", "mix"])
+    out["style_mixing_s"] = time.perf_counter() - t0
+    with Image.open("mix/grid.png") as grid:
+        assert grid.size == (4 * RES, 4 * RES), grid.size
+    grid = _png("mix/grid.png")
+    assert not grid[:RES, :RES].any() and grid[RES:, RES:].any()
+    assert np.array_equal(grid[RES: 2 * RES, 2 * RES: 3 * RES], _png("mix/85-821.png"))
+    num_ws = num_ws_for_resolution(RES)
+    _quiet_main(["style-mixing", "--gan", TOOLS_GAN, "--outdir", "mix_full", "--col-styles",
+                 f"0-{num_ws - 1}"])
+    rows, cols = (85, 100, 75), (55, 821, 1789)
+    out["full_mask_u8"] = max(_u8_dev(_png(f"mix_full/{r}-{c}.png"), _png(f"mix_full/{c}-{c}.png"))
+                              for r in rows for c in cols)
+    assert out["full_mask_u8"] <= 1, out
+    say("gan-tools", f"style-mixing with the defaults: grid.png {4 * RES}x{4 * RES} with a black "
+        f"corner and 15 cells, {out['style_mixing_s']:.2f} s; --col-styles 0-{num_ws - 1}: every "
+        f"cell (r, c) within {out['full_mask_u8']} u8 levels of its column image (c, c), which "
+        f"sits at another batch position (tolerance 1); {card}")
+
+
+def tools_project(out: dict, device: dict) -> dict:
+    """`project --steps PROJ_STEPS` on a generated image (the loss falls);
+    then the projector in this process: launches per step exactly those of
+    the same steps on the CPU at narrow widths, per-step ms, peak memory and
+    the busy share, its kernel calls recorded; 3 steps card against the
+    host CPU (TF32 off, the same draws) and the control under
+    FirstOrderFault. Returns the timed run's kernel calls."""
+    from viscoin_tpu_torch.cli.utils import load_generator
+    from viscoin_tpu_torch.eval import projection as PJ
+    from viscoin_tpu_torch.models.stylegan import num_ws_for_resolution
+
+    card = device["nvidia_smi"]
+    tf32_defaults(device)
+    t0 = time.perf_counter()
+    log = _quiet_main(["project", "--gan", TOOLS_GAN, "--target", "gen_a/seed0003.png",
+                       "--steps", str(PROJ_STEPS), "--outdir", "proj"])
+    out["command_s"] = time.perf_counter() - t0
+    saved = np.load("proj/projected_w.npz")
+    losses = saved["losses"]
+    assert saved["w"].shape == (num_ws_for_resolution(RES), 512)
+    assert losses.shape == (PROJ_STEPS,)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert _png("proj/proj.png").shape == _png("proj/target.png").shape == (RES, RES, 3)
+    out["command_losses"] = [float(losses[0]), float(losses[-1])]
+
+    # The launches a step makes, from the same projection on the CPU at
+    # narrow widths (LPIPS launches none of the port's kernels: a stand-in).
+    narrow = init_models(Generator(z_dim=8, w_dim=8, img_resolution=RES, channel_base=256,
+                                   channel_max=8, mapping_layers=2, device="cpu"), 1)
+    narrow.eval().requires_grad_(False)
+    mse = lambda x, y: (x - y).square().mean(dim=(1, 2, 3))  # noqa: E731
+    zero = torch.zeros(1, 3, RES, RES)
+
+    def narrow_run(n):
+        PJ.make_projector(narrow, mse, num_steps=n)(zero, PJ.draw_projection(narrow, n))
+
+    c1, c2 = count_plain_calls(lambda: narrow_run(1)), count_plain_calls(lambda: narrow_run(2))
+    per_step = {k: c2[k] - c1[k] for k in KERNELS}
+    start = {k: c1[k] - per_step[k] for k in KERNELS}
+
+    g, lp = load_generator(TOOLS_GAN, "cuda"), _frozen_lpips("cuda")
+    target = torch.from_numpy(_png("proj/target.png").astype(np.float32) / 127.5 - 1.0)
+    target = target.permute(2, 0, 1)[None].contiguous()
+    draws = PJ.draw_projection(g, PROJ_STEPS, seed=0).to("cuda")
+    project = PJ.make_projector(g, lp, num_steps=PROJ_STEPS)
+    marks = []
+
+    def on_step(i, grads):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), _kernels.launch_counts()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with PathRecorder() as rec:
+        t0 = time.perf_counter()
+        _, _, losses = project(target.cuda(), draws, on_step)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    steps = [marks[0][1]] + [{k: b[1][k] - a[1][k] for k in KERNELS}
+                             for a, b in zip(marks, marks[1:])]
+    assert steps[0] == {k: start[k] + per_step[k] for k in KERNELS}, (steps[0], start, per_step)
+    assert all(s == per_step for s in steps[1:]), (steps[1:3], per_step)
+    assert per_step["bias_act_grad"] > 0 and per_step["upfirdn2d"] > 0
+    calls = rec.unique()
+    assert {n: sum(m for c, m in calls.items() if c[0] == n) for n in KERNELS} == \
+        _kernels.launch_counts()
+    assert all(c[1][0] == 1 for c in calls if c[0] == "upfirdn2d"), "a FIR not at batch 1"
+    assert not any(c[3][2] for c in calls if c[0] == "bias_act_grad" and c[3][0] is not None)
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    out.update(launches_per_step=per_step, launches_start=start,
+               launches=_kernels.launch_counts(), step_ms_median=statistics.median(step_ms),
+               step_ms_min=min(step_ms), first_step_ms=(marks[0][0] - t0) * 1e3,
+               losses=[float(losses[0]), float(losses[-1])])
+
+    # The busy share of 5 steps under the profiler.
+    from torch.profiler import ProfilerActivity, profile
+
+    five = PJ.make_projector(g, lp, num_steps=5)
+    d5 = PJ.draw_projection(g, 5, seed=2).to("cuda")
+    five(target.cuda(), d5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        five(target.cuda(), d5)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = kernel_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    out.update(profiled_wall_ms=wall, profiled_device_ms=busy, busy_share=busy / wall,
+               device_kernels_per_step=sum(e.count for e in events) / 5)
+
+    # 3 steps card against the host CPU, TF32 off, the same draws.
+    set_tf32(False)
+    d3 = PJ.draw_projection(g, PROJ_CPU_STEPS, seed=1)
+    names = ["w"] + PJ.noise_buffer_names(g)
+
+    def run3(gen, lpips, dev, fault=False):
+        first = {}
+
+        def keep(i, grads):
+            if i == 0:
+                first.update({n: t.detach().float().cpu() for n, t in zip(names, grads)})
+
+        with FirstOrderFault() if fault else contextlib.nullcontext():
+            w, noise, ls = PJ.make_projector(gen, lpips, num_steps=PROJ_CPU_STEPS)(
+                target.to(dev), d3.to(dev), keep)
+        state = {"w": w.cpu(), "losses": ls.cpu(), **{k: v.cpu() for k, v in noise.items()}}
+        return first, state
+
+    t0 = time.perf_counter()
+    cpu = run3(load_generator(TOOLS_GAN, "cpu"), _frozen_lpips("cpu"), "cpu")
+    out["cpu_3_steps_s"] = time.perf_counter() - t0
+    got, bad = run3(g, lp, "cuda"), run3(g, lp, "cuda", fault=True)
+    tf32_defaults(device)
+    grads, traj = grad_ratios(got[0], cpu[0]), grad_ratios(got[1], cpu[1])
+    bad_grads = grad_ratios(bad[0], cpu[0])
+    wg, wt, wb = (max(r, key=r.get) for r in (grads, traj, bad_grads))
+    out.update(grad_rel_err=grads, state_rel_err=traj, control_grad_rel_err=bad_grads)
+    say("gan-tools", f"project --steps {PROJ_STEPS} on gen_a/seed0003.png at full width (TF32 at "
+        f"the defaults): loss {out['command_losses'][0]:.4f} -> {out['command_losses'][1]:.4f}, "
+        f"{out['command_s']:.1f} s the command; in this process: launches per step {per_step} "
+        f"(+ {start} before the first: the w_avg mapping), exactly the same projection's plain "
+        f"calls on the CPU at narrow widths; every FIR at batch 1, every bias_act_grad without "
+        f"db; per step median {out['step_ms_median']:.2f} ms (min {out['step_ms_min']:.2f}, "
+        f"synchronised each step; the first {out['first_step_ms']:.1f} ms with the w_avg "
+        f"mapping of 2048 z), peak memory {out['peak_mib']:.0f} MiB, 5 profiled steps "
+        f"{busy:.1f} ms device in {wall:.1f} ms ({100 * busy / wall:.1f}% busy, "
+        f"{out['device_kernels_per_step']:.0f} device kernels a step); {card}")
+    say("gan-tools", f"projection card vs the host CPU (TF32 off, the same draws, "
+        f"{out['cpu_3_steps_s']:.1f} s on the CPU): step 0's gradients, worst {wg} "
+        f"{grads[wg]:.3e} (tolerance {PROJ_GRAD_TOL:g}); after {PROJ_CPU_STEPS} steps, worst "
+        f"{wt} {traj[wt]:.3e} (tolerance {PROJ_TOL:g}; w {traj['w']:.3e}, losses "
+        f"{traj['losses']:.3e}); control, the card under FirstOrderFault (lrelu slope "
+        f"{GAN_FAULT_ALPHA} in the first-order backward): step 0's gradients worst {wb} "
+        f"{bad_grads[wb]:.3e} (must miss {PROJ_GRAD_TOL:g}); {card}")
+    assert grads[wg] <= PROJ_GRAD_TOL, (wg, grads[wg])
+    assert traj[wt] <= PROJ_TOL, (wt, traj[wt])
+    assert bad_grads[wb] > PROJ_GRAD_TOL, ("the control passed", wb, bad_grads[wb])
+    del g, lp
+    return calls
+
+
+def tools_ppl(out: dict, device: dict) -> dict:
+    """fid --metric ppl --samples PPL_SAMPLES --batch-size PPL_BATCH (TF32 at
+    the defaults: the module turns it off and back); the first
+    PPL_CPU_SEGMENTS segments card against the host CPU (TF32 off); the same
+    with TF32 on, and through the one-pass LPIPS form of the JAX package; a
+    batch timed; the whole PPL with TF32 on. Returns one batch's kernel
+    calls."""
+    from viscoin_tpu_torch.cli.utils import load_generator
+    from viscoin_tpu_torch.eval import ppl as PPL
+
+    card = device["nvidia_smi"]
+    tf32_defaults(device)
+    t0 = time.perf_counter()
+    log = _quiet_main(["fid", "--gan", TOOLS_GAN, "--metric", "ppl", "--samples",
+                       str(PPL_SAMPLES), "--batch-size", str(PPL_BATCH)])
+    out["command_s"] = time.perf_counter() - t0
+    res = json.loads(log.strip().splitlines()[-1])
+    assert math.isfinite(res["ppl"]) and res["ppl"] > 0, res
+    assert torch.backends.cudnn.allow_tf32 == device["cudnn_tf32_default"]
+    out["ppl"] = res["ppl"]
+
+    g, lp = load_generator(TOOLS_GAN, "cuda"), _frozen_lpips("cuda")
+    d = PPL.ppl_draws(0, 0, PPL_BATCH, g.z_dim)
+    d4 = PPL.PPLDraws(*(x[:PPL_CPU_SEGMENTS] for x in d))
+    card4 = PPL.make_ppl_sampler(g, lp)(d4).double().cpu()
+    t0 = time.perf_counter()
+    g_cpu, lp_cpu = load_generator(TOOLS_GAN, "cpu"), _frozen_lpips("cpu")
+    cpu4 = PPL.make_ppl_sampler(g_cpu, lp_cpu)(d4).double()
+    out["cpu_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        set_tf32(True)
+        img = PPL.path_pair_images(g, d4, 1e-4)
+        n = PPL_CPU_SEGMENTS
+        tf32 = (lp.normalized_difference(img[:n], img[n:]) / 1e-8).double().cpu()
+        set_tf32(False)
+        img = PPL.path_pair_images(g, d4, 1e-4)
+        one_pass = (lp(img[:n], img[n:]) / 1e-8).double().cpu()
+    tf32_defaults(device)
+
+    def rel(a):
+        return float((a - cpu4).abs().max() / cpu4.abs().max())
+
+    out.update(segments_card=card4.tolist(), segments_cpu=cpu4.tolist(),
+               segments_tf32=tf32.tolist(), segments_one_pass=one_pass.tolist(),
+               card_vs_cpu=rel(card4), tf32_vs_cpu=rel(tf32), one_pass_vs_cpu=rel(one_pass))
+    # The whole PPL with TF32 on (no_tf32 made a no-op).
+    orig = PPL.no_tf32
+    PPL.no_tf32 = contextlib.nullcontext
+    set_tf32(True)
+    try:
+        out["ppl_tf32"] = PPL.compute_ppl(g, lp, PPL_SAMPLES, PPL_BATCH)
+    finally:
+        PPL.no_tf32 = orig
+        tf32_defaults(device)
+    sample = PPL.make_ppl_sampler(g, lp)
+    out["batch_ms"] = cuda_ms(lambda: sample(d), iters=5, warmup=1)
+    _kernels.reset_launch_counts()
+    with PathRecorder() as rec:
+        sample(d)
+    out["launches_per_batch"] = _kernels.launch_counts()
+    say("gan-tools", f"fid --metric ppl --samples {PPL_SAMPLES} --batch-size {PPL_BATCH} "
+        f"(TF32 at the defaults outside, off inside): ppl {out['ppl']:.4f} "
+        f"({out['command_s']:.1f} s); the first {PPL_CPU_SEGMENTS} segments card against the "
+        f"host CPU, TF32 off: max |card - CPU| / max CPU = {out['card_vs_cpu']:.3e} (tolerance "
+        f"{PPL_TOL:g}; CPU {out['cpu_s']:.1f} s); with TF32 on {out['tf32_vs_cpu']:.3e}; the JAX "
+        f"package's one-pass LPIPS form (TF32 off) {out['one_pass_vs_cpu']:.3e}; the whole PPL "
+        f"with TF32 on {out['ppl_tf32']:.4f}; a batch of {PPL_BATCH} segments (2 x "
+        f"{PPL_BATCH} images) {out['batch_ms']:.2f} ms by events, launches "
+        f"{out['launches_per_batch']}; {card}")
+    assert out["card_vs_cpu"] <= PPL_TOL, out
+    del g, lp, g_cpu, lp_cpu
+    return rec.unique()
+
+
+def tools_fid(out: dict, device: dict) -> None:
+    """fid --dataset packed.zip --metric fid --metric kid --metric pr
+    --samples 64 --batch-size 16 under cuDNN deterministic: one host matrix
+    square root; the features it was given equal a recomputation here, and
+    KID and precision/recall equal theirs."""
+    from viscoin_tpu_torch.cli.train import _load_fid_detector
+    from viscoin_tpu_torch.cli.utils import load_generator
+    from viscoin_tpu_torch.data.utils import get_datasets
+    from viscoin_tpu_torch.eval import fid as EF
+
+    card = device["nvidia_smi"]
+    tf32_defaults(device)
+    seen = {}
+    orig = EF.fid_from_stats
+
+    def spy(real, fake):
+        t0 = time.perf_counter()
+        seen.update(real=real.get_all(), fake=fake.get_all(), fid=orig(real, fake))
+        seen["sqrtm_s"] = time.perf_counter() - t0
+        return seen["fid"]
+
+    EF.fid_from_stats = spy
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        log = _quiet_main(["fid", "--gan", TOOLS_GAN, "--dataset", "packed.zip", "--metric",
+                           "fid", "--metric", "kid", "--metric", "pr", "--samples", "64",
+                           "--batch-size", "16"])
+        out["command_s"] = time.perf_counter() - t0
+        res = json.loads(log.strip().splitlines()[-1])
+        detect = _load_fid_detector("checkpoints/inception", torch.device("cuda"))
+        fake_fn, real_fn = TG.make_gan_fid_fns(16)
+        ds, _ = get_datasets("packed.zip", "gan", train_only=True, out_size=RES)
+        real = TG.accumulate_real_fid_stats(detect, real_fn, ds, 16, 64, capture_all=True,
+                                            device="cuda")
+        fake = TG.accumulate_fake_fid_stats(detect, fake_fn, load_generator(TOOLS_GAN, "cuda"),
+                                            0, 64, capture_all=True)
+    finally:
+        EF.fid_from_stats = orig
+        torch.backends.cudnn.deterministic = False
+    assert np.array_equal(real.get_all(), seen["real"]) and np.array_equal(fake.get_all(),
+                                                                           seen["fake"])
+    assert res["fid"] == seen["fid"] and res["real_items"] == TOOLS_N
+    assert res["kid"] == EF.kid_from_stats(real, fake, seed=0)
+    assert (res["precision"], res["recall"]) == EF.pr_from_stats(real, fake)
+    out.update(result=res, sqrtm_s=seen["sqrtm_s"])
+    say("gan-tools", f"fid --dataset packed.zip --metric fid --metric kid --metric pr --samples 64 "
+        f"--batch-size 16, cuDNN deterministic: fid {res['fid']:.6g}, kid {res['kid']:.6g}, "
+        f"precision {res['precision']:.4f}, recall {res['recall']:.4f} over {TOOLS_N} real "
+        f"(the whole zip) and 64 fake samples, {out['command_s']:.1f} s, of which the one "
+        f"2048² matrix square root on the host {seen['sqrtm_s']:.1f} s; the features it was "
+        f"given equal a recomputation here, KID and precision/recall equal theirs; {card}")
+
+
+def phase_gan_tools(work: str, device: dict) -> tuple[dict, dict]:
+    """The GAN tools in the pipeline's directory (see the constants above).
+    Returns (record, {path label: kernel calls}): the generate batch, the
+    projection's timed run and one PPL batch."""
+    out: dict = {k: {} for k in ("dataset_tool", "generate", "style_mixing", "project", "ppl",
+                                 "fid")}
+    card = device["nvidia_smi"]
+    t_start = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        tools_dataset(out["dataset_tool"], card)
+        gen_calls = tools_generate(out["generate"], device)
+        tools_style_mixing(out["style_mixing"], card)
+        proj_calls = tools_project(out["project"], device)
+        torch.cuda.empty_cache()
+        ppl_calls = tools_ppl(out["ppl"], device)
+        torch.cuda.empty_cache()
+        tools_fid(out["fid"], device)
+    finally:
+        os.chdir(cwd)
+    out["seconds"] = time.perf_counter() - t_start
+    say("gan-tools", f"the phase took {out['seconds']:.1f} s; {card}")
+    return out, {"the generate batch": gen_calls, "the projection's timed steps": proj_calls,
+                 "one PPL batch": ppl_calls}
+
+
 # --------------------------------- phase 7 ---------------------------------- #
 
 
@@ -2846,11 +3366,13 @@ def kernel_entry(name: str, s: dict, launches: int, over: str) -> dict:
 
 def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: dict,
                   train_calls: dict[str, dict[tuple, int]], eval_calls: dict[str, dict],
-                  gan_cycle_calls: dict, fid_calls: dict, device: dict) -> dict:
+                  gan_cycle_calls: dict, fid_calls: dict, tool_calls: dict[str, dict],
+                  device: dict) -> dict:
     """The loop's run A (``loop_calls``: every call it made, as often as it
     made it), which the kernels line carries: its launches and its times
     describe the same work; beside it the GAN's 16-step fp32 cycle
-    (``gan_cycle_calls``, likewise); then, for the per-shape rows, serving
+    (``gan_cycle_calls``, likewise), one FID estimate, the projection's
+    timed steps and one PPL batch (``tool_calls``); then, for the per-shape rows, serving
     per reconstruct device batch, training per train step, and the loop's
     new shapes per probe chunk and per amplify call (fp32)."""
     tf32_defaults(device)
@@ -2864,29 +3386,34 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
     kernels = {name: kernel_entry(name, sums[name],
                                   sum(m for c, m in loop_calls.items() if c[0] == name), over)
                for name in KERNELS}
-    gan_over = (f"the GAN's 16-step fp32 cycle at batch {GAN_BATCH} (1 R1 + path-length step, "
-                "3 path-length steps, 12 plain): every kernel call as often as it made it")
-    sums, rows, host = time_path("float32 GAN 16-step cycle (summed)", gan_cycle_calls, gen, card)
-    detail["gan_cycle"] = {"rows": rows, "sums": sums, "host": host}
-    for name, entry in kernels.items():
-        gan = kernel_entry(name, sums[name],
-                           sum(m for c, m in gan_cycle_calls.items() if c[0] == name), gan_over)
-        entry.update({f"gan_cycle_{k}": gan[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
-                                                           "bound_by", "library_ms", "ms_over")})
-    fid_over = (f"one in-loop FID estimate of `train gan --fid-every`: {FID_SAMPLES} fakes, "
-                f"{-(-FID_SAMPLES // FID_BATCH)} EMA-generator batches of {FID_BATCH} at {RES}² "
-                "under no_grad; every kernel call as often as it made it (it makes no "
-                "bias_act_grad call)")
-    sums, rows, host = time_path("float32 FID sampling (summed)", fid_calls, gen, card)
-    detail["fid_sampling"] = {"rows": rows, "sums": sums, "host": host}
     none = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, lib_all=False, bytes_ms=0.0,
                 ops_ms=0.0)
-    for name, entry in kernels.items():
-        fid = kernel_entry(name, sums.get(name, none),
-                           sum(m for c, m in fid_calls.items() if c[0] == name), fid_over)
-        entry.update({f"fid_sampling_{k}": fid[k] for k in ("launches", "ms", "plain_ms",
-                                                              "bound_ms", "bound_by",
-                                                              "library_ms", "ms_over")})
+    paths = (
+        ("gan_cycle", "float32 GAN 16-step cycle (summed)", gan_cycle_calls,
+         f"the GAN's 16-step fp32 cycle at batch {GAN_BATCH} (1 R1 + path-length step, 3 "
+         "path-length steps, 12 plain): every kernel call as often as it made it"),
+        ("fid_sampling", "float32 FID sampling (summed)", fid_calls,
+         f"one in-loop FID estimate of `train gan --fid-every`: {FID_SAMPLES} fakes, "
+         f"{-(-FID_SAMPLES // FID_BATCH)} EMA-generator batches of {FID_BATCH} at {RES}² under "
+         "no_grad; every kernel call as often as it made it (it makes no bias_act_grad call)"),
+        ("projection", "float32 projection (summed)", tool_calls["the projection's timed steps"],
+         f"`project`'s {PROJ_STEPS} timed steps at batch 1, {RES}², full width (TF32 at the "
+         "defaults), and the w_avg mapping of 2048 z before them: every kernel call as often "
+         "as it made it"),
+        ("ppl_batch", "float32 PPL batch (summed)", tool_calls["one PPL batch"],
+         f"one batch of `fid --metric ppl`: {PPL_BATCH} segments, the mapping of 2 x "
+         f"{PPL_BATCH} z and one synthesis of {2 * PPL_BATCH} images at {RES}², no_grad, TF32 "
+         "off (no bias_act_grad call)"),
+    )
+    for prefix, label, calls, over in paths:
+        sums, rows, host = time_path(label, calls, gen, card)
+        detail[prefix] = {"rows": rows, "sums": sums, "host": host}
+        for name, entry in kernels.items():
+            path = kernel_entry(name, sums.get(name, none),
+                                sum(m for c, m in calls.items() if c[0] == name), over)
+            entry.update({f"{prefix}_{k}": path[k] for k in ("launches", "ms", "plain_ms",
+                                                             "bound_ms", "bound_by",
+                                                             "library_ms", "ms_over")})
     for dtype_name, calls in path_calls.items():
         sums, rows, host = time_path(f"{dtype_name} per reconstruct batch of {BATCH}", calls,
                                      gen, card)
@@ -3040,22 +3567,28 @@ def main() -> int:
         torch.cuda.empty_cache()
         record["fid"], fid_calls = phase_fid(work, record["device"])
         record["classifier"] = phase_classifier(work, record["device"])
+        torch.cuda.empty_cache()
+        record["gan_tools"], tool_calls = phase_gan_tools(work, record["device"])
     finally:
         ckpt.wait_for_saves()
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     set_tf32(False)
-    worst_fid = phase_kernels({"the FID sampling": fid_calls}, configurations=False)
+    worst_fid = phase_kernels({"the FID sampling": fid_calls, **tool_calls},
+                              configurations=False)
     loop_calls = record["loop"].pop("calls_a")
     # Run A's calls against the plain versions too (the kernels line's path).
     worst_loop = phase_kernels({"the loop's run A": loop_calls}, configurations=False)
     worst = {k: max(v, worst_loop[k], worst_gan[k], worst_fid[k]) for k, v in worst.items()}
     timings = phase_timings(models, path_calls, loop_calls, train_calls, eval_calls,
-                            gan_cycle_calls, fid_calls, record["device"])
+                            gan_cycle_calls, fid_calls, tool_calls, record["device"])
     for name, entry in timings["kernels"].items():
         assert entry["launches"] == record["loop"]["launches"][name], (name, entry)
         assert entry["gan_cycle_launches"] == record["gan"]["float32"]["cycle_launches"][name]
         assert entry["fid_sampling_launches"] == record["fid"]["launches"][name], (name, entry)
+        assert entry["projection_launches"] == record["gan_tools"]["project"]["launches"][name]
+        assert entry["ppl_batch_launches"] == \
+            record["gan_tools"]["ppl"]["launches_per_batch"][name], (name, entry)
     record["timings"] = timings
     record["max_abs_err"] = worst
     record["profiler_misses"] = PROFILER_MISSES

@@ -223,8 +223,9 @@ def test_registry_matches_jax(tmp_path):
         assert TU.default_checkpoints(name) == JU.default_checkpoints(name)
     zip_path = tmp_path / "data.zip"
     zip_path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TU.get_datasets(str(zip_path))
+    for get_datasets in (TU.get_datasets, JU.get_datasets):  # a zip is train-only in both
+        with pytest.raises(ValueError, match="no test split"):
+            get_datasets(str(zip_path))
     with pytest.raises(NotImplementedError, match="FunnyBirds"):
         TU.get_datasets("funnybirds")
     with pytest.raises(ValueError, match="unknown dataset"):

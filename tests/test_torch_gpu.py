@@ -617,3 +617,68 @@ def test_fid_sampling_launches_match_the_cpu(cuda):
     got = _kernels.launch_counts()
     assert {k: got[k] for k in counts} == counts and got["bias_act_grad"] == 0
     assert min(counts.values()) > 0
+
+
+def test_projection_step_gradients_on_the_card_match_the_cpu(cuda):
+    """One projection step's loss and gradients (w and every noise buffer,
+    the noise penalty on) through a frozen toy generator and LPIPS: the card
+    against the CPU within 1e-3 of each leaf's largest gradient, TF32 off.
+    On the card the backward launches bias_act_grad without the bias
+    gradient (need_db False on every call: the parameters are frozen) and
+    the upfirdn2d adjoint at batch 1."""
+    import importlib
+
+    from viscoin_tpu_torch.eval.projection import projection_loss
+    from viscoin_tpu_torch.models.stylegan import Generator
+
+    ba = importlib.import_module("viscoin_tpu_torch.ops.bias_act")
+    up = importlib.import_module("viscoin_tpu_torch.ops.upfirdn2d")
+    kw = dict(z_dim=8, w_dim=16, img_resolution=32, channel_base=256, channel_max=16,
+              mapping_layers=2)
+    g = init_models(Generator(**kw, device="cpu"), 3)
+    with torch.no_grad():  # live noise: the buffers' gradients are not zero
+        for name, p in g.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.3)
+    g.eval().requires_grad_(False)
+    lp = init_models(LPIPS(device="cpu"), 4).eval().requires_grad_(False)
+    gen = torch.Generator().manual_seed(5)
+    w = g.mapping(torch.randn(1, 8, generator=gen))[:, 0]
+    noise = {k: torch.randn(b.shape, generator=gen) for k, b in g.synthesis.named_buffers()
+             if k.endswith("noise_const")}
+    target = torch.rand(1, 3, 32, 32, generator=gen) * 2 - 1
+
+    def step(device):
+        leaves = {k: v.to(device).requires_grad_() for k, v in noise.items()}
+        wd = w.to(device).requires_grad_()
+        loss, dist = projection_loss(g.to(device), lp.to(device), wd, leaves,
+                                     target.to(device))
+        grads = torch.autograd.grad(loss, [wd, *leaves.values()])
+        return [loss, dist, *grads]
+
+    want = step("cpu")
+    calls = []
+    orig_grad, orig_up = ba._bias_act_grad_cuda, up._upfirdn2d_cuda
+
+    def rec_grad(x, b, dy, *, need_db=True, **k):
+        calls.append(("bias_act_grad", need_db and b is not None))
+        return orig_grad(x, b, dy, need_db=need_db, **k)
+
+    def rec_up(x, f, **k):
+        calls.append(("upfirdn2d", x.shape[0]))
+        return orig_up(x, f, **k)
+
+    ba._bias_act_grad_cuda, up._upfirdn2d_cuda = rec_grad, rec_up
+    try:
+        _kernels.reset_launch_counts()
+        got = step(cuda)
+        torch.cuda.synchronize()
+    finally:
+        ba._bias_act_grad_cuda, up._upfirdn2d_cuda = orig_grad, orig_up
+    counts = _kernels.launch_counts()
+    assert counts["bias_act_grad"] > 0 and counts["upfirdn2d"] > 0 and counts["bias_act"] > 0
+    assert not any(db for op, db in calls if op == "bias_act_grad")
+    assert {n for op, n in calls if op == "upfirdn2d"} == {1}
+    for a, b in zip(got, want):
+        scale = b.abs().max().clamp_min(1e-30)
+        assert float((a.cpu() - b).abs().max() / scale) <= 1e-3

@@ -39,7 +39,11 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.cli.port_weights", "viscoin_tpu_torch.cli.test",
             "viscoin_tpu_torch.models.inception", "viscoin_tpu_torch.eval.fid",
             "viscoin_tpu_torch.eval.classifiers",
-            "viscoin_tpu_torch.train.classifiers"} <= set(mods)
+            "viscoin_tpu_torch.train.classifiers", "viscoin_tpu_torch.data.stylegan_zip",
+            "viscoin_tpu_torch.cli.dataset_tool", "viscoin_tpu_torch.cli.generate",
+            "viscoin_tpu_torch.cli.style_mixing", "viscoin_tpu_torch.cli.project",
+            "viscoin_tpu_torch.cli.fid", "viscoin_tpu_torch.eval.ppl",
+            "viscoin_tpu_torch.eval.projection"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -109,6 +113,27 @@ def test_new_commands_default_to_cuda_and_raise_without_a_card(monkeypatch, argv
     from viscoin_tpu_torch.__main__ import build_parser, main
 
     assert build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["generate", "--gan", "."],
+    ["style-mixing", "--gan", "."],
+    ["project", "--gan", ".", "--target", "."],
+    ["fid", "--gan", ".", "--dataset", "synthetic"],
+], ids=lambda a: a[0])
+def test_gan_tools_default_to_cuda_and_raise_without_a_card(monkeypatch, argv):
+    """`generate`, `style-mixing`, `project` and `fid` run on the card unless
+    given --device cpu; without a card they raise before reading anything.
+    (`dataset-tool` packs images on the host and has no --device, as in the
+    JAX package.)"""
+    from viscoin_tpu_torch.__main__ import build_parser, main
+
+    assert build_parser().parse_args(argv).device == "cuda"
+    assert not hasattr(build_parser().parse_args(["dataset-tool", "--source", "a", "--dest",
+                                                  "b"]), "device")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)

@@ -136,3 +136,32 @@ def jax_augment_draws(key, batch: int):
         lumaflip_do=u(ck[4]), lumaflip_coin=u(ck[5]), hue_do=u(ck[6]), hue=u(ck[7], -pi, pi),
         sat_do=u(ck[8]), sat=n(ck[9]))
     return AugmentDraws.from_arrays({k: np.asarray(v) for k, v in arrays.items()})
+
+
+# The toy generator of the JAX package's GAN-tool tests (tests/test_cli_fid.py).
+TOY_GEN = dict(z_dim=8, w_dim=16, img_resolution=32, mapping_layers=2, channel_base=256,
+               channel_max=16)
+
+
+def jax_generator(seed: int = 0, **overrides):
+    """A JAX ``Generator`` at toy widths with its variables ({params, noise,
+    moving_stats}) perturbed: (module, numpy variables)."""
+    import jax.numpy as jnp
+
+    from viscoin_tpu.models.stylegan import Generator
+
+    cfg = dict(TOY_GEN, **overrides)
+    g = Generator(**cfg)
+    gvars = run_once(lambda key: g.init({"params": key}, jnp.zeros((1, cfg["z_dim"])),
+                                        noise_mode="const"), jax.random.PRNGKey(seed))
+    gvars = perturb(jax.tree_util.tree_map(np.asarray, dict(gvars)), seed + 1)
+    return g, jax.tree_util.tree_map(np.asarray, gvars)
+
+
+def save_generator(gvars: dict, path: str) -> str:
+    """The variables in the npz layout, where ``--gan`` reads them."""
+    from viscoin_tpu_torch.utils import checkpoints as ckpt
+
+    ckpt.save_pytree(gvars, path)
+    ckpt.wait_for_saves()
+    return path

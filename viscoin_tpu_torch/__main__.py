@@ -6,10 +6,17 @@
     python -m viscoin_tpu_torch train gan --dataset synthetic --epochs 100 --fid-every 50
     python -m viscoin_tpu_torch train viscoin --dataset synthetic --epochs 100
     python -m viscoin_tpu_torch train viscoin --device cpu ...   # the plain versions
+    python -m viscoin_tpu_torch dataset-tool --source images/ --dest birds.zip --resolution 256
+    python -m viscoin_tpu_torch generate --gan gan --seeds 0-15
+    python -m viscoin_tpu_torch style-mixing --gan gan
+    python -m viscoin_tpu_torch project --gan gan --target bird.png
+    python -m viscoin_tpu_torch fid --gan gan --dataset birds.zip --metric fid --metric ppl
 
 The commands: ``port-weights`` (``cli/port_weights.py``), ``train classifier
-| viscoin | gan`` (``cli/train.py``) and ``test classifier`` (``cli/test.py``).
-Each runs on the card unless given ``--device cpu``.
+| viscoin | gan`` (``cli/train.py``), ``test classifier`` (``cli/test.py``),
+``dataset-tool``, ``generate``, ``style-mixing``, ``project`` and ``fid``
+(``cli/<name>.py``). Each that computes runs on the card unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -17,7 +24,12 @@ from __future__ import annotations
 import argparse
 import sys
 
+from viscoin_tpu_torch.cli import dataset_tool as dataset_tool_cmd
+from viscoin_tpu_torch.cli import fid as fid_cmd
+from viscoin_tpu_torch.cli import generate as generate_cmd
 from viscoin_tpu_torch.cli import port_weights as port_weights_cmd
+from viscoin_tpu_torch.cli import project as project_cmd
+from viscoin_tpu_torch.cli import style_mixing as style_mixing_cmd
 from viscoin_tpu_torch.cli import test as test_cmd
 from viscoin_tpu_torch.cli import train as train_cmd
 
@@ -26,9 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m viscoin_tpu_torch",
                                      description="VisCoIN on PyTorch/CUDA.")
     sub = parser.add_subparsers(dest="command", required=True)
-    train_cmd.add_parser(sub)
-    test_cmd.add_parser(sub)
-    port_weights_cmd.add_parser(sub)
+    for cmd in (train_cmd, test_cmd, port_weights_cmd, dataset_tool_cmd, generate_cmd,
+                style_mixing_cmd, project_cmd, fid_cmd):
+        cmd.add_parser(sub)
     return parser
 
 

@@ -257,25 +257,12 @@ def classifier_from_tree(tree: dict, device="cuda"):
     return load_jax_tree(model, {"params": tree["params"], "batch_stats": tree["batch_stats"]})
 
 
-def _synthesis_config(syn: dict) -> dict:
-    res = _res_keys(syn)
-    channels = {r: np.asarray(syn[f"b{r}"]["conv1"]["weight"]).shape[-1] for r in res}
-    base, cmax = _channels_config(channels)
-    return dict(img_resolution=max(res), channel_base=base, channel_max=cmax,
-                img_channels=np.asarray(syn[f"b{max(res)}"]["torgb"]["weight"]).shape[-1])
-
-
 def generator_from_tree(tree: dict, device="cuda"):
     """A ``Generator`` shaped as the {params, noise, moving_stats} tree says,
     holding it."""
-    from viscoin_tpu_torch.models.stylegan import Generator
+    from viscoin_tpu_torch.models.stylegan import Generator, generator_config_from_params
 
-    mapping = tree["params"]["mapping"]
-    n = len([k for k in mapping if k.startswith("fc")])
-    model = Generator(z_dim=np.asarray(mapping["fc0"]["weight"]).shape[1],
-                      w_dim=np.asarray(mapping[f"fc{n - 1}"]["weight"]).shape[0],
-                      mapping_layers=n, **_synthesis_config(tree["params"]["synthesis"]),
-                      device=device)
+    model = Generator(**generator_config_from_params(tree["params"]), device=device)
     return load_jax_tree(model, {k: tree[k] for k in ("params", "noise", "moving_stats")})
 
 
@@ -299,7 +286,7 @@ def viscoin_from_tree(tree: dict, device="cuda"):
     from viscoin_tpu_torch.models.bundle import VisCoINModels
     from viscoin_tpu_torch.models.concept_extractor import ConceptExtractor
     from viscoin_tpu_torch.models.explainer import Explainer
-    from viscoin_tpu_torch.models.stylegan import GeneratorAdapted
+    from viscoin_tpu_torch.models.stylegan import GeneratorAdapted, synthesis_config_from_params
     from viscoin_tpu_torch.utils.weights import load_jax_variables
 
     psi, theta, gan = tree["concept_extractor"], tree["explainer"], tree["gan"]
@@ -325,7 +312,8 @@ def viscoin_from_tree(tree: dict, device="cuda"):
                             normalized=normalized, device=device),
         gan=GeneratorAdapted(z_dim=n_concepts, w_dim=shape(mapping["g1_w0"])[1],
                              small_adjust=z2 == 8 * n_concepts, mapping_num_layers=n_layers,
-                             **_synthesis_config(gan["params"]["synthesis"]), device=device))
+                             **synthesis_config_from_params(gan["params"]["synthesis"]),
+                             device=device))
     return load_jax_variables(models, {"classifier": tree["classifier"], "psi": psi,
                                        "theta": theta, "gan": gan})
 

@@ -24,14 +24,15 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
 
 
 def test(args: argparse.Namespace) -> tuple[float, float]:
-    from viscoin_tpu_torch.cli.train import _card_or_cpu, build_classifier
+    from viscoin_tpu_torch.cli.train import build_classifier
+    from viscoin_tpu_torch.cli.utils import card_or_cpu
     from viscoin_tpu_torch.eval.classifiers import test_classifier
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.weights import load_jax_tree
 
     if args.model_name != "classifier":
         raise ValueError(f"Unknown model name: {args.model_name}")
-    device = _card_or_cpu("test", args.device)
+    device = card_or_cpu("test", args.device)
     _, dataloader = get_dataloaders(args.dataset, batch_size=args.batch_size or 32)
     model = build_classifier(dataloader.dataset.N_CLASSES, device)
     if args.checkpoints is not None:

@@ -46,7 +46,7 @@ import os
 
 import torch
 
-from viscoin_tpu_torch.cli.utils import add_common_options, existing_path
+from viscoin_tpu_torch.cli.utils import add_common_options, card_or_cpu, existing_path
 from viscoin_tpu_torch.data.utils import default_checkpoints, get_dataloaders
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
@@ -195,14 +195,6 @@ def _check_parallelism(device: torch.device, data_parallel: bool, model_parallel
             "--no-data-parallel")
 
 
-def _card_or_cpu(command: str, device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{command} --device cuda: no CUDA device is available; pass "
-                           "--device cpu to run with the plain versions on the CPU")
-    return device
-
-
 def _train_classifier(dataset: str, checkpoints, batch_size, learning_rate, epochs,
                       output_weights, data_parallel=True, compute_dtype="bfloat16",
                       optimizer=None, momentum=None, ds_kwargs=None, device="cuda"):
@@ -212,7 +204,7 @@ def _train_classifier(dataset: str, checkpoints, batch_size, learning_rate, epoc
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.weights import load_jax_tree
 
-    device = _card_or_cpu("train classifier", device)
+    device = card_or_cpu("train classifier", device)
     _check_parallelism(device, data_parallel, 1)
     params = ClassifierTrainingParams(epochs, learning_rate, batch_size,
                                       compute_dtype=compute_dtype, optimizer=optimizer,
@@ -289,7 +281,7 @@ def _train_viscoin(dataset: str, learning_rate, epochs, batch_size, gradient_acc
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.weights import load_jax_tree
 
-    device = _card_or_cpu("train viscoin", device)
+    device = card_or_cpu("train viscoin", device)
     _check_parallelism(device, data_parallel, model_parallel)
 
     # Unset options fall back to the dataclass defaults, as the JAX command's do.
@@ -392,7 +384,7 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.logging import get_logger
 
-    device = _card_or_cpu("train gan", device)
+    device = card_or_cpu("train gan", device)
     _check_parallelism(device, data_parallel, model_parallel)
     detector_path = fid_detector_path or DEFAULT_FID_DETECTOR
     if fid_every and not os.path.exists(detector_path):

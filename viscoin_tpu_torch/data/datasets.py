@@ -1,7 +1,8 @@
 """Datasets: CUB-200-2011, folder-per-class images, and synthetic images.
 
-Counterpart of ``viscoin_tpu/data/datasets.py`` (``FunnyBirds``,
-``LabeledCUB`` and the StyleGAN zip are not ported yet). The dataset root
+Counterpart of ``viscoin_tpu/data/datasets.py`` (``FunnyBirds`` and
+``LabeledCUB`` are not ported yet; the StyleGAN zip is
+``data/stylegan_zip.py``). The dataset root
 comes from an explicit argument, then ``$VISCOIN_DATA_DIR``, then
 ``~/.cache/viscoin/datasets``; nothing is downloaded. Decoded uint8 images
 are cached, not transformed ones, so the training crop stays random across

@@ -1,8 +1,9 @@
 """Dataset registry and checkpoint path conventions.
 
 Counterpart of ``viscoin_tpu/data/utils.py``. A dataset is a registry name
-("cub", "synthetic"; "funnybirds" is not ported yet) or a directory with the
-``{root}/{train|test}/{class}/{image}`` layout. Checkpoints follow the JAX
+("cub", "synthetic"; "funnybirds" is not ported yet), a directory with the
+``{root}/{train|test}/{class}/{image}`` layout, or a StyleGAN training zip
+(``data/stylegan_zip.py``, train-only). Checkpoints follow the JAX
 package's paths (``checkpoints/{dataset}/classifier-{dataset}`` ...), each a
 directory in the npz bundle layout of ``utils/checkpoints.py``.
 """
@@ -69,10 +70,16 @@ def get_datasets(name: str, transform: Literal["train", "test", "gan"] | None = 
 
         return split("train"), (None if train_only else split("test"))
     if os.path.isfile(name) and name.lower().endswith(".zip"):
-        raise NotImplementedError(f"{name}: StyleGAN training zips are not ported yet "
-                                  "(ROADMAP.md, queue 1: datasets, data/stylegan_zip.py)")
-    raise ValueError(f"unknown dataset {name!r}: expected one of {sorted(DATASET_CLASSES)} or a "
-                     "directory path with a {root}/{train|test}/{class}/{image} layout")
+        # A StyleGAN training zip is the training set itself: train-only.
+        from viscoin_tpu_torch.data.stylegan_zip import StyleGANZipDataset
+
+        if not train_only:
+            raise ValueError(f"{name} is a StyleGAN training zip — it has no test split (use "
+                             "it with `train gan` / `fid`, which are train-only)")
+        return StyleGANZipDataset(name, mode="train", transform=transform, **kwargs), None
+    raise ValueError(f"unknown dataset {name!r}: expected one of {sorted(DATASET_CLASSES)}, a "
+                     "directory path with a {root}/{train|test}/{class}/{image} layout, or a "
+                     "StyleGAN training .zip (train-only)")
 
 
 def get_dataloaders(name: str, batch_size: int,

@@ -92,3 +92,19 @@ class LPIPS(nn.Module):
             dist = la / na.square() + lb / nb.square() - 2.0 * lab / (na * nb)
             total = total + dist.mean(dim=(1, 2))
         return total
+
+    def normalized_difference(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The same distance in LPIPS's own form, sum_c lin_c (a_c / Na -
+        b_c / Nb)^2, in the inputs' dtype. For nearly equal inputs (PPL's
+        pairs, epsilon = 1e-4 apart) the one-pass form's three fp32 sums
+        cancel to rounding; this form keeps the difference."""
+        shift = torch.tensor(SHIFT, dtype=x.dtype, device=x.device)[:, None, None]
+        scale = torch.tensor(SCALE, dtype=x.dtype, device=x.device)[:, None, None]
+        total = 0.0
+        for i, (a, b) in enumerate(zip(self.vgg((x - shift) / scale),
+                                       self.vgg((y - shift) / scale))):
+            a = a / (a.square().sum(dim=1, keepdim=True).sqrt() + 1e-10)
+            b = b / (b.square().sum(dim=1, keepdim=True).sqrt() + 1e-10)
+            lin = getattr(self, f"lin{i}").to(a.dtype)[:, None, None]
+            total = total + (lin * (a - b).square()).sum(dim=1).mean(dim=(1, 2))
+        return total

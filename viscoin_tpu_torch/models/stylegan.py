@@ -7,8 +7,9 @@ Counterpart of ``viscoin_tpu/models/stylegan.py``: the equalized-LR
 per-style-layer MLPs stacked into two groups) and :class:`GeneratorAdapted`;
 the original :class:`MappingNetwork` and :class:`Generator` (the frozen
 source of VisCoIN's synthetic training images, and what ``train gan``
-trains); :class:`MinibatchStdLayer`, :class:`DiscriminatorBlock` (resnet
-architecture) and :class:`Discriminator`; and :func:`adapted_state_from_gan`.
+trains), with :func:`generator_config_from_params`; :class:`MinibatchStdLayer`,
+:class:`DiscriminatorBlock` (resnet architecture) and :class:`Discriminator`;
+and :func:`adapted_state_from_gan`.
 Parameter names and shapes follow the JAX modules, with conv weights in OIHW
 and the 4x4 constant in CHW, so ``utils/weights.py`` carries the JAX
 variables across by name. The discriminator's epilogue flattens its 4x4
@@ -387,6 +388,48 @@ class Generator(nn.Module):
                 noise_mode: str = "random", generator: torch.Generator | None = None):
         ws = self.mapping(z, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, noise_mode=noise_mode, generator=generator)
+
+
+def synthesis_config_from_params(syn: dict) -> dict:
+    """A :class:`SynthesisNetwork`'s resolution, image channels and widths
+    from its params in the JAX layout (HWIO weights)."""
+    import numpy as np
+
+    resolutions = sorted(int(k[1:]) for k in syn)
+    img_resolution = max(resolutions)
+    widths = {r: int(np.shape(syn[f"b{r}"]["conv1"]["weight"])[-1]) for r in resolutions}
+    channel_max = max(widths.values())
+    channel_base = max(w * r for r, w in widths.items())
+    for r, w in widths.items():
+        if min(channel_base // r, channel_max) != w:
+            raise ValueError(f"synthesis widths {widths} do not follow the StyleGAN2 "
+                             "min(channel_base//res, channel_max) schedule — cannot infer the "
+                             "module config; construct the Generator explicitly")
+    return {"img_resolution": img_resolution, "channel_base": channel_base,
+            "channel_max": channel_max,
+            # the top block's toRGB output width is the image channel count
+            "img_channels": int(np.shape(syn[f"b{img_resolution}"]["torgb"]["weight"])[-1])}
+
+
+def generator_config_from_params(params: dict) -> dict:
+    """A :class:`Generator`'s constructor config from its params in the JAX
+    layout (a ``train gan`` export or a ``port-weights stylegan`` output, as
+    ``utils/checkpoints.py::restore_pytree`` reads them): resolution, image
+    channels and widths from the synthesis blocks, latent sizes and depth
+    from the mapping. The dict of the JAX package's function of that name."""
+    import numpy as np
+
+    syn = synthesis_config_from_params(params["synthesis"])
+    mapping = params["mapping"]
+    fcs = sorted(k for k in mapping if k.startswith("fc"))
+    if not fcs:
+        raise ValueError("params['mapping'] has no fc{i} layers — an adapted (VisCoIN) "
+                         "mapping? config inference covers the original Generator only")
+    return {"z_dim": int(np.shape(mapping[fcs[0]]["weight"])[1]),
+            "w_dim": int(np.shape(mapping[fcs[-1]]["weight"])[0]),
+            "img_resolution": syn["img_resolution"], "mapping_layers": len(fcs),
+            "channel_base": syn["channel_base"], "channel_max": syn["channel_max"],
+            "img_channels": syn["img_channels"]}
 
 
 class MinibatchStdLayer(nn.Module):
