@@ -134,10 +134,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                through the JAX package's one-pass LPIPS form; `fid --dataset
                packed.zip --metric fid --metric kid --metric pr` (one host
                matrix square root; the features it used equal a recomputation);
- 18. timings   per kernel (CUDA events at the path's shapes, summed over the
+ 18. analysis  the flagship bundle saved to a temporary directory: `python -m
+               viscoin_tpu_torch serve --compute-dtype float32 --port 0` in a
+               process of its own (its printed address; startup seconds),
+               /v1/classify, /v1/reconstruct, /v1/explain and /v1/amplify
+               against the in-process engine (1e-5 of the scale, 1 u8
+               level), SIGINT: exit 0 with the batchers closed; explain on
+               10 images in fp32 and bf16 (no kernel launch, two calls
+               bit-equal, padding invariance, card vs CPU on 2 images within
+               1e-3 and a wrong-class control that must fail it, an explain
+               batch timed); test_concepts on 64 synthetic images (200
+               classes, batch 32) card vs CPU within 1e-4 of the scale; the
+               W+ pass (bias_act launches exactly the CPU's narrow count, no
+               upfirdn2d; img/s); amplify-pca --pca 2's computation (launches
+               exact, the mapping at N = 32 and the synthesis at N = 5 added
+               to phase 3's shapes, one component card vs CPU within 1 u8
+               level); amplify, concepts, concept-heatmaps and logs as
+               commands where matplotlib is installed, else their
+               ImportError and their computations in-process; to-pickle;
+ 19. timings   per kernel (CUDA events at the path's shapes, summed over the
                loop's run A, the GAN's 16-step cycle, one FID estimate, the
-               projection's 100 timed steps and one PPL batch as they made
-               each call, and over one reconstruct
+               projection's 100 timed steps, one PPL batch and amplify-pca
+               --pca 2 as they made each call, and over one reconstruct
                batch or one train step) beside its plain version,
                a one-call PyTorch yardstick where one exists, and its
                memory/compute bound; for the largest shapes the profiler's
@@ -148,11 +166,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                smallest path shape; the same for a probe chunk (N = 32) and
                an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
                and peak memory, and a torch.profiler breakdown of reconstruct;
- 19. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+ 20. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
                library_ms all over the loop's run A (``ms_over`` says so),
                the same over the GAN cycle (``gan_cycle_*``), one FID
                estimate (``fid_sampling_*``), the projection's timed steps
-               (``projection_*``) and one PPL batch (``ppl_batch_*``); then
+               (``projection_*``), one PPL batch (``ppl_batch_*``) and
+               amplify-pca --pca 2's computation (``amplify_pca_*``); then
                the device line, last.
 
 It imports torch and viscoin_tpu_torch only.
@@ -192,7 +211,7 @@ import torch.nn.functional as F
 from viscoin_tpu_torch import native
 from viscoin_tpu_torch.data.datasets import SyntheticDataset
 from viscoin_tpu_torch.data.loader import DataLoader
-from viscoin_tpu_torch.data.transforms import device_preprocess
+from viscoin_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, device_preprocess
 from viscoin_tpu_torch.eval import viscoin as TE
 from viscoin_tpu_torch.models.bundle import default_models, init_models
 from viscoin_tpu_torch.models.lpips import LPIPS
@@ -1290,6 +1309,8 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         assert [tim_a.get(f"n_{p}") for p in ("steps", "eval", "checkpoint", "probe")] == \
             [8, 2, 2, 1], tim_a
         check_records(read_jsonl(os.path.join(dir_a, "a.jsonl")), 2, "run A")
+        with open(os.path.join(dir_a, "a.jsonl")) as f:
+            out["jsonl_a"] = f.read()  # the analysis phase's `logs` reads it
         assert {"viscoin0-2", "viscoin1-2", "train_state"} <= set(os.listdir(dir_a))
 
         # The bundle the loop wrote at i = 4 against the bundle it saved then.
@@ -3130,6 +3151,522 @@ def phase_gan_tools(work: str, device: dict) -> tuple[dict, dict]:
                  "one PPL batch": ppl_calls}
 
 
+# ------------------------------ the analysis phase ---------------------------- #
+
+ANALYSIS_N, ANALYSIS_TEST_N = 64, 20  # SyntheticDataset images (200 classes, 256²)
+SERVE_TOL = 1e-5  # the serve subprocess against the in-process engine, of the scale
+# amplify's probabilities, served against in-process: the generator's transposed
+# convolutions take cuDNN's atomic algorithms (see `generate`'s control), so its
+# images differ by a u8 level between runs, and the classifier (TF32) reads that.
+AMPLIFY_TOL = 1e-3
+EXPLAIN_TOL = 1e-3  # heatmaps card (TF32 off) vs CPU, absolute (the maps lie in [0, 1])
+PAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # a row alone vs in a padded batch, absolute
+CONCEPTS_RTOL = 1e-4  # test_concepts card (TF32 off) vs CPU, of each field's scale
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, float(np.abs(want).max())))
+
+
+def _narrow_models():
+    """The bundle at narrow widths on the CPU (toy classifier, 8 concepts,
+    channel_base 256, channel_max 8) at RES with the flagship's mapping
+    (one layer per group, both groups): it launches what the flagship
+    launches, counted by ``count_plain_calls``."""
+    from viscoin_tpu_torch.models.bundle import VisCoINModels
+    from viscoin_tpu_torch.models.concept_extractor import ConceptExtractor
+    from viscoin_tpu_torch.models.explainer import Explainer
+    from viscoin_tpu_torch.models.resnet import Classifier
+    from viscoin_tpu_torch.models.stylegan import GeneratorAdapted
+
+    return init_models(VisCoINModels(
+        classifier=Classifier(output_classes=N_CLASSES, embedding_size=8,
+                              hidden_sizes=(8, 16, 32, 64), depths=(1, 1, 1, 1), device="cpu"),
+        concept_extractor=ConceptExtractor(n_concepts=8, latent_channels=8, input_channels1=16,
+                                           input_channels2=32, input_channels3=64, device="cpu"),
+        explainer=Explainer(n_concepts=8, n_classes=N_CLASSES, device="cpu"),
+        gan=GeneratorAdapted(z_dim=8, img_resolution=RES, channel_base=256, channel_max=8,
+                             device="cpu")), SEED + 95).eval()
+
+
+def analysis_serve(models, bundle: str, device: dict) -> dict:
+    """`python -m viscoin_tpu_torch serve --compute-dtype float32 --port 0` in a
+    process of its own on the saved bundle: its printed address, /healthz,
+    then /v1/classify, /v1/reconstruct, /v1/explain and /v1/amplify against
+    the in-process engine (the same TF32 defaults); SIGINT stops it, exit 0
+    with its batchers closed."""
+    import queue
+    import re
+    import signal
+
+    card = device["nvidia_smi"]
+    tf32_defaults(device)  # what the subprocess runs with
+    cmd = [sys.executable, "-m", "viscoin_tpu_torch", "serve", "--viscoin-pickle-path", bundle,
+           "--compute-dtype", "float32", "--port", "0"]
+    lines: queue.Queue = queue.Queue()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=pipe_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    reader = threading.Thread(target=lambda: [lines.put((time.perf_counter(), ln))
+                                              for ln in proc.stdout] + [lines.put(None)],
+                              daemon=True)
+    reader.start()
+    log: list[str] = []
+
+    def next_line(pattern: str, timeout: float = 300.0):
+        deadline = time.perf_counter() + timeout
+        while True:
+            item = lines.get(timeout=max(0.1, deadline - time.perf_counter()))
+            if item is None:
+                raise RuntimeError(f"serve exited {proc.wait()} before {pattern!r}:\n"
+                                   + "".join(log)[-4000:])
+            log.append(item[1])
+            match = re.search(pattern, item[1])
+            if match:
+                return item[0], match
+
+    out: dict = {}
+    try:
+        t_warm, _ = next_line(r"warming up")
+        t_up, match = next_line(r"serving on (http://\S+)")
+        base = match.group(1)
+        out.update(load_s=t_warm - t0, warmup_s=t_up - t_warm, startup_s=t_up - t0)
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["device"].startswith("cuda"), health
+        assert health["compute_dtype"] == "float32" and health["batch_size"] == BATCH, health
+
+        def post(route: str, imgs: np.ndarray) -> bytes:
+            buf = io.BytesIO()
+            np.savez(buf, images=imgs)
+            req = urllib.request.Request(base + route, data=buf.getvalue(),
+                                         headers={"Content-Type": "application/octet-stream"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                assert r.status == 200, (route, r.status)
+                return r.read()
+
+        imgs = seeded_images(3, SEED + 90)
+        engine = InferenceEngine(models, batch_size=BATCH, compute_dtype="float32",
+                                 device="cuda")
+        err: dict[str, float] = {}
+        cls = json.loads(post("/v1/classify?top_k=5", imgs))
+        want = engine.classify(imgs)
+        assert cls["preds"] == want["logits"].argmax(-1).tolist()
+        assert cls["expl_preds"] == want["expl_logits"].argmax(-1).tolist()
+        for key, idx, src in (("top_probas", "top_classes", "probas"),
+                              ("top_expl_probas", "top_expl_classes", "expl_probas"),
+                              ("top_concept_activations", "top_concepts", "concepts")):
+            err[f"classify {key}"] = _rel(cls[key], np.take_along_axis(
+                want[src], np.asarray(cls[idx]), -1))
+        rec = np.load(io.BytesIO(post("/v1/reconstruct", imgs)))
+        want = engine.reconstruct(imgs)
+        err["reconstruct u8"] = float(_u8_dev(rec["reconstruction_u8"],
+                                              want["reconstruction_u8"]))
+        expl = np.load(io.BytesIO(post("/v1/explain?top_k=5", imgs)))
+        want = engine.explain(imgs)
+        np.testing.assert_array_equal(expl["expl_preds"], want["expl_preds"])
+        np.testing.assert_array_equal(expl["preds"], want["preds"])
+        for i in range(1, 6):
+            err[f"explain heatmap_conv{i}"] = _rel(expl[f"heatmap_conv{i}"],
+                                                   want[f"heatmap_conv{i}"])
+        err["explain top_concept_activations"] = _rel(
+            expl["top_concept_activations"],
+            np.take_along_axis(want["concepts"], expl["top_concepts"], -1))
+        amp = np.load(io.BytesIO(post("/v1/amplify?top_k_concepts=4&seed=3", imgs[:1])))
+        res = engine.amplify(imgs[0], {"method": "top_k", "k": 4}, [0.0, 1.0, 2.0, 4.0], seed=3)
+        want_u8 = np.round(np.clip(np.stack(res.amplified_images) * np.asarray(
+            IMAGENET_STD, np.float32) + np.asarray(IMAGENET_MEAN, np.float32), 0, 1)
+            * 255).astype(np.uint8)
+        err["amplify u8"] = float(_u8_dev(amp["amplified_u8"], want_u8))
+        err["amplify probas"] = _rel(np.concatenate([amp["probas_best"], amp["probas_rand"]]),
+                                     res.best_concept_probas_best + res.best_concept_probas_rand)
+        del engine
+        for key, e in err.items():
+            assert e <= (1 if "u8" in key else AMPLIFY_TOL if "amplify" in key else SERVE_TOL), \
+                (key, e)
+        out["errors"] = err
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(timeout=120)
+        reader.join(30)
+        while (item := lines.get_nowait()) is not None:
+            log.append(item[1])
+        assert code == 0, (code, "".join(log)[-3000:])
+        assert any("micro-batchers closed" in ln for ln in log), "".join(log)[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    say("analysis", f"`python -m viscoin_tpu_torch serve --compute-dtype float32 --port 0` "
+        f"(batch {BATCH}) in its own process: up in {out['startup_s']:.1f} s (interpreter, "
+        f"torch and the bundle's load {out['load_s']:.1f} s, warm-up of the three batched "
+        f"endpoints {out['warmup_s']:.1f} s); /v1/classify, /v1/reconstruct, /v1/explain and "
+        f"/v1/amplify against the in-process engine: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+        + f" (tolerance {SERVE_TOL:g} of the scale, amplify's probabilities {AMPLIFY_TOL:g}, 1 "
+        f"u8 level); SIGINT: exit 0, micro-batchers "
+        f"closed; {card}")
+    return out
+
+
+def _explain_timing(engine, imgs: np.ndarray) -> dict:
+    """An explain batch: the host clock around engine.explain (it returns
+    numpy, so the device work has finished; median of 10), CUDA events over
+    10 calls, and the profiler's kernel time over 5 calls against their wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.explain(imgs)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        engine.explain(imgs)
+        times.append((time.perf_counter() - t0) * 1e3)
+    events = cuda_ms(lambda: engine.explain(imgs), iters=10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            engine.explain(imgs)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in kernel_events(prof)) / 1e3
+    med = statistics.median(times)
+    return {"host_ms_median": med, "host_ms_min": min(times), "events_ms": events,
+            "img_per_s": len(imgs) / med * 1e3, "busy_share": busy / wall,
+            "device_ms_per_batch": busy / 5}
+
+
+def analysis_explain(models, cpu_models, device: dict) -> dict:
+    """explain on 10 images (two device batches of 8) in fp32 and bf16: no
+    kernel launch, two calls bit-equal, a row alone equal to the same row in
+    a padded batch; fp32 card (TF32 off) against device="cpu" on 2 images,
+    and a planted fault (the gradient of another class than the explained
+    one) that check must catch; an explain batch timed (TF32 at the
+    defaults)."""
+    from viscoin_tpu_torch.cli import generate as gen_cmd
+    from viscoin_tpu_torch.utils.gradcam import concept_extractor_gradcams
+
+    card = device["nvidia_smi"]
+    imgs = seeded_images(10, SEED + 91)
+    out: dict = {}
+    for dtype in ("float32", "bfloat16"):
+        set_tf32(False)
+        engine = InferenceEngine(models, batch_size=BATCH, compute_dtype=dtype, device="cuda")
+        engine.explain(imgs[:BATCH])
+        _kernels.reset_launch_counts()
+        a = engine.explain(imgs)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        assert counts == {k: 0 for k in KERNELS}, (dtype, counts)
+        b = engine.explain(imgs)
+        for key in a:
+            assert np.array_equal(a[key], b[key]), (dtype, "two explain calls differ", key)
+        # The control: two calls with cuDNN's default algorithms in the backward.
+        orig = gen_cmd.deterministic_cudnn
+        gen_cmd.deterministic_cudnn = contextlib.nullcontext
+        try:
+            c, d = engine.explain(imgs), engine.explain(imgs)
+        finally:
+            gen_cmd.deterministic_cudnn = orig
+        nondet = max(float(np.abs(c[k] - d[k]).max()) for k in c if k.startswith("heatmap"))
+        maps = [f"heatmap_conv{i}" for i in range(1, 6)]
+        for key in maps:
+            m = a[key]
+            assert m.shape == (10, RES // 32, RES // 32) and m.dtype == np.float32, (key, m.shape)
+            assert np.isfinite(m).all() and m.min() >= 0 and m.max() <= 1, key
+        live = [k for k in maps if a[k].std() > 0]
+        assert live, "every heatmap is constant: the check would be vacuous"
+        three = engine.explain(imgs[:3])
+        pad = max(float(np.abs(three[k][i] - engine.explain(imgs[i])[k][0]).max())
+                  for i in range(3) for k in maps)
+        assert pad <= PAD_TOL[dtype], (dtype, pad)
+        tf32_defaults(device)
+        timing = _explain_timing(engine, imgs[:BATCH])
+        out[dtype] = {"launches": counts, "padding_dev": pad, "live_maps": live,
+                      "nondeterministic_dev": nondet, **timing}
+        say("analysis", f"explain {dtype}, 10 images (batches of {BATCH}): heatmaps "
+            f"{a['heatmap_conv1'].shape} per conv in [0, 1] (not constant: {', '.join(live)}); "
+            f"kernel launches {counts}; two calls bit-equal (control, cuDNN's default "
+            f"algorithms: {nondet:.3g} apart); a row alone vs in a padded batch {pad:.3g} "
+            "(tolerance "
+            f"{PAD_TOL[dtype]:g}); a batch of {BATCH} (TF32 at the defaults): host median "
+            f"{timing['host_ms_median']:.2f} ms (min {timing['host_ms_min']:.2f}) = "
+            f"{timing['img_per_s']:.1f} img/s, events {timing['events_ms']:.2f} ms, device "
+            f"{timing['device_ms_per_batch']:.2f} ms, busy {100 * timing['busy_share']:.1f}%; "
+            f"{card}")
+        del engine
+        torch.cuda.empty_cache()
+    set_tf32(False)
+    card_eng = InferenceEngine(models, batch_size=2, device="cuda")
+    cpu_eng = InferenceEngine(cpu_models, batch_size=2, device="cpu")
+    got, want = card_eng.explain(imgs[:2]), cpu_eng.explain(imgs[:2])
+    np.testing.assert_array_equal(got["expl_preds"], want["expl_preds"])
+    err = max(float(np.abs(got[f"heatmap_conv{i}"] - want[f"heatmap_conv{i}"]).max())
+              for i in range(1, 6))
+    logit_err = _rel(got["expl_logits"], want["expl_logits"])
+    assert err <= EXPLAIN_TOL, ("explain card vs CPU", err)
+    # The control: heatmaps of another class than the explained one.
+    wrong = torch.from_numpy((want["expl_preds"] + 1) % N_CLASSES).cuda()
+    x = device_preprocess(torch.from_numpy(imgs[:2]).cuda())
+    maps, _ = concept_extractor_gradcams(card_eng.models, x, wrong)
+    fault = max(float(np.abs(maps[f"conv{i}"] - want[f"heatmap_conv{i}"]).max())
+                for i in range(1, 6))
+    assert fault > EXPLAIN_TOL, ("the wrong-class control passed the check", fault)
+    out.update(card_vs_cpu=err, card_vs_cpu_logits=logit_err, control=fault)
+    say("analysis", f"explain fp32 card (TF32 off) vs device=\"cpu\", 2 images at full width: "
+        f"heatmaps {err:.3g} (tolerance {EXPLAIN_TOL:g}), explainer logits {logit_err:.3g} of "
+        f"their scale, predictions equal; control (the gradient of the next class): "
+        f"{fault:.3g}, caught; {card}")
+    return out
+
+
+def analysis_concepts(models, cpu_models, device: dict) -> dict:
+    """test_concepts over ANALYSIS_N synthetic test images (200 classes,
+    256², batches of 32, the native loader): no kernel launch; the card's
+    part (``concept_sums``: the accuracies and the summed statistics, TF32
+    off) against the CPU's within CONCEPTS_RTOL of each sum's scale, the
+    accuracies equal; the statistics derived from each reported (their
+    per-concept min-max normalization divides by a weak concept's own
+    maximum); img/s of the card's second run."""
+    from viscoin_tpu_torch.eval.concepts import concept_results, concept_sums, test_concepts
+
+    card = device["nvidia_smi"]
+    ds = SyntheticDataset(n=ANALYSIS_N, n_classes=N_CLASSES, image_size=RES, mode="test")
+    loader = DataLoader(ds, 32, shuffle=False)
+    set_tf32(False)
+    _kernels.reset_launch_counts()
+    sums = concept_sums(models, loader, N_CLASSES)
+    counts = _kernels.launch_counts()
+    assert counts == {k: 0 for k in KERNELS}, counts
+    t0 = time.perf_counter()
+    test_concepts(models, loader, N_CLASSES)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_sums = concept_sums(cpu_models, loader, N_CLASSES)
+    cpu_s = time.perf_counter() - t0
+    assert (sums["cls_accs"], sums["expl_accs"]) == (cpu_sums["cls_accs"],
+                                                     cpu_sums["expl_accs"]), (sums, cpu_sums)
+    errs = {k: _rel(sums[k], cpu_sums[k]) for k in cpu_sums if k not in ("cls_accs",
+                                                                         "expl_accs")}
+    assert max(errs.values()) <= CONCEPTS_RTOL, errs
+    got, want = concept_results(sums), concept_results(cpu_sums)
+    fields = {k: _rel(getattr(got, k), getattr(want, k)) for k in got.__dataclass_fields__
+              if isinstance(getattr(got, k), np.ndarray)}
+    say("analysis", f"test_concepts, {ANALYSIS_N} synthetic images (200 classes, {RES}², "
+        f"batches of 32): kernel launches {counts}; card (TF32 off) vs CPU: accuracies equal "
+        f"({got.classifier_accuracy:.4f}, {got.explainer_accuracy:.4f}), the summed statistics "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" of their scale (tolerance {CONCEPTS_RTOL:g}); the fields derived from them "
+        + ", ".join(f"{k} {v:.3g}" for k, v in fields.items())
+        + f"; the card's second run {card_s:.2f} s = {ANALYSIS_N / card_s:.1f} img/s (loader "
+        f"included), the CPU's {cpu_s:.1f} s; {card}")
+    return {"launches": counts, "errors": errs, "field_errors": fields, "card_s": card_s,
+            "img_per_s": ANALYSIS_N / card_s, "cpu_s": cpu_s}
+
+
+def analysis_w_plus(models, cpu_models, device: dict) -> tuple[dict, dict]:
+    """compute_w_space over ANALYSIS_N train and ANALYSIS_TEST_N test images:
+    bias_act launches exactly those of the same pass on the CPU at narrow
+    widths, upfirdn2d none; W+ card (TF32 off) vs CPU on the first batch;
+    then amplify-pca --pca 2 --image 0's computation
+    (cli/amplify_pca.py::w_plus_pca) in the command's layout: launches
+    exactly the CPU's narrow count, its kernel calls recorded (the mapping
+    at N = 32, the synthesis at N = 5), one component's images card against
+    CPU within 1 u8 level. Returns (record, the amplify-pca calls)."""
+    from viscoin_tpu_torch.cli import amplify_pca
+    from viscoin_tpu_torch.data.utils import get_datasets
+    from viscoin_tpu_torch.eval.spaces import compute_w_space, run_over
+
+    card = device["nvidia_smi"]
+    kw = dict(n_classes=N_CLASSES, image_size=RES, transform="test")
+    train_ds = SyntheticDataset(n=ANALYSIS_N, mode="train", **kw)
+    test_ds = SyntheticDataset(n=ANALYSIS_TEST_N, mode="test", **kw)
+    narrow = _narrow_models()
+    want = count_plain_calls(lambda: compute_w_space(narrow, "synthetic", train_ds, test_ds,
+                                                     cache_dir="narrow_w"))
+    set_tf32(False)
+    _kernels.reset_launch_counts()
+    train_w, test_w = compute_w_space(models, "synthetic", train_ds, test_ds, cache_dir="w")
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert counts == want and counts["upfirdn2d"] == 0, (counts, want)
+    assert train_w.shape == (ANALYSIS_N, models.gan.num_ws, 512) and np.isfinite(train_w).all()
+    w_cpu = run_over(cpu_models, [train_ds[i] for i in range(BATCH)], BATCH, "w")
+    w_err = _rel(train_w[:BATCH], w_cpu)
+    assert w_err <= 1e-3, w_err
+    tf32_defaults(device)
+    t0 = time.perf_counter()
+    run_over(models, train_ds, 32, "w")
+    w_s = time.perf_counter() - t0
+
+    # amplify-pca --pca 2 --image 0: SyntheticDataset from the environment.
+    env = {k: os.environ.get(k) for k in ("VISCOIN_SYNTH_N", "VISCOIN_SYNTH_SIZE")}
+    os.environ.update(VISCOIN_SYNTH_N=str(ANALYSIS_N), VISCOIN_SYNTH_SIZE=str(RES))
+    try:
+        os.makedirs("narrow", exist_ok=True)
+        os.chdir("narrow")
+        try:
+            pca_want = count_plain_calls(lambda: amplify_pca.w_plus_pca(narrow, "synthetic", 2, 0))
+        finally:
+            os.chdir("..")
+        set_tf32(False)
+        _kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()), PathRecorder() as rec:
+            index, images = amplify_pca.w_plus_pca(models, "synthetic", 2, 0)
+        torch.cuda.synchronize()
+        pca_counts = _kernels.launch_counts()
+        # The command's W+ cache, which the command just wrote.
+        train_pca, test_pca = compute_w_space(models, "synthetic",
+                                              *get_datasets("synthetic", "test"))
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert pca_counts == pca_want, (pca_counts, pca_want)
+    calls = rec.unique()
+    shapes = {(c[0], c[1][0]) for c in calls}
+    assert ("upfirdn2d", 5) in shapes and ("bias_act", 32) in shapes, shapes
+    assert images.shape == (2, 5, RES, RES, 3) and np.isfinite(images).all()
+    comps = amplify_pca.pca_components(train_pca, 1)
+    t0 = time.perf_counter()
+    cpu_imgs = amplify_pca.pca_images(cpu_models, test_pca[index], comps)
+    pca_cpu_s = time.perf_counter() - t0
+    card_imgs = amplify_pca.pca_images(models, test_pca[index], comps)
+    pca_u8 = _u8_dev(np.round(card_imgs * 255), np.round(cpu_imgs * 255))
+    assert pca_u8 <= 1, pca_u8
+    tf32_defaults(device)
+    say("analysis", f"compute_w_space, {ANALYSIS_N} + {ANALYSIS_TEST_N} images in batches of "
+        f"32 (f, Psi and the adapted mapping): launches {counts}, exactly the CPU's count at "
+        f"narrow widths, no upfirdn2d; W+ card (TF32 off) vs CPU {w_err:.3g} of its scale; a "
+        f"pass over {ANALYSIS_N} images (the host's decode included, TF32 at the defaults) "
+        f"{w_s:.2f} s = {ANALYSIS_N / w_s:.1f} img/s; {card}")
+    say("analysis", f"amplify-pca --pca 2 --image 0 (cli/amplify_pca.py::w_plus_pca, "
+        f"{ANALYSIS_N} train + {ANALYSIS_N} test images): launches {pca_counts}, exactly the "
+        f"CPU's count at narrow widths; {len(calls)} distinct kernel calls, the mapping at N = "
+        f"32 and the synthesis at N = 5; one component's 5 images card (TF32 off) vs CPU "
+        f"{pca_u8} u8 levels (tolerance 1; the CPU {pca_cpu_s:.1f} s); {card}")
+    return ({"launches": counts, "w_vs_cpu": w_err, "w_s": w_s, "img_per_s": ANALYSIS_N / w_s,
+             "amplify_pca": {"launches": pca_counts, "card_vs_cpu_u8": pca_u8}}, calls)
+
+
+def analysis_commands(models, bundle: str, loop_jsonl: str, device: dict) -> dict:
+    """amplify, concepts, concept-heatmaps and logs as commands where the
+    host has matplotlib; where it has not, each raises an ImportError naming
+    it, and their computations run in-process (concept-heatmaps' without a
+    kernel launch); to-pickle as a command (it draws nothing) on a raw
+    checkpoint of the JAX command's default hyperparameters."""
+    import importlib.util
+
+    from viscoin_tpu_torch.cli import amplify, concept_heatmaps, logs
+    from viscoin_tpu_torch.data.utils import get_datasets
+    from viscoin_tpu_torch.utils.weights import bundle_to_jax_tree
+
+    card = device["nvidia_smi"]
+    out: dict = {}
+    with open("loop_a.jsonl", "w") as f:
+        f.write(loop_jsonl)
+    common = ["--viscoin-pickle-path", bundle, "--dataset", "synthetic", "--outdir", "figs"]
+    drawing = {"amplify": [*common, "--concept-top-k", "4", "--image-indices", "0,1"],
+               "concepts": [*common, "--batch-size", "32"],
+               "concept-heatmaps": common,
+               "logs": ["--logs-path", "loop_a.jsonl", "--outdir", "figs"]}
+    env = {k: os.environ.get(k) for k in ("VISCOIN_SYNTH_N", "VISCOIN_SYNTH_SIZE")}
+    os.environ.update(VISCOIN_SYNTH_N="8", VISCOIN_SYNTH_SIZE=str(RES))
+    try:
+        out["matplotlib"] = importlib.util.find_spec("matplotlib") is not None
+        if out["matplotlib"]:
+            for name, args in drawing.items():
+                _quiet_main([name, *args])
+            out["figures"] = sorted(os.listdir("figs"))
+            assert len(out["figures"]) == 1 + 5 + 1 + 3, out["figures"]
+            how = f"as commands, {len(out['figures'])} figures written"
+        else:
+            for name, args in drawing.items():
+                try:
+                    _port_main([name, *args])
+                except ImportError as e:
+                    assert "matplotlib" in str(e), (name, e)
+                else:
+                    raise AssertionError(f"{name} ran without matplotlib")
+            _, test_ds = get_datasets("synthetic")
+            _kernels.reset_launch_counts()
+            originals, amplified = amplify.amplify_images(
+                models, test_ds, [0, 1], {"method": "top_k", "k": 4}, amplify.MULTIPLIERS,
+                np.random.default_rng(SEED))
+            torch.cuda.synchronize()
+            amp_counts = _kernels.launch_counts()
+            assert amp_counts == {k: 2 * n for k, n in expected_launches(models).items()}, \
+                amp_counts  # one generator pass of 2M + 1 images per image
+            assert len(amplified) == 2 and amplified[0][0].shape == (RES, RES, 3)
+            _kernels.reset_launch_counts()
+            imgs, labels, maps, logits = concept_heatmaps.heatmap_batch(models, test_ds,
+                                                                         range(5))
+            torch.cuda.synchronize()
+            hm_counts = _kernels.launch_counts()
+            assert hm_counts == {k: 0 for k in KERNELS}, hm_counts
+            assert maps["conv5"].shape == (5, RES // 32, RES // 32) and logits.shape == (5, 200)
+            records = logs.read_records("loop_a.jsonl")
+            training, testing = logs.split_viscoin_records(records)
+            assert len(training) == len(testing) == 2
+            out.update(amplify_launches=amp_counts, heatmap_launches=hm_counts)
+            how = ("each raised ImportError naming matplotlib (the host has none), so their "
+                   f"computations ran in-process: amplify's 2 images (launches {amp_counts}), "
+                   f"concept-heatmaps' 5 (launches {hm_counts}), the loop's jsonl read into "
+                   f"{len(training)} training and testing records; concepts' is "
+                   "test_concepts above")
+        raw_models = default_models(device="cuda", seed=SEED + 96)
+        ckpt.save_pytree(bundle_to_jax_tree(raw_models), "raw")
+        t0 = time.perf_counter()
+        log = _quiet_main(["to-pickle", "--checkpoints", "raw", "--output", "picked"])
+        out["to_pickle_s"] = time.perf_counter() - t0
+        got = ckpt.load_viscoin_bundle("picked", device="cuda").state_dict()
+        want = raw_models.state_dict()
+        assert sorted(got) == sorted(want)
+        assert all(torch.equal(got[k], want[k]) for k in want), "to-pickle changed a weight"
+        del raw_models, got, want
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    say("analysis", f"amplify, concepts, concept-heatmaps, logs: {how}; {log.strip()} "
+        f"({out['to_pickle_s']:.1f} s; the JAX command's default widths, channel_base 32768), "
+        f"reloaded bit-equal; {card}")
+    return out
+
+
+def phase_analysis(models, device: dict, loop_jsonl: str) -> tuple[dict, dict]:
+    """serve's command, explain, test_concepts, the W+ pass, amplify-pca and
+    the analysis commands on the flagship bundle, saved to a temporary
+    directory. Returns (record, {label: amplify-pca's kernel calls})."""
+    out: dict = {}
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="viscoin_analysis_")
+    cwd = os.getcwd()
+    try:
+        bundle = os.path.join(tmp, "viscoin-flagship")
+        ckpt.save_viscoin(models, bundle)
+        out["serve"] = analysis_serve(models, bundle, device)
+        cpu_models = default_models(N_CLASSES, N_CONCEPTS, RES, CHANNEL_BASE, CHANNEL_MAX,
+                                    device="cpu", seed=SEED)
+        cpu_models.load_state_dict({k: v.cpu() for k, v in models.state_dict().items()})
+        out["explain"] = analysis_explain(models, cpu_models, device)
+        out["concepts"] = analysis_concepts(models, cpu_models, device)
+        os.chdir(tmp)
+        out["w_space"], pca_calls = analysis_w_plus(models, cpu_models, device)
+        del cpu_models
+        out["commands"] = analysis_commands(models, bundle, loop_jsonl, device)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+        tf32_defaults(device)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    say("analysis", f"the phase took {out['seconds']:.1f} s; {device['nvidia_smi']}")
+    return out, {"amplify-pca --pca 2": pca_calls}
+
+
 # --------------------------------- phase 7 ---------------------------------- #
 
 
@@ -3404,6 +3941,12 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
          f"one batch of `fid --metric ppl`: {PPL_BATCH} segments, the mapping of 2 x "
          f"{PPL_BATCH} z and one synthesis of {2 * PPL_BATCH} images at {RES}², no_grad, TF32 "
          "off (no bias_act_grad call)"),
+        ("amplify_pca", "float32 amplify-pca --pca 2 (summed)",
+         tool_calls["amplify-pca --pca 2"],
+         f"`amplify-pca --pca 2 --image 0`'s computation at {RES}², full width: the W+ pass "
+         f"over {ANALYSIS_N} train and {ANALYSIS_N} test images (the adapted mapping at N = "
+         "32, 4 batches) and one gen_from_w call of 5 images per component, no_grad, TF32 "
+         "off; every kernel call as often as it made it (no bias_act_grad call)"),
     )
     for prefix, label, calls, over in paths:
         sums, rows, host = time_path(label, calls, gen, card)
@@ -3573,15 +4116,18 @@ def main() -> int:
         ckpt.wait_for_saves()
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    record["analysis"], analysis_calls = phase_analysis(models, record["device"],
+                                                        record["loop"]["jsonl_a"])
     set_tf32(False)
-    worst_fid = phase_kernels({"the FID sampling": fid_calls, **tool_calls},
+    worst_fid = phase_kernels({"the FID sampling": fid_calls, **tool_calls, **analysis_calls},
                               configurations=False)
     loop_calls = record["loop"].pop("calls_a")
     # Run A's calls against the plain versions too (the kernels line's path).
     worst_loop = phase_kernels({"the loop's run A": loop_calls}, configurations=False)
     worst = {k: max(v, worst_loop[k], worst_gan[k], worst_fid[k]) for k, v in worst.items()}
     timings = phase_timings(models, path_calls, loop_calls, train_calls, eval_calls,
-                            gan_cycle_calls, fid_calls, tool_calls, record["device"])
+                            gan_cycle_calls, fid_calls, {**tool_calls, **analysis_calls},
+                            record["device"])
     for name, entry in timings["kernels"].items():
         assert entry["launches"] == record["loop"]["launches"][name], (name, entry)
         assert entry["gan_cycle_launches"] == record["gan"]["float32"]["cycle_launches"][name]
@@ -3589,6 +4135,8 @@ def main() -> int:
         assert entry["projection_launches"] == record["gan_tools"]["project"]["launches"][name]
         assert entry["ppl_batch_launches"] == \
             record["gan_tools"]["ppl"]["launches_per_batch"][name], (name, entry)
+        assert entry["amplify_pca_launches"] == \
+            record["analysis"]["w_space"]["amplify_pca"]["launches"][name], (name, entry)
     record["timings"] = timings
     record["max_abs_err"] = worst
     record["profiler_misses"] = PROFILER_MISSES

@@ -217,7 +217,7 @@ def test_pad_batch_matches_jax():
             np.testing.assert_array_equal(g, w)
 
 
-def test_registry_matches_jax(tmp_path):
+def test_registry_matches_jax(tmp_path, monkeypatch):
     for name in ("cub", "synthetic", str(tmp_path / "my_folder"), "x/celeba.zip"):
         assert TU.dataset_key(name) == JU.dataset_key(name)
         assert TU.default_checkpoints(name) == JU.default_checkpoints(name)
@@ -226,8 +226,12 @@ def test_registry_matches_jax(tmp_path):
     for get_datasets in (TU.get_datasets, JU.get_datasets):  # a zip is train-only in both
         with pytest.raises(ValueError, match="no test split"):
             get_datasets(str(zip_path))
-    with pytest.raises(NotImplementedError, match="FunnyBirds"):
-        TU.get_datasets("funnybirds")
+    # FunnyBirds is registered (tests/test_torch_analysis.py holds it to JAX's
+    # class): without its files, both packages name where they looked.
+    monkeypatch.setenv("VISCOIN_DATA_DIR", str(tmp_path))
+    for get_datasets in (TU.get_datasets, JU.get_datasets):
+        with pytest.raises(FileNotFoundError, match="FunnyBirds not found"):
+            get_datasets("funnybirds")
     with pytest.raises(ValueError, match="unknown dataset"):
         TU.get_datasets("imagenet")
     train, test = TU.get_dataloaders("synthetic", 4, n=6, image_size=8)

@@ -527,6 +527,60 @@ def test_toy_amplify_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_allclose(g, w, atol=1e-3)
 
 
+def _explain_engines(dtype: str = "float32"):
+    """A bundle with ResNet-50 and Psi at their full widths at 128² (Psi's
+    conv outputs 4x4), on the card and on the CPU from the same weights."""
+    models = default_models(n_classes=10, n_concepts=64, img_resolution=128, channel_base=1024,
+                            channel_max=64, device="cpu", seed=2)
+    return (InferenceEngine(models, batch_size=4, compute_dtype=dtype, device="cuda"),
+            InferenceEngine(models, batch_size=4, compute_dtype=dtype, device="cpu"))
+
+
+def test_explain_on_the_card_is_deterministic_and_padding_invariant(cuda):
+    """explain launches no kernel of the port; two calls on one batch are
+    bit-equal (the backward runs under cuDNN's deterministic algorithms);
+    a row alone equals the same row in a padded batch."""
+    card, _ = _explain_engines()
+    imgs = np.random.default_rng(3).integers(0, 256, (5, 128, 128, 3), dtype=np.uint8)
+    _kernels.reset_launch_counts()
+    first = card.explain(imgs)
+    assert set(_kernels.launch_counts().values()) == {0}
+    second = card.explain(imgs)
+    for key in first:
+        assert np.array_equal(first[key], second[key]), key
+    assert first["heatmap_conv1"].shape == (5, 4, 4)
+    for i in range(3):
+        alone = card.explain(imgs[i])
+        for k in range(1, 6):
+            np.testing.assert_allclose(alone[f"heatmap_conv{k}"][0],
+                                       first[f"heatmap_conv{k}"][i], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_explain_on_the_card_matches_the_cpu(cuda, dtype):
+    """The same weights on the card (TF32 off) and on the CPU: fp32 heatmaps
+    within 1e-3 (they lie in [0, 1]) and the same predictions; bf16 maps
+    finite in [0, 1]."""
+    card, cpu = _explain_engines(dtype)
+    imgs = np.random.default_rng(4).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = card.explain(imgs)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k in range(1, 6):
+        hm = got[f"heatmap_conv{k}"]
+        assert hm.dtype == np.float32 and np.isfinite(hm).all()
+        assert hm.min() >= 0 and hm.max() <= 1
+    if dtype == "float32":
+        want = cpu.explain(imgs)
+        np.testing.assert_array_equal(got["expl_preds"], want["expl_preds"])
+        for k in range(1, 6):
+            np.testing.assert_allclose(got[f"heatmap_conv{k}"], want[f"heatmap_conv{k}"],
+                                       rtol=0, atol=1e-3)
+
+
 def test_concept_extractor_backward_is_deterministic(cuda):
     """The flagship concept extractor's backward at 256² shapes runs under
     torch.use_deterministic_algorithms(True) (no op on it lacks a

@@ -43,7 +43,13 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.cli.dataset_tool", "viscoin_tpu_torch.cli.generate",
             "viscoin_tpu_torch.cli.style_mixing", "viscoin_tpu_torch.cli.project",
             "viscoin_tpu_torch.cli.fid", "viscoin_tpu_torch.eval.ppl",
-            "viscoin_tpu_torch.eval.projection"} <= set(mods)
+            "viscoin_tpu_torch.eval.projection", "viscoin_tpu_torch.utils.gradcam",
+            "viscoin_tpu_torch.utils.maths", "viscoin_tpu_torch.utils.images",
+            "viscoin_tpu_torch.utils.plotting", "viscoin_tpu_torch.eval.concepts",
+            "viscoin_tpu_torch.eval.spaces", "viscoin_tpu_torch.cli.serve",
+            "viscoin_tpu_torch.cli.amplify", "viscoin_tpu_torch.cli.amplify_pca",
+            "viscoin_tpu_torch.cli.concepts", "viscoin_tpu_torch.cli.concept_heatmaps",
+            "viscoin_tpu_torch.cli.logs", "viscoin_tpu_torch.cli.to_pickle"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -134,6 +140,31 @@ def test_gan_tools_default_to_cuda_and_raise_without_a_card(monkeypatch, argv):
     assert build_parser().parse_args(argv).device == "cuda"
     assert not hasattr(build_parser().parse_args(["dataset-tool", "--source", "a", "--dest",
                                                   "b"]), "device")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve"],
+    ["amplify", "--concept-top-k", "1"],
+    ["amplify-pca"],
+    ["concepts"],
+    ["concept-heatmaps"],
+    ["to-pickle", "--checkpoints", ".", "--output", "out"],
+], ids=lambda a: a[0])
+def test_serving_and_analysis_commands_default_to_cuda_and_raise_without_a_card(
+        monkeypatch, argv):
+    """`serve` and the analysis commands of a bundle run on the card unless
+    given --device cpu; without a card they raise before reading anything.
+    `export-serving` takes --device as JAX's does (and raises, not ported);
+    `logs` reads and draws on the host only and has no --device, as
+    `dataset-tool`."""
+    from viscoin_tpu_torch.__main__ import build_parser, main
+
+    assert build_parser().parse_args(argv).device == "cuda"
+    assert build_parser().parse_args(["export-serving", "-o", "x"]).device == "cuda"
+    assert not hasattr(build_parser().parse_args(["logs", "--logs-path", "x"]), "device")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)

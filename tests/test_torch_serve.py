@@ -89,10 +89,20 @@ def test_pad_to_multiple_and_run_padded():
 
 
 def test_prepare_image_and_not_ported(pair):
+    """prepare_image resizes; explain and amplify are ported now
+    (tests/test_torch_explain.py and tests/test_torch_eval.py hold them to
+    JAX's): explain gives JAX's keys and shapes."""
     _, teng = pair
     assert teng.prepare_image(images(1, size=50)[0]).shape == (IMG, IMG, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.explain(images(1))
+    out = teng.explain(images(3))
+    assert set(out) == {"logits", "expl_logits", "preds", "expl_preds", "concepts",
+                        *(f"heatmap_conv{i}" for i in range(1, 6))}
+    assert out["logits"].shape == out["expl_logits"].shape == (3, NC)
+    assert out["preds"].shape == out["expl_preds"].shape == (3,)
+    assert out["concepts"].shape == (3, NK)
+    for i in range(1, 6):  # at 32², Psi's conv outputs are 1x1
+        hm = out[f"heatmap_conv{i}"]
+        assert hm.shape == (3, 1, 1) and hm.dtype == np.float32 and np.isfinite(hm).all()
     # amplify is ported now (tests/test_torch_eval.py holds it to JAX's).
     res = teng.amplify(images(1)[0], {"method": "top_k", "k": 1}, [1.0])
     assert len(res.amplified_images) == 1 and res.amplified_images[0].shape == (IMG, IMG, 3)
@@ -110,7 +120,7 @@ def test_bfloat16_engine_runs(pair):
 
 def test_http_round_trip(pair):
     """One server on port 0: healthz, classify (npz body), reconstruct,
-    stats, and the not-ported endpoints' 501."""
+    stats, and explain (no route answers 501 any more)."""
     _, teng = pair
     vs = VisCoINServer(teng, max_delay_ms=2.0)
     httpd = vs.make_server("127.0.0.1", 0)
@@ -147,9 +157,14 @@ def test_http_round_trip(pair):
         assert stats["reconstruct"]["requests"] == 1
 
         req = urllib.request.Request(base + "/v1/explain", data=buf.getvalue())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            expl = np.load(io.BytesIO(r.read()))
+        assert expl["heatmap_conv5"].shape == (2, 1, 1) and expl["preds"].shape == (2,)
         with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(req, timeout=60)
-        assert err.value.code == 501
+            urllib.request.urlopen(urllib.request.Request(base + "/v1/nothing", data=b""),
+                                   timeout=60)
+        assert err.value.code == 404
     finally:
         httpd.shutdown()
         httpd.server_close()

@@ -70,11 +70,12 @@ def _init(models: VisCoINModels, rng, image_size: int):
     return m.classifier_vars, m.concept_params, m.explainer_params, m.gan_vars
 
 
-def jax_bundle(normalized: bool = False, seed: int = 0, img: int = IMG) -> VisCoINModels:
+def jax_bundle(normalized: bool = False, seed: int = 0, img: int = IMG,
+               n_classes: int = NC) -> VisCoINModels:
     m = VisCoINModels(
-        classifier=Classifier(**CLASSIFIER),
+        classifier=Classifier(**dict(CLASSIFIER, output_classes=n_classes)),
         concept_extractor=ConceptExtractor(**PSI),
-        explainer=Explainer(n_concepts=NK, n_classes=NC, normalized=normalized),
+        explainer=Explainer(n_concepts=NK, n_classes=n_classes, normalized=normalized),
         gan=GeneratorAdapted(**dict(GAN, img_resolution=img)),
     )
     (m.classifier_vars, m.concept_params, m.explainer_params,
@@ -92,15 +93,61 @@ def jax_variables(m: VisCoINModels) -> dict:
             "theta": m.explainer_params, "gan": m.gan_vars}
 
 
-def torch_bundle(m: VisCoINModels, normalized: bool = False, img: int = IMG) -> tb.VisCoINModels:
-    models = tb.VisCoINModels(
-        classifier=TClassifier(**CLASSIFIER, device="cpu"),
+def _torch_modules(normalized: bool = False, img: int = IMG,
+                   n_classes: int = NC) -> tb.VisCoINModels:
+    return tb.VisCoINModels(
+        classifier=TClassifier(**dict(CLASSIFIER, output_classes=n_classes), device="cpu"),
         concept_extractor=TConceptExtractor(**PSI, device="cpu"),
-        explainer=TExplainer(n_concepts=NK, n_classes=NC, normalized=normalized,
+        explainer=TExplainer(n_concepts=NK, n_classes=n_classes, normalized=normalized,
                              device="cpu"),
         gan=TGeneratorAdapted(**dict(GAN, img_resolution=img), device="cpu"),
     )
+
+
+def torch_bundle(m: VisCoINModels, normalized: bool = False, img: int = IMG,
+                 n_classes: int = NC) -> tb.VisCoINModels:
+    models = _torch_modules(normalized, img, n_classes)
     return load_jax_variables(models, jax_variables(m)).eval()
+
+
+def bundle_pair(seed: int = 0, img: int = IMG, n_classes: int = NC):
+    """(JAX bundle, port bundle) at the toy widths above with the same
+    perturbed variables, drawn without compiling JAX's initialiser: the port
+    initialises from ``seed``, and its tree in the JAX layout, perturbed, is
+    given to both."""
+    from viscoin_tpu_torch.utils.weights import bundle_to_jax_tree
+
+    tm = tb.init_models(_torch_modules(img=img, n_classes=n_classes), seed)
+    tree = bundle_to_jax_tree(tm)
+    m = VisCoINModels(
+        classifier=Classifier(**dict(CLASSIFIER, output_classes=n_classes)),
+        concept_extractor=ConceptExtractor(**PSI),
+        explainer=Explainer(n_concepts=NK, n_classes=n_classes),
+        gan=GeneratorAdapted(**dict(GAN, img_resolution=img)),
+    )
+    (m.classifier_vars, m.concept_params, m.explainer_params, m.gan_vars) = (
+        perturb(tree[k], seed + i) for i, k in enumerate(
+            ("classifier", "concept_extractor", "explainer", "gan"), start=1))
+    return m, load_jax_variables(tm, jax_variables(m)).eval()
+
+
+def save_jax_bundle(m: VisCoINModels, path: str) -> str:
+    """``m`` written as the JAX package writes a bundle in its npz layout (its
+    own key flattening and module config; its single-process save is orbax,
+    which the port does not read)."""
+    import json
+    import os
+
+    from viscoin_tpu.utils import checkpoints as jckpt
+
+    tree = {"classifier": m.classifier_vars, "concept_extractor": m.concept_params,
+            "explainer": m.explainer_params, "gan": m.gan_vars}
+    keys, vals, _ = jckpt._flat_keys(tree)
+    os.makedirs(path)
+    np.savez(os.path.join(path, "arrays.npz"), **dict(zip(keys, [np.asarray(v) for v in vals])))
+    with open(os.path.join(path, "viscoin_config.json"), "w") as f:
+        json.dump(jckpt._module_config(m), f)
+    return path
 
 
 def images(n: int, size: int = IMG, seed: int = 0) -> np.ndarray:

@@ -1,0 +1,91 @@
+"""The ``serve`` and ``export-serving`` commands.
+
+Counterpart of ``viscoin_tpu/cli/serve.py``, with its options and defaults:
+
+    python -m viscoin_tpu_torch serve --viscoin-pickle-path checkpoints/cub/viscoin-cub
+
+``serve`` loads a bundle (``utils/checkpoints.py::load_viscoin_bundle``) on
+the card, runs every batched endpoint once (``InferenceEngine.warmup``),
+then serves it over HTTP (``serve/server.py::run_server``), printing the
+bound address (``--port 0`` takes a free port). SIGINT stops it: the
+micro-batchers close and the command returns normally.
+
+Not ported yet, and raising with the ROADMAP item's name: sealed artifacts
+(``--from-artifact``, ``export-serving``; "Serving remainder") and serving
+over more than one visible card (``--data-parallel``; "Data parallelism").
+With one visible card, ``--data-parallel`` serves on it, as the JAX command
+does with one device.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from viscoin_tpu_torch.cli.utils import add_device_option, add_viscoin_pickle_option
+
+SERVING_REMAINDER = "ROADMAP.md, queue 1: Serving remainder (serve/export.py)"
+
+
+def add_parser(subparsers) -> None:
+    p = subparsers.add_parser("serve", help="Serve a trained VisCoIN ensemble over HTTP.")
+    add_viscoin_pickle_option(p)
+    add_device_option(p)
+    p.add_argument("--host", default="127.0.0.1", help="(default 127.0.0.1)")
+    p.add_argument("--port", type=int, default=8751, help="(default 8751; 0 takes a free port)")
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="Device batch; requests coalesce up to it (default 8)")
+    p.add_argument("--max-delay-ms", type=float, default=5.0,
+                   help="Micro-batching window: how long the first request of a batch waits "
+                        "for company (default 5)")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="bfloat16",
+                   help="Serving compute dtype, weights cast once at startup (default bfloat16)")
+    p.add_argument("--from-artifact", default=None,
+                   help="Serve a sealed export-serving artifact (not ported yet)")
+    p.add_argument("--data-parallel", action=argparse.BooleanOptionalAction, default=False,
+                   help="Shard each device batch over all visible cards (one card: serves on "
+                        "it; more: not ported yet)")
+    p.set_defaults(func=serve)
+
+    e = subparsers.add_parser("export-serving",
+                              help="Seal a trained bundle into a serving artifact (not ported "
+                                   "yet).")
+    add_viscoin_pickle_option(e)
+    add_device_option(e)
+    e.add_argument("--output", "-o", required=True, help="Artifact directory to write")
+    e.add_argument("--batch-size", type=int, default=8)
+    e.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="bfloat16")
+    e.add_argument("--platforms", default=None,
+                   help="Comma-separated lowering platforms (default: the current backend)")
+    e.set_defaults(func=export_serving)
+
+
+def serve(args: argparse.Namespace) -> None:
+    import torch
+
+    from viscoin_tpu_torch.cli.utils import card_or_cpu
+    from viscoin_tpu_torch.serve.engine import InferenceEngine
+    from viscoin_tpu_torch.serve.server import run_server
+    from viscoin_tpu_torch.utils.checkpoints import load_viscoin_bundle
+
+    if args.from_artifact is not None:
+        raise NotImplementedError(f"serve --from-artifact is not ported yet ({SERVING_REMAINDER})")
+    device = card_or_cpu("serve", args.device)
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"serve --data-parallel over {torch.cuda.device_count()} cards is not ported yet "
+            "(ROADMAP.md, queue 1: Data parallelism); with one visible card it serves on it")
+    models = load_viscoin_bundle(args.viscoin_pickle_path, device=device)
+    engine = InferenceEngine(models, batch_size=args.batch_size,
+                             compute_dtype=args.compute_dtype, device=device)
+    del models  # the engine holds its own copy
+    print("warming up (one batch through each endpoint)...", flush=True)
+    engine.warmup()
+    try:
+        run_server(engine, host=args.host, port=args.port, max_delay_ms=args.max_delay_ms)
+    except KeyboardInterrupt:  # SIGINT: run_server has closed the batchers and the socket
+        pass
+
+
+def export_serving(args: argparse.Namespace) -> None:
+    raise NotImplementedError(f"export-serving is not ported yet ({SERVING_REMAINDER}: sealing "
+                              "needs both kernels and bias_act_grad as torch.library custom ops)")

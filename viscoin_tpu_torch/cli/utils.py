@@ -92,6 +92,24 @@ def add_gan_option(parser: argparse.ArgumentParser) -> None:
                              "stylegan` output (architecture inferred)")
 
 
+def add_viscoin_pickle_option(parser: argparse.ArgumentParser) -> None:
+    from viscoin_tpu_torch.data.utils import DEFAULT_VISCOIN
+
+    parser.add_argument("--viscoin-pickle-path", default=DEFAULT_VISCOIN,
+                        help=f"The path to the viscoin checkpoint bundle (default "
+                             f"{DEFAULT_VISCOIN})")
+
+
+def add_outdir_option(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--outdir", default=".",
+                        help="Where the figures are written as PNG files (default .)")
+
+
+def add_dataset_option(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--dataset", type=dataset_arg, default="cub",
+                        help="cub | funnybirds | synthetic | an image-folder path")
+
+
 def add_device_option(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="The torch device to run on: cuda (default) or cpu")

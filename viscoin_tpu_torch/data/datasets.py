@@ -1,8 +1,8 @@
-"""Datasets: CUB-200-2011, folder-per-class images, and synthetic images.
+"""Datasets: CUB-200-2011, FunnyBirds, folder-per-class images, and synthetic
+images.
 
-Counterpart of ``viscoin_tpu/data/datasets.py`` (``FunnyBirds`` and
-``LabeledCUB`` are not ported yet; the StyleGAN zip is
-``data/stylegan_zip.py``). The dataset root
+Counterpart of ``viscoin_tpu/data/datasets.py`` (``LabeledCUB`` is not
+ported yet; the StyleGAN zip is ``data/stylegan_zip.py``). The dataset root
 comes from an explicit argument, then ``$VISCOIN_DATA_DIR``, then
 ``~/.cache/viscoin/datasets``; nothing is downloaded. Decoded uint8 images
 are cached, not transformed ones, so the training crop stays random across
@@ -148,6 +148,40 @@ class CUB_200_2011(ImageDataset):
                 x, y, w, h = self.bboxes[ai]
                 img = img.crop((x, y, min(x + w, img.width), min(y + h, img.height)))
             return np.asarray(img, np.uint8)
+
+
+class FunnyBirds(ImageDataset):
+    """FunnyBirds: ``{root}/{train|test}/{class_id}/{image}.png``, 50
+    classes; the label is the class folder's integer name."""
+
+    N_CLASSES = 50
+
+    def __init__(self, mode: Mode = "train", transform: TransformMode | None = None,
+                 root: str | None = None, **kw):
+        super().__init__(mode, transform, **kw)
+        self.dataset_path = root or os.path.join(data_root(), "FunnyBirds")
+        folder = os.path.join(self.dataset_path, mode)
+        if not os.path.isdir(folder):
+            raise FileNotFoundError(f"FunnyBirds not found at {folder}; set VISCOIN_DATA_DIR or "
+                                    "pass root=.")
+        self.image_paths: list[str] = []
+        self.labels: list[int] = []
+        for cls in sorted(os.listdir(folder)):
+            sub = os.path.join(folder, cls)
+            if not os.path.isdir(sub):
+                continue
+            for name in sorted(os.listdir(sub)):
+                self.image_paths.append(os.path.join(cls, name))
+                self.labels.append(int(cls))
+
+    def __len__(self):
+        return len(self.labels)
+
+    def _label(self, index: int) -> int:
+        return self.labels[index]
+
+    def _load_raw(self, index: int) -> np.ndarray:
+        return _open_rgb(os.path.join(self.dataset_path, self.mode, self.image_paths[index]))
 
 
 class ImageFolderDataset(ImageDataset):

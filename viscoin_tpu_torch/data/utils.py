@@ -1,7 +1,7 @@
 """Dataset registry and checkpoint path conventions.
 
 Counterpart of ``viscoin_tpu/data/utils.py``. A dataset is a registry name
-("cub", "synthetic"; "funnybirds" is not ported yet), a directory with the
+("cub", "funnybirds", "synthetic"), a directory with the
 ``{root}/{train|test}/{class}/{image}`` layout, or a StyleGAN training zip
 (``data/stylegan_zip.py``, train-only). Checkpoints follow the JAX
 package's paths (``checkpoints/{dataset}/classifier-{dataset}`` ...), each a
@@ -13,7 +13,12 @@ from __future__ import annotations
 import os
 from typing import Literal
 
-from viscoin_tpu_torch.data.datasets import CUB_200_2011, ImageFolderDataset, SyntheticDataset
+from viscoin_tpu_torch.data.datasets import (
+    CUB_200_2011,
+    FunnyBirds,
+    ImageFolderDataset,
+    SyntheticDataset,
+)
 from viscoin_tpu_torch.data.loader import DataLoader
 
 DATASET_CLASSES = {"cub": 200, "funnybirds": 50, "synthetic": 10}
@@ -29,9 +34,8 @@ DEFAULT_CHECKPOINTS = {
 }
 DEFAULT_VISCOIN = DEFAULT_CHECKPOINTS["cub"]["viscoin"]
 
-_CLASSES = {"cub": CUB_200_2011, "synthetic": SyntheticDataset}
+_CLASSES = {"cub": CUB_200_2011, "funnybirds": FunnyBirds, "synthetic": SyntheticDataset}
 DATASET_NAMES = tuple(DATASET_CLASSES)
-_NOT_PORTED = {"funnybirds": "FunnyBirds"}
 
 
 def dataset_key(name: str) -> str:
@@ -57,9 +61,6 @@ def get_datasets(name: str, transform: Literal["train", "test", "gan"] | None = 
                  train_only: bool = False, **kwargs):
     """(train, test) datasets; ``transform`` overrides each split's default
     geometry, and ``train_only`` skips the test split (None)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"the {_NOT_PORTED[name]} dataset is not ported yet "
-                                  "(ROADMAP.md, queue 1: datasets)")
     if name in _CLASSES:
         cls = _CLASSES[name]
         train = cls(mode="train", transform=transform, **kwargs)

@@ -87,22 +87,52 @@ class ConceptExtractor(nn.Module):
             if m.bias is not None:
                 m.bias.zero_()
 
-    def forward(self, latent_layers) -> tuple[torch.Tensor, torch.Tensor]:
-        """latent_layers: the classifier's hidden_states[-3:] (NCHW).
+    def tap_shapes(self, latent_layers) -> list[tuple[int, ...]]:
+        """The shapes of conv1..conv5's outputs on ``latent_layers``: what
+        each of the ``perturbations`` must have."""
+        b = latent_layers[0].shape[0]
+        shapes = []
+        for conv, x in zip((self.conv1, self.conv2, self.conv3), latent_layers):
+            hw = [(n + 2 * p - k) // s + 1 for n, p, k, s in
+                  zip(x.shape[2:], conv.padding, conv.kernel_size, conv.stride)]
+            shapes.append((b, conv.out_channels, *hw))
+        return shapes + [(b, conv.out_channels, *shapes[0][2:]) for conv in (self.conv4,
+                                                                              self.conv5)]
 
-        Returns (Phi (B, K, 3, 3), Phi' (B, 9K))."""
+    def forward_taps(self, latent_layers, perturbations=None):
+        """``forward``, and conv1..conv5's outputs before their ReLU (the
+        JAX module's ``perturb`` taps). ``perturbations``: None, or five
+        tensors of :meth:`tap_shapes` added to those outputs; GradCAM
+        differentiates with respect to zero perturbations.
+
+        Returns (Phi (B, K, 3, 3), Phi' (B, 9K), [five NCHW conv outputs])."""
         if len(latent_layers) != 3:
             raise ValueError(f"expected 3 latent layers, got {len(latent_layers)}")
-        x1 = torch.relu(self.conv1(latent_layers[0]))
-        x2 = torch.relu(self.conv2(latent_layers[1]))
-        x3 = torch.relu(self.conv3(latent_layers[2]))
-        x = torch.relu(self.conv4(torch.cat([x1, x2, x3], dim=1)))
+        taps = []
 
-        phi = adaptive_avg_pool(torch.relu(self.conv5(x)), 3)
+        def tap(conv, x):
+            a = conv(x)
+            taps.append(a)
+            return torch.relu(a if perturbations is None else a + perturbations[len(taps) - 1])
+
+        x1 = tap(self.conv1, latent_layers[0])
+        x2 = tap(self.conv2, latent_layers[1])
+        x3 = tap(self.conv3, latent_layers[2])
+        x = tap(self.conv4, torch.cat([x1, x2, x3], dim=1))
+
+        phi = adaptive_avg_pool(tap(self.conv5, x), 3)
 
         y = adaptive_avg_pool(x, 3).reshape(x.shape[0], -1)
         y = torch.relu(self.linear1(y))
         y = torch.relu(self.linear2(y))
+        return phi, y, taps
+
+    def forward(self, latent_layers, perturbations=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """latent_layers: the classifier's hidden_states[-3:] (NCHW);
+        ``perturbations``: see :meth:`forward_taps`.
+
+        Returns (Phi (B, K, 3, 3), Phi' (B, 9K))."""
+        phi, y, _ = self.forward_taps(latent_layers, perturbations)
         return phi, y
 
 

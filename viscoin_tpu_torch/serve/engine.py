@@ -4,8 +4,10 @@ Counterpart of ``viscoin_tpu/serve/engine.py``. Requests of any size are
 chunked into fixed device batches; a short last chunk is padded by repeating
 its first row, and the padded rows are dropped on the host. Outputs are
 numpy arrays with the JAX engine's keys, shapes and layouts (the
-reconstruction is (N, H, W, 3) uint8). ``amplify`` takes one image and runs
-its 2M + 1 variants as one device batch.
+reconstruction is (N, H, W, 3) uint8). ``explain`` differentiates Psi and
+Theta with respect to Psi's taps (``utils/gradcam.py``), in the compute
+dtype, as JAX does. ``amplify`` takes one image and runs its 2M + 1
+variants as one device batch.
 
 The engine runs on ``device`` ("cuda" by default) and raises at
 construction when that device is a CUDA device and none is present; it
@@ -23,6 +25,7 @@ from viscoin_tpu_torch.data.transforms import denormalize, device_preprocess, ho
 from viscoin_tpu_torch.eval.viscoin import amplify_concepts, make_amplify_fns
 from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
+from viscoin_tpu_torch.utils.gradcam import psi_gradcams
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -129,6 +132,21 @@ class InferenceEngine:
                "expl_preds": expl_logits.argmax(dim=-1)}
         return {k: v.cpu().numpy() for k, v in out.items()}
 
+    def _explain(self, chunk: np.ndarray) -> dict:
+        # Not under inference mode: the backward needs autograd. The
+        # classifier runs without a graph; only the taps require a gradient.
+        images = torch.from_numpy(chunk).to(self.device)
+        x = device_preprocess(images).to(self.dtype)
+        with torch.no_grad():
+            logits, hidden = self.models.classify(x)
+        heatmaps, phi, expl_logits = psi_gradcams(self.models, hidden[-3:])
+        logits = logits.float()
+        out = {"logits": logits, "expl_logits": expl_logits, "preds": logits.argmax(dim=-1),
+               "expl_preds": expl_logits.argmax(dim=-1),
+               "concepts": max_pool_concepts(phi).float(),
+               **{f"heatmap_{name}": m for name, m in heatmaps.items()}}
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
     # ------------------------------- endpoints ------------------------------ #
 
     def classify(self, images_u8: np.ndarray) -> dict:
@@ -140,9 +158,10 @@ class InferenceEngine:
         return run_padded(self._reconstruct, images_u8, self.batch_size)
 
     def explain(self, images_u8: np.ndarray) -> dict:
-        raise NotImplementedError(
-            "explain (GradCAM over Psi) is not ported yet: ROADMAP.md, queue 1: analytics "
-            "(utils/gradcam.py)")
+        """u8 batch -> GradCAM heatmaps of Psi's conv1..conv5 (``heatmap_conv1``
+        ... (B, h, w) fp32) for the explainer's cross-entropy at its own
+        prediction, both predictions, the logits and pooled concepts."""
+        return run_padded(self._explain, images_u8, self.batch_size)
 
     def amplify(self, image_u8: np.ndarray, selection, multipliers, seed: int = 0):
         """One image's concept amplification: every variant (2 x len(multipliers)
@@ -155,8 +174,9 @@ class InferenceEngine:
                                 rng=np.random.default_rng(seed), fns=self._amplify_fns)
 
     def warmup(self):
-        """Run every endpoint once on a dummy batch."""
+        """Run every batched endpoint once on a dummy batch."""
         dummy = np.zeros((self.batch_size, self.resolution, self.resolution, 3), np.uint8)
         self.classify(dummy)
         self.reconstruct(dummy)
+        self.explain(dummy)
         return self

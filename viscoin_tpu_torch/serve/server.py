@@ -13,7 +13,11 @@ out unless noted):
                                query: multipliers (default "0,1,2,4"), and
                                top_k_concepts, indices or threshold (default
                                0.2) to select concepts, seed
-  * ``POST /v1/explain``       -> 501, not ported yet.
+  * ``POST /v1/explain``       images -> npz {heatmap_conv1..5 (B, h, w)
+                               GradCAM maps of Psi's convs at the explainer's
+                               predicted class, preds, expl_preds,
+                               top_concepts, top_concept_activations};
+                               query: top_k
 
 Amplify is served directly (it already batches its variants on the device),
 one request at a time. Request bodies: ``.npz`` bytes with an ``images`` array ((H,W,3) or
@@ -37,8 +41,6 @@ import numpy as np
 from viscoin_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from viscoin_tpu_torch.serve.batching import MicroBatcher
 from viscoin_tpu_torch.serve.engine import InferenceEngine
-
-NOT_PORTED = {"/v1/explain": "explain"}
 
 
 class RequestError(ValueError):
@@ -100,7 +102,7 @@ class VisCoINServer:
         self._amplify_lock = threading.Lock()
         self._batchers = {
             name: MicroBatcher(self._make_runner(name), engine.batch_size, max_delay_ms)
-            for name in ("classify", "reconstruct")
+            for name in ("classify", "reconstruct", "explain")
         }
 
     def _make_runner(self, name: str):
@@ -149,6 +151,16 @@ class VisCoINServer:
         return "application/octet-stream", _npz_bytes(
             reconstruction_u8=out["reconstruction_u8"], preds=out["preds"],
             expl_preds=out["expl_preds"])
+
+    def handle_explain(self, images: np.ndarray, params: dict) -> tuple[str, bytes]:
+        out = self._gather("explain", images)
+        k = min(int(params.get("top_k", self.top_k)), out["concepts"].shape[-1])
+        order_c = np.argsort(out["concepts"], axis=-1)[:, ::-1][:, :k]
+        heatmaps = {key: out[key] for key in out if key.startswith("heatmap_")}
+        return "application/octet-stream", _npz_bytes(
+            preds=out["preds"], expl_preds=out["expl_preds"], top_concepts=order_c,
+            top_concept_activations=np.take_along_axis(out["concepts"], order_c, -1),
+            **heatmaps)
 
     def handle_amplify(self, images: np.ndarray, params: dict) -> tuple[str, bytes]:
         if images.shape[0] != 1:
@@ -216,13 +228,10 @@ class VisCoINServer:
                 url = urlparse(self.path)
                 length = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(length)
-                if url.path in NOT_PORTED:
-                    self._send_json(501, {"error": f"{NOT_PORTED[url.path]} is not ported "
-                                                   "to the PyTorch/CUDA server yet"})
-                    return
                 route = {"/v1/classify": outer.handle_classify,
                          "/v1/reconstruct": outer.handle_reconstruct,
-                         "/v1/amplify": outer.handle_amplify}.get(url.path)
+                         "/v1/amplify": outer.handle_amplify,
+                         "/v1/explain": outer.handle_explain}.get(url.path)
                 if route is None:
                     self._send_json(404, {"error": f"no route {url.path}"})
                     return
@@ -241,14 +250,17 @@ class VisCoINServer:
 
 def run_server(engine: InferenceEngine, host: str = "127.0.0.1", port: int = 8751,
                max_delay_ms: float = 5.0):
-    """Blocking serve loop."""
+    """Blocking serve loop (the ``serve`` command's). Prints the bound
+    address, so that a caller of port 0 can read it, and, once stopped, that
+    the micro-batchers are closed."""
     vs = VisCoINServer(engine, max_delay_ms=max_delay_ms)
     httpd = vs.make_server(host, port)
     print(f"viscoin_tpu_torch serving on http://{host}:{httpd.server_address[1]} "
           f"(batch {engine.batch_size}, {engine.resolution}px, {engine.compute_dtype}, "
-          f"{engine.device})")
+          f"{engine.device})", flush=True)
     try:
         httpd.serve_forever()
     finally:
         vs.close()
         httpd.server_close()
+        print("viscoin_tpu_torch server stopped; micro-batchers closed", flush=True)
