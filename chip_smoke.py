@@ -152,7 +152,19 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                level); amplify, concepts, concept-heatmaps and logs as
                commands where matplotlib is installed, else their
                ImportError and their computations in-process; to-pickle;
- 19. timings   per kernel (CUDA events at the path's shapes, summed over the
+ 19. dp        data parallelism (parallel/mesh.py), see phase_dp: (a) `train
+               viscoin` at flagship width under `torchrun --nproc-per-node 1`
+               (NCCL at world size 1) against --no-data-parallel: jsonl records,
+               the training state and the launches bit-equal; (b) two
+               processes on the one card over gloo with CUDA tensors, the
+               VisCoIN step (global batch 8 + 8) and the GAN step of every
+               cadence type (global batch 16) against one process: metrics,
+               first moments, parameters after the update, w_avg, pl_mean,
+               r_t, each rank's launches; a planted fault (no gradient
+               all-reduce) must fail; (c) `serve --data-parallel` on the one
+               card bit-equal to the engine; wall time and peak memory per
+               rank;
+ 20. timings   per kernel (CUDA events at the path's shapes, summed over the
                loop's run A, the GAN's 16-step cycle, one FID estimate, the
                projection's 100 timed steps, one PPL batch and amplify-pca
                --pca 2 as they made each call, and over one reconstruct
@@ -166,7 +178,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                smallest path shape; the same for a probe chunk (N = 32) and
                an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
                and peak memory, and a torch.profiler breakdown of reconstruct;
- 20. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+ 21. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
                library_ms all over the loop's run A (``ms_over`` says so),
                the same over the GAN cycle (``gan_cycle_*``), one FID
                estimate (``fid_sampling_*``), the projection's timed steps
@@ -257,8 +269,12 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # relative to the output's ma
 DB_TOL = 1e-5
 
 
+_START = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the phase's report, after the seconds since the script began."""
+    print(f"[{phase} {time.perf_counter() - _START:.0f}s] {msg}", flush=True)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -1124,8 +1140,8 @@ class LoopRecorder:
 
             return wrapped
 
-        def sample_keys(seed, group_start, k):
-            out = keys(seed, group_start, k)
+        def sample_keys(seed, group_start, k, mesh=None):
+            out = keys(seed, group_start, k, mesh)
             rec.sampler.append((group_start, tuple(out)))
             return out
 
@@ -2481,21 +2497,17 @@ def phase_fid(work: str, device: dict) -> tuple[dict, dict]:
     # Timings: an Inception batch of 64, a whole estimate of 64 fakes.
     batch64 = device_preprocess(torch.from_numpy(seeded_images(64, SEED + 102)).cuda())
     out["inception_batch_ms"] = cuda_ms(lambda: detect(batch64), iters=5, warmup=2)
-    walls, sqrtm = [], []
-    for i in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fake = TG.accumulate_fake_fid_stats(detect, fake_fn, g, fold_seed(SEED, 7, i),
-                                            FID_SAMPLES)
-        t1 = time.perf_counter()
-        fid_from_stats(real, fake)
-        walls.append((time.perf_counter() - t0) * 1e3)
-        sqrtm.append((time.perf_counter() - t1) * 1e3)
-    out["fid_estimate_ms"], out["fid_sqrtm_ms"] = statistics.median(walls), statistics.median(sqrtm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fake = TG.accumulate_fake_fid_stats(detect, fake_fn, g, fold_seed(SEED, 7, 0), FID_SAMPLES)
+    t1 = time.perf_counter()
+    fid_from_stats(real, fake)
+    out["fid_estimate_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fid_sqrtm_ms"] = (time.perf_counter() - t1) * 1e3
     say("fid", f"an Inception batch of 64 at 256² (resize to 299² included): "
         f"{out['inception_batch_ms']:.2f} ms on the card (events, mean of 5); a whole FID "
         f"estimate of {FID_SAMPLES} fakes against cached real statistics: "
-        f"{out['fid_estimate_ms']:.1f} ms on the host clock (median of 2), of which the "
+        f"{out['fid_estimate_ms']:.1f} ms on the host clock (one estimate), of which the "
         f"2048² matrix square root on the host {out['fid_sqrtm_ms']:.1f} ms; the real side "
         f"({FID_SAMPLES} images, loader included) {1e3 * out['real_stats_s']:.1f} ms; {card}")
     del g, detect, ts_detect, nv_detect, net
@@ -3667,6 +3679,523 @@ def phase_analysis(models, device: dict, loop_jsonl: str) -> tuple[dict, dict]:
     return out, {"amplify-pca --pca 2": pca_calls}
 
 
+# ------------------------------- the dp phase --------------------------------- #
+
+DP_N = 20  # synthetic images per split for (a): the loop phase's 20 test images
+DP_LOSS_TOL = 1e-4  # two ranks against one process, both on the card (TF32 off): relative
+# The Adams' first moments (the averaged gradients) of each network (Psi,
+# Theta and the mapping; G; D), ||difference|| / ||one process's||. Not each
+# leaf's largest element: a pre-activation within rounding of lrelu's kink
+# takes the other slope in one of the runs, and a scalar leaf (a noise
+# strength, a sum over a whole batch of feature maps) whose gradient nearly
+# cancels moves by up to 0.6 of itself on an H100 (reported, not held).
+DP_GRAD_TOL = 1e-3
+# Adam's first update is lr * g / (|g| + eps) per element whatever g's size,
+# so an element whose gradient lies within rounding of 0 may step the other
+# way (2 % of the VisCoIN step's elements on an H100): the parameters
+# after the update are held to 2 lr everywhere and to 1 % of lr where the two
+# runs' gradients agree within 1 %.
+DP_UPDATE_TOL = 0.01
+
+
+def _gloo_env() -> dict:
+    """Loopback for the collectives' sockets: one host, no network."""
+    env = pipe_env()
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    return env
+
+
+def _torchrun(nproc: int, args: list[str]) -> list[str]:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            str(nproc), str(Path(__file__).resolve()), *args]
+
+
+def run_groups(cmds: dict[str, tuple[list[str], str]], timeout: float = 900,
+               env: dict | None = None) -> dict[str, tuple[float, str]]:
+    """Each ``label: (cmd, cwd)`` in a session of its own (torchrun and its
+    workers), all started at once, ``env`` added to their environment; on a
+    timeout or a failure every session is killed. Returns {label: (wall s,
+    output)}; raises on a non-zero exit."""
+    import signal
+
+    t0 = time.perf_counter()
+    procs = {label: subprocess.Popen(cmd, cwd=cwd, env={**_gloo_env(), **(env or {})},
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, start_new_session=True)
+             for label, (cmd, cwd) in cmds.items()}
+    out = {}
+    try:
+        for label, proc in procs.items():
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                log, _ = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"{label} timed out after {timeout} s") from None
+            if proc.returncode != 0:
+                raise RuntimeError(f"{label}: {' '.join(cmds[label][0][2:8])} ... exited "
+                                   f"{proc.returncode}:\n{log[-6000:]}")
+            out[label] = (time.perf_counter() - t0, log)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate(timeout=60)
+    return out
+
+
+def dp_command_main(out_path: str, argv: list[str]) -> int:
+    """`python chip_smoke.py --dp-command OUT -- <argv>`: the command
+    ``python -m viscoin_tpu_torch <argv>`` in this process (under torchrun,
+    one of its ranks) with cuDNN's deterministic algorithms on; then its
+    exit code, the meshes it joined (world size, backend), the kernel
+    launches and the peak memory, as JSON in OUT."""
+    from viscoin_tpu_torch.parallel import mesh as M
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    meshes = []
+    make_mesh = M.make_mesh
+
+    def recording(*args, **kw):  # the command's own make_mesh, observed
+        mesh = make_mesh(*args, **kw)
+        meshes.append((mesh.world, torch.distributed.get_backend()))
+        return mesh
+
+    M.make_mesh = recording
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = _port_main(argv)
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "meshes": meshes, "seconds": time.perf_counter() - t0,
+                   "launches": _kernels.launch_counts(),
+                   "peak_mb": torch.cuda.max_memory_allocated() / 2**20}, f)
+    return rc
+
+
+def dp_command(card: str) -> dict:
+    """(a) `train viscoin` at flagship width on DP_N synthetic images (batch
+    8, 4 iterations, eval every 2, checkpoints at 0 and 3) under `torchrun
+    --standalone --nproc-per-node 1` (the mesh branches through NCCL at
+    world size 1) against the same command with --no-data-parallel, from
+    the same seeds: the jsonl records and every tensor of the training state
+    after step 4 bit-equal; the launches of the whole command equal."""
+    args = ["train", "viscoin", "--dataset", "synthetic", "--batch-size", str(BATCH),
+            "--epochs", "4", "--eval-every", "2", "--checkpoint-every", "3",
+            "--faithfulness-every", "0"]
+    out: dict = {}
+    dirs = {label: tempfile.mkdtemp(prefix=f"viscoin_dp_{label}_")
+            for label in ("torchrun", "no_dp")}
+    try:
+        # Both at once on the card (each in its own process, under cuDNN's
+        # deterministic algorithms): the comparison does not depend on timing.
+        result = {label: os.path.join(d, "result.json") for label, d in dirs.items()}
+        runs = run_groups({
+            "torchrun": (_torchrun(1, ["--dp-command", result["torchrun"], "--", *args]),
+                         dirs["torchrun"]),
+            "no_dp": ([sys.executable, str(Path(__file__).resolve()), "--dp-command",
+                       result["no_dp"], "--", *args, "--no-data-parallel"], dirs["no_dp"])},
+            env={"VISCOIN_SYNTH_N": str(DP_N)})
+        out["wall_s"] = max(wall for wall, _ in runs.values())
+        for label, path in result.items():
+            with open(path) as f:
+                res = json.load(f)
+            assert res["rc"] == 0, res
+            out[label] = res
+        assert out["torchrun"]["meshes"] == [[1, "nccl"]], out["torchrun"]["meshes"]
+        assert out["no_dp"]["meshes"] == [], out["no_dp"]["meshes"]
+        recs = {k: read_jsonl(os.path.join(d, "viscoin_4.jsonl")) for k, d in dirs.items()}
+        check_records(recs["torchrun"], 2, "dp")
+        out["records_equal"] = recs["torchrun"] == recs["no_dp"]
+        states = {k: torch.load(os.path.join(d, "train_state", "train_state.pt"),
+                                weights_only=True) for k, d in dirs.items()}
+        assert states["torchrun"]["step"] == 4, states["torchrun"]["step"]
+        dev = tree_deviation(states["torchrun"], states["no_dp"])
+        out["state_tensors"] = len(dev)
+        out["state_max_dev"] = max(dev.values())
+        out["launches_equal"] = out["torchrun"]["launches"] == out["no_dp"]["launches"]
+        assert out["records_equal"], (recs["torchrun"], recs["no_dp"])
+        assert out["state_max_dev"] == 0.0, sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+        assert out["launches_equal"], (out["torchrun"]["launches"], out["no_dp"]["launches"])
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    say("dp", f"(a) `torchrun --standalone --nproc-per-node 1 chip_smoke.py --dp-command` = "
+        f"`python -m viscoin_tpu_torch {' '.join(args)}` on {DP_N} synthetic images at 256², "
+        f"full width (the mesh branches through NCCL at world size 1), and beside it on the "
+        f"card the same with --no-data-parallel: {out['wall_s']:.1f} s wall for both (the "
+        f"commands themselves {out['torchrun']['seconds']:.1f} s and "
+        f"{out['no_dp']['seconds']:.1f} s), peak "
+        f"{out['torchrun']['peak_mb']:.0f} and {out['no_dp']['peak_mb']:.0f} MiB; both jsonl "
+        f"records bit-equal, all "
+        f"{out['state_tensors']} tensors of the training state after step 4 bit-equal; "
+        f"launches of the whole command {out['torchrun']['launches']} in both; {card}")
+    return out
+
+
+def _const_noise(module) -> None:
+    """The synthesis of ``module`` runs with its constant noise buffers
+    whatever noise mode its caller asks for (each rank of several and one
+    process then see the same noise per sample)."""
+    synthesis = module.synthesis
+    forward = type(synthesis).forward
+
+    def const(ws, *args, **kw):
+        kw.pop("generator", None)
+        kw["noise_mode"] = "const"
+        return forward(synthesis, ws, *args, **kw)
+
+    synthesis.forward = const
+
+
+def _rows(x, mesh):
+    return x if mesh is None else x[mesh.rows(mesh.local(x.shape[0]))]
+
+
+def dp_viscoin_inputs() -> dict:
+    """The global VisCoIN batch of (b): 8 real images (preprocessed, fp32)
+    and labels, 8 synthetic ones, the explainer's keep mask, all seeded on
+    the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    real = device_preprocess(torch.from_numpy(seeded_images(BATCH, SEED + 101)).cuda())
+    return dict(real=real, labels=torch.from_numpy(np.random.default_rng(SEED + 102).integers(
+        0, N_CLASSES, BATCH)).cuda(), fake=torch.randn((BATCH, 3, RES, RES), device="cuda",
+                                                       generator=gen),
+        mask=torch.rand((2 * BATCH, N_CONCEPTS, 3, 3), device="cuda", generator=gen) < 0.8)
+
+
+def dp_viscoin_step(models, lpips, inp: dict, mesh, fault: bool = False) -> dict:
+    """One fp32 VisCoIN step past the warm-up gate on a copy of ``models``
+    (constant synthesis noise; each rank its rows of ``inp``, the mask's
+    real rows then its synthetic ones): the global metrics, the updated
+    trainable parameters, the Adams' first moments, the launches.
+    ``fault``: a planted fault, the gradients not averaged over the ranks."""
+    from viscoin_tpu_torch.parallel import mesh as M
+
+    models = copy.deepcopy(models)
+    _const_noise(models.gan)
+    cfg = T.VisCoINTrainingParams(batch_size=BATCH, compute_dtype="float32")
+    frozen = T.make_frozen(models, None, lpips, "float32")
+    state = T.create_train_state(models, cfg)
+    state.step = cfg.cd_fid_iteration + 1  # all six loss terms live
+    step = T.make_train_step(models, None, lpips, cfg, preprocess=False, external_fakes=True,
+                             mesh=mesh)
+    mask = torch.cat([_rows(inp["mask"][:BATCH], mesh), _rows(inp["mask"][BATCH:], mesh)])
+    orig = M.all_reduce_grads
+    if fault:
+        T.all_reduce_grads = lambda grads, mesh: grads
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        _, metrics = step(state, frozen, _rows(inp["real"], mesh), _rows(inp["labels"], mesh),
+                          torch.Generator(device="cuda").manual_seed(0),
+                          _rows(inp["fake"], mesh), dropout_mask=mask)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+    finally:
+        T.all_reduce_grads = orig
+    after = {f"{g}.{n}": p.detach().clone() for g, grp in state.params.items()
+             for n, p in grp.items()}
+    moments = {f"{g}.{n}": opt.state[p]["exp_avg"].clone() for opt in (state.opt, state.gan_opt)
+               for g, grp in state.params.items() for n, p in grp.items() if p in opt.state}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "after": after,
+            "exp_avg": moments, "launches": launches, "lr": cfg.learning_rate}
+
+
+def dp_gan_steps(g, d, mesh, fault: bool = False) -> list[dict]:
+    """One GAN step of each cadence type (GAN_CADENCES), each from a fresh
+    state on copies of ``g`` and ``d`` (fp32, ada_p GAN_ADA_P, constant
+    synthesis noise; a step's Adam moves every element by about lr, so a
+    sequence would carry the rare element stepping the other way into the
+    next step's losses) on the global batch of GAN_BATCH seeded images,
+    each rank its rows and its rows of the global draws. Per step: the
+    metrics, the launches, G, D and the EMA after the update, both Adams'
+    first moments (beta1 = 0: the averaged gradients), w_avg, pl_mean and
+    the ADA state. ``fault``: the gradients not averaged over the ranks."""
+    from viscoin_tpu_torch.parallel import mesh as M
+
+    images = torch.from_numpy(seeded_images(GAN_BATCH, GAN_SEED + 4)).cuda()
+    out = []
+    orig = M.all_reduce_grads
+    if fault:
+        TG.all_reduce_grads = lambda grads, mesh: grads
+    try:
+        for label, i, kw in GAN_CADENCES:
+            gc, dc = copy.deepcopy(g), copy.deepcopy(d)
+            _const_noise(gc)
+            cfg = TG.GANTrainingParams(compute_dtype="float32", augment_p=GAN_ADA_P,
+                                       batch_size=GAN_BATCH, **kw)
+            state = TG.create_gan_train_state(gc, dc, cfg)
+            # G holds still (its Adam at lr 0, its moments still taken): an
+            # element of G that steps the other way in one run would move the
+            # D phase's fakes, and so D's gradients, more than rounding does.
+            for group in state.g_opt.param_groups:
+                group["lr"] = 0.0
+            step = TG.make_gan_train_step(gc, dc, cfg, mesh)
+            state.step = i
+            draws = TG.draw_step(cfg, gc, GAN_SEED, i, "cuda", mesh)
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            _, metrics = step(state, _rows(images, mesh), draws)
+            torch.cuda.synchronize()
+            res = {"label": label, "launches": _kernels.launch_counts(),
+                   "metrics": {k: float(v) for k, v in metrics.items()}, "lr": cfg.learning_rate,
+                   "params": {f"{who}.{n}": p.detach().clone() for who, module in
+                              (("G", gc), ("D", dc), ("EMA", state.g_ema))
+                              for n, p in module.named_parameters()},
+                   "exp_avg": {f"{who}.{n}": opt.state[p]["exp_avg"].clone()
+                               for who, module, opt in (("G", gc, state.g_opt),
+                                                        ("D", dc, state.d_opt))
+                               for n, p in module.named_parameters()},
+                   "w_avg": state.w_avg.clone(), "pl_mean": float(state.pl_mean),
+                   "ada_p": float(state.ada_p), "ada_rt": float(state.ada_rt)}
+            out.append(res)
+            del gc, dc, state, step
+    finally:
+        TG.all_reduce_grads = orig
+    return out
+
+
+def _moment_dev(got: dict, want: dict) -> dict:
+    """First moments against one process's: per network (the leaves' first
+    name part), ||got - want|| / ||want||; and the leaf with the largest
+    |got - want| / max |want|, reported."""
+    nets: dict[str, list] = {}
+    for k, w in want.items():
+        acc = nets.setdefault(k.split(".")[0], [0.0, 0.0])
+        acc[0] += float((got[k] - w).double().square().sum())
+        acc[1] += float(w.double().square().sum())
+    leaf = max((float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30), k)
+               for k, w in want.items())
+    return {"nets": {n: math.sqrt(d / max(t, 1e-60)) for n, (d, t) in nets.items()},
+            "leaf": leaf}
+
+
+def _update_dev(got: dict, want: dict, got_m: dict, want_m: dict, lr: float) -> list[float]:
+    """Parameters after the update against one process's: [the largest
+    difference / lr, the largest / lr where the two runs' gradients (the
+    first moments) agree within 1 %, the share of elements where they do].
+    Two fp32 roundings of each parameter (2 * 2^-23 of its size; 0.15 lr at
+    128 and lr 1e-4) are taken off each difference first."""
+    worst = agree_worst = 0.0
+    agree_n = total = 0
+    for k, g in want_m.items():
+        diff = ((got[k] - want[k]).abs() - 2.0**-22 * want[k].abs()).clamp_min(0.0) / lr
+        worst = max(worst, float(diff.max()))
+        agree = (got_m[k] - g).abs() <= 0.01 * g.abs()
+        if bool(agree.any()):
+            agree_worst = max(agree_worst, float(diff[agree].max()))
+        agree_n += int(agree.sum())
+        total += g.numel()
+    return [worst, agree_worst, agree_n / total]
+
+
+def dp_worker_main(out_dir: str) -> int:
+    """`torchrun --nproc-per-node 2 chip_smoke.py --dp-worker DIR`: one of two
+    ranks on the one card over gloo with CUDA tensors (NCCL refuses two
+    ranks on one card). Each builds the flagship bundle, LPIPS and the GAN
+    from the seeds, runs the VisCoIN step and the GAN steps over the mesh
+    (and again with a planted fault); rank 0 then runs both in one process
+    on the global batch and compares. Writes rank<r>.json to DIR."""
+    from viscoin_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh("cuda:0", backend="gloo")
+    set_tf32(False)
+    t0 = time.perf_counter()
+    rec: dict = {"rank": mesh.rank, "world": mesh.world}
+    models = default_models(N_CLASSES, N_CONCEPTS, RES, CHANNEL_BASE, CHANNEL_MAX, device="cuda",
+                            seed=SEED)
+    perturb_constants(models, SEED + 10)
+    _, lpips = train_modules()
+    g_gan, d_gan = gan_modules()
+    inp = dp_viscoin_inputs()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    vis = dp_viscoin_step(models, lpips, inp, mesh)
+    vis_fault = dp_viscoin_step(models, lpips, inp, mesh, fault=True)
+    rec["viscoin_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gan = dp_gan_steps(g_gan, d_gan, mesh)
+    gan_fault = dp_gan_steps(g_gan, d_gan, mesh, fault=True)
+    rec["gan_s"] = time.perf_counter() - t
+    rec["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    rec["launches"] = {"viscoin": vis["launches"], "gan": [s["launches"] for s in gan]}
+    # The ranks hold the same parameters: every tensor's float64 sum, gathered.
+    sums = torch.stack([t.double().sum() for t in (*vis["after"].values(),
+                                                   *(p for s in gan
+                                                     for p in s["params"].values()))])
+    gathered = M.all_gather_batch(sums[None], mesh)
+    rec["ranks_equal"] = bool((gathered == gathered[0]).all())
+    if mesh.rank == 0:
+        ref = dp_viscoin_step(models, lpips, inp, None)
+        rec["viscoin"] = {
+            "metrics": {k: abs(v - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-6)
+                        for k, v in vis["metrics"].items()},
+            "exp_avg": _moment_dev(vis["exp_avg"], ref["exp_avg"]),
+            "fault_exp_avg": _moment_dev(vis_fault["exp_avg"], ref["exp_avg"]),
+            "update": _update_dev(vis["after"], ref["after"], vis["exp_avg"], ref["exp_avg"],
+                                  vis["lr"]),
+            "launches_ref": ref["launches"]}
+        gref = dp_gan_steps(g_gan, d_gan, None)
+        rec["gan"] = [{
+            "label": m["label"],
+            "metrics": {k: abs(v - w["metrics"][k]) / max(abs(w["metrics"][k]), 1e-6)
+                        for k, v in m["metrics"].items()},
+            "rt": (m["metrics"]["ada_rt"], w["metrics"]["ada_rt"]),
+            "exp_avg": _moment_dev(m["exp_avg"], w["exp_avg"]),
+            "fault_exp_avg": _moment_dev(f["exp_avg"], w["exp_avg"]),
+            "update": _update_dev(m["params"], w["params"], m["exp_avg"], w["exp_avg"],
+                                  m["lr"]),
+            "w_avg": float((m["w_avg"] - w["w_avg"]).abs().max() / w["w_avg"].abs().max()),
+            "pl_mean": abs(m["pl_mean"] - w["pl_mean"]) / max(abs(w["pl_mean"]), 1e-6),
+            "ada_p": (m["ada_p"], w["ada_p"]),
+            "launches_ref": w["launches"]} for m, f, w in zip(gan, gan_fault, gref)]
+    rec["seconds"] = time.perf_counter() - t0
+    M.barrier(mesh)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    M.destroy_mesh(mesh)
+    return 0
+
+
+def dp_gloo(card: str) -> dict:
+    """(b) two processes on the one card over gloo with CUDA tensors: the
+    VisCoIN step at the global batch 8 + 8 and the GAN step of every cadence
+    type (each from the same state) at the global batch 16, each split 2
+    ways, against one process at
+    the same global batch (the synthetic batch, the explainer's mask and the
+    GAN draws given, constant synthesis noise): every loss and metric, the
+    averaged gradients (the Adams' first moments), the updated parameters,
+    w_avg, pl_mean, r_t and ada_p; each rank's launches those of the
+    one-process step (a step launches each kernel once per layer, whatever
+    its batch); a planted fault (the gradient all-reduce skipped) must fail
+    the moments' check."""
+    work = tempfile.mkdtemp(prefix="viscoin_dp_gloo_")
+    try:
+        wall, _ = run_groups({"gloo": (_torchrun(2, ["--dp-worker", work]), work)})["gloo"]
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0 = ranks[0]
+    vis, gan = r0["viscoin"], r0["gan"]
+    out = {"wall_s": wall, "ranks": ranks}
+    worst = {"viscoin metrics": max(vis["metrics"].values()),
+             **{f"gan {s['label']} {k}": v for s in gan for k, v in s["metrics"].items()
+                if k != "ada_rt"},
+             **{f"gan {s['label']} w_avg": s["w_avg"] for s in gan},
+             **{f"gan {s['label']} pl_mean": s["pl_mean"] for s in gan}}
+    parts = {"viscoin": vis, **{f"gan {s['label']}": s for s in gan}}
+    moments = {f"{k} {n}": v for k, part in parts.items()
+               for n, v in part["exp_avg"]["nets"].items()}
+    leaves = {k: part["exp_avg"]["leaf"] for k, part in parts.items()}
+    # The planted fault must fail the first moments' check in every comparison.
+    faults = {k: max(part["fault_exp_avg"]["nets"].values()) for k, part in parts.items()}
+    updates = {"viscoin": vis["update"], **{f"gan {s['label']}": s["update"] for s in gan}}
+    out.update(worst=worst, moments=moments, moment_leaves=leaves, faults=faults,
+               updates=updates)
+    say("dp", "(b) deviations from one process: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in worst.items()) + "; r_t " + str([s["rt"] for s in gan])
+        + "; first moments " + ", ".join(f"{k} {v:.3g}" for k, v in moments.items())
+        + "; the leaf furthest off (reported) " + ", ".join(
+            f"{k} {v[0]:.3g} {v[1]}" for k, v in leaves.items())
+        + "; parameters after the update (worst / lr, worst / lr where the gradients agree "
+          "within 1 %, that share) " + ", ".join(f"{k} {v[0]:.3g} {v[1]:.3g} {v[2]:.3g}"
+                                                 for k, v in updates.items())
+        + "; planted fault, first moments " + ", ".join(f"{k} {v:.3g}" for k, v in faults.items()))
+    assert all(r["ranks_equal"] for r in ranks), "the ranks' parameters differ"
+    for r in ranks:
+        assert r["launches"]["viscoin"] == vis["launches_ref"], (r["rank"], r["launches"])
+        assert r["launches"]["gan"] == [s["launches_ref"] for s in gan], (r["rank"],
+                                                                           r["launches"])
+    for k, v in worst.items():
+        assert v <= DP_LOSS_TOL, (k, v)
+    # r_t is a mean of signs: one logit's sign across 0 moves it by 2 / 16.
+    assert all(abs(a - b) <= 2 / GAN_BATCH for a, b in (s["rt"] for s in gan)), gan
+    assert all(s["ada_p"][0] == s["ada_p"][1] for s in gan), gan
+    for k in moments:
+        assert moments[k] <= DP_GRAD_TOL, (k, moments[k])
+    for k in updates:
+        assert updates[k][0] <= 2.0 + DP_UPDATE_TOL and updates[k][1] <= DP_UPDATE_TOL, \
+            (k, updates[k])
+    assert min(faults.values()) > DP_GRAD_TOL, faults
+    say("dp", f"(b) `torchrun --standalone --nproc-per-node 2 chip_smoke.py --dp-worker`: two "
+        f"ranks on the one card over gloo with CUDA tensors, {wall:.1f} s wall (rank 0: "
+        f"VisCoIN {r0['viscoin_s']:.1f} s, GAN {r0['gan_s']:.1f} s, each with its planted "
+        f"fault; per rank wall and peak " + ", ".join(
+            f"rank {r['rank']} {r['seconds']:.1f} s {r['peak_mb']:.0f} MiB" for r in ranks)
+        + f"); against one process at the same global batch every check passed: metrics "
+        f"within {DP_LOSS_TOL:g} (r_t within one sign), first moments within {DP_GRAD_TOL:g} "
+        f"of each network's norm, the parameters after the update within 2 lr and within "
+        f"{DP_UPDATE_TOL:g} lr where the gradients agree within 1 % (G held still in the "
+        f"GAN's), "
+        f"launches per rank those of one process, the ranks' parameters equal; the "
+        f"planted fault (no gradient all-reduce) fails it: first moments off by at least "
+        f"{min(faults.values()):.3g}; {card}")
+    return out
+
+
+def dp_serve(models, card: str) -> dict:
+    """(c) `serve --data-parallel` (its engine, built by the command on the
+    one visible card: one replica) against InferenceEngine(device="cuda"):
+    classify, reconstruct and explain on 10 images bit-equal."""
+    from viscoin_tpu_torch.cli.generate import deterministic_cudnn
+    from viscoin_tpu_torch.serve import server
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="viscoin_dp_serve_")
+    seen = []
+    orig = server.run_server
+    server.run_server = lambda engine, **kw: seen.append(engine)
+    try:
+        bundle = os.path.join(tmp, "viscoin-flagship")
+        ckpt.save_viscoin(models, bundle)
+        assert _port_main(["serve", "--viscoin-pickle-path", bundle, "--data-parallel",
+                           "--compute-dtype", "float32", "--port", "0"]) == 0
+    finally:
+        server.run_server = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+    (dp_engine,) = seen
+    assert [d for d, _ in dp_engine.replicas] == [torch.device("cuda", 0)]
+    engine = InferenceEngine(models, batch_size=BATCH, compute_dtype="float32", device="cuda")
+    imgs = seeded_images(10, SEED + 110)
+    # Under cuDNN's deterministic algorithms: the up-convs' transposed
+    # convolutions add with atomics by default (1 u8 level apart on an H100).
+    with deterministic_cudnn():
+        for endpoint in ("classify", "reconstruct", "explain"):
+            got, want = getattr(dp_engine, endpoint)(imgs), getattr(engine, endpoint)(imgs)
+            for k in want:
+                assert np.array_equal(got[k], want[k]), (endpoint, k)
+    out = {"seconds": time.perf_counter() - t0,
+           "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
+    del dp_engine, engine
+    say("dp", f"(c) `serve --data-parallel` on the one visible card (one replica, on cuda:0): "
+        f"classify, reconstruct and explain on 10 images bit-equal to InferenceEngine("
+        f"device='cuda') under cuDNN's deterministic algorithms; {out['seconds']:.1f} s, peak "
+        f"{out['peak_mb']:.0f} MiB; {card}")
+    return out
+
+
+def phase_dp(models, device: dict) -> dict:
+    """Data parallelism (parallel/mesh.py): (a), (b) and (c) above."""
+    card = device["nvidia_smi"]
+    t0 = time.perf_counter()
+    out = {"command": dp_command(card)}
+    torch.cuda.empty_cache()
+    out["gloo"] = dp_gloo(card)
+    set_tf32(False)
+    out["serve"] = dp_serve(models, card)
+    tf32_defaults(device)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    say("dp", f"the phase took {out['seconds']:.1f} s; {card}")
+    return out
+
+
 # --------------------------------- phase 7 ---------------------------------- #
 
 
@@ -4040,11 +4569,20 @@ def profile_reconstruct(engine, imgs, dtype: str, per_batch: dict[str, int]) -> 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every number to this JSON file")
+    parser.add_argument("--dp-command", metavar="OUT", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("command", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    # The dp phase's own processes (under torchrun): see phase_dp.
+    if args.dp_command:
+        argv = args.command[1:] if args.command[:1] == ["--"] else args.command
+        return dp_command_main(args.dp_command, argv)
+    if args.dp_worker:
+        return dp_worker_main(args.dp_worker)
     t_start = time.perf_counter()
     record: dict = {"device": phase_device()}
     set_tf32(False)
@@ -4118,6 +4656,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["analysis"], analysis_calls = phase_analysis(models, record["device"],
                                                         record["loop"]["jsonl_a"])
+    record["dp"] = phase_dp(models, record["device"])
     set_tf32(False)
     worst_fid = phase_kernels({"the FID sampling": fid_calls, **tool_calls, **analysis_calls},
                               configurations=False)

@@ -180,12 +180,25 @@ def test_unported_models_raise(model):
 
 
 def test_data_parallel_over_several_cards_raises(monkeypatch):
-    """One visible card trains on it; more are not ported (DDP), unless
-    --no-data-parallel."""
+    """With several visible cards and no torchrun group, --data-parallel
+    starts one worker process per card (the spawn itself is stubbed here);
+    under torchrun the command joins its group instead, and
+    --no-data-parallel there raises; the --image-size check still raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data-parallel over 2.*ROADMAP"):
-        main(["train", "viscoin", "--dataset", "synthetic"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    spawned = []
+    monkeypatch.setattr(cli_train, "_spawn", lambda args, n: spawned.append((args, n)))
+    main(["train", "viscoin", "--dataset", "synthetic"])
+    (args, n), = spawned
+    assert n == 2 and args.model_name == "viscoin" and args.device == "cuda"
+    assert cli_train._spawned_workers(torch.device("cuda"), False, 1) == 0
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert cli_train._spawned_workers(torch.device("cuda"), True, 1) == 0
+    with pytest.raises(ValueError, match="--no-data-parallel in a group of 2"):
+        cli_train._build_mesh(torch.device("cpu"), False)
+    monkeypatch.delenv("WORLD_SIZE")
+    assert cli_train._build_mesh(torch.device("cpu"), True) is None
     with pytest.raises(ValueError, match="--image-size applies"):
         main(["train", "viscoin", "--dataset", "synthetic", "--image-size", "64",
               "--no-data-parallel", "--device", "cpu"])

@@ -222,17 +222,19 @@ def test_serve_command_answers_explain_over_http(bundle_dir, monkeypatch):
     assert all(not b._worker.is_alive() for b in vs._batchers.values())
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["serve", "--from-artifact", "art"], "Serving remainder"),
-    (["export-serving", "--output", "art"], "Serving remainder"),
-    (["serve", "--data-parallel"], "Data parallelism"),
+@pytest.mark.parametrize("argv, error, match", [
+    (["serve", "--from-artifact", "art"], NotImplementedError, "Serving remainder"),
+    (["export-serving", "--output", "art"], NotImplementedError, "Serving remainder"),
+    (["serve", "--data-parallel", "--batch-size", "3"], ValueError, "3 does not divide over "
+                                                                    "the 2 visible cards"),
 ], ids=["from-artifact", "export-serving", "data-parallel"])
-def test_unported_serving_options_raise(argv, match, monkeypatch):
-    """Sealed artifacts and serving over more than one card raise, naming
-    their ROADMAP item, before reading anything."""
+def test_unported_serving_options_raise(argv, error, match, monkeypatch):
+    """Sealed artifacts raise, naming their ROADMAP item, before reading
+    anything; so does serving over two cards at a batch that does not divide
+    over them (data parallelism is ported: serve/engine.py's replicas)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         main(argv)
 
 

@@ -219,7 +219,15 @@ def test_fid_every_is_a_usage_error(toy_cli, capsys):
 
 
 def test_gan_data_parallel_over_several_cards_raises(monkeypatch):
+    """Two visible cards: `train gan` starts a worker per card (stubbed
+    here); --model-parallel 2 still raises, naming its ROADMAP item."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data-parallel over 2.*ROADMAP"):
-        main(["train", "gan", "--dataset", "synthetic"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    spawned = []
+    monkeypatch.setattr(cli_train, "_spawn", lambda args, n: spawned.append((args, n)))
+    main(["train", "gan", "--dataset", "synthetic"])
+    (args, n), = spawned
+    assert n == 2 and args.model_name == "gan"
+    with pytest.raises(NotImplementedError, match="model-parallel 2.*ROADMAP"):
+        main(["train", "gan", "--dataset", "synthetic", "--model-parallel", "2"])

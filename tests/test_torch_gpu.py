@@ -736,3 +736,102 @@ def test_projection_step_gradients_on_the_card_match_the_cpu(cuda):
     for a, b in zip(got, want):
         scale = b.abs().max().clamp_min(1e-30)
         assert float((a.cpu() - b).abs().max() / scale) <= 1e-3
+
+
+def test_collectives_at_world_1_over_nccl(cuda, monkeypatch):
+    """parallel/mesh.py's collectives through NCCL at world size 1, as
+    `torchrun --nproc-per-node 1` runs the trainers: all_gather_batch and
+    all_mean are the identity in value, first and second derivative;
+    all_reduce_grads returns its input's values, broadcast_tree and the
+    barrier run."""
+    from torch_dp_worker import free_port
+
+    from viscoin_tpu_torch.parallel import mesh as M
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    mesh = M.make_mesh("cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl" and mesh.device == torch.device("cuda", 0)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        x = torch.randn(4, 3, device=cuda, generator=g, requires_grad=True)
+
+        def derivatives(gather, mean):
+            loss = (gather(x) ** 3).sum() + (mean(x.mean(0)) ** 2).sum()
+            (d1,) = torch.autograd.grad(loss, x, create_graph=True)
+            (d2,) = torch.autograd.grad((d1 ** 2).sum(), x)
+            return loss, d1, d2
+
+        got = derivatives(lambda t: M.all_gather_batch(t, mesh), lambda t: M.all_mean(t, mesh))
+        for a, b in zip(got, derivatives(lambda t: t, lambda t: t)):
+            assert torch.equal(a, b)
+        grads = [torch.randn(5, device=cuda, generator=g), torch.randn(2, 2, device=cuda,
+                                                                       generator=g)]
+        for a, b in zip(M.all_reduce_grads(grads, mesh), grads):
+            assert torch.equal(a, b)
+        before = [t.clone() for t in grads]
+        M.broadcast_tree(grads, mesh)
+        M.barrier(mesh)
+        assert all(torch.equal(a, b) for a, b in zip(grads, before))
+    finally:
+        M.destroy_mesh(mesh)
+
+
+def test_two_process_gloo_steps_on_the_card(cuda, tmp_path):
+    """Two processes on the one card over gloo with CUDA tensors (NCCL
+    refuses two ranks on one card): the toy GAN step with R1 and the path
+    length (mbstd over the ranks) and two classifier steps (global
+    BatchNorm) against the same steps in this process at the global batch
+    (fp32, TF32 off): the metrics within 1e-4, the GAN's first moments (the
+    averaged gradients) within 1e-2 of each leaf's scale (a pre-activation
+    within rounding of lrelu's kink may take the other slope), at most
+    1e-3 of the parameter elements off by over 1 % of lr (Adam steps each
+    element by about lr whatever its gradient's size); the classifier's
+    losses within 1e-4, its parameters likewise (1e-3 of the elements off
+    by over 1 % of lr) and its running statistics within 1e-3 of their
+    scale."""
+    from torch_dp_worker import (
+        classifier_inputs,
+        gan_inputs,
+        relative,
+        run_classifier_steps,
+        run_gan_steps,
+        run_ranks,
+        to_device,
+    )
+
+    def gan_step():
+        inp = gan_inputs()
+        return dict(inp, steps=inp["steps"][:1], images=inp["images"][:1])
+
+    outs = run_ranks(tmp_path, {"gan_steps": gan_step(), "classifier_steps": classifier_inputs()},
+                     world=2, timeout=600, device="cuda:0")
+    ref = to_device(run_gan_steps(to_device(gan_step(), cuda), None), "cpu")
+    lr = 2.5e-3  # GANTrainingParams.learning_rate
+    for out in outs:
+        got = out["gan_steps"]
+        for k, v in ref["metrics"][0].items():
+            assert abs(got["metrics"][0][k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+        for n, t in ref["exp_avg"].items():
+            assert relative(got["exp_avg"][n], t) < 1e-2, n
+        off = total = 0
+        for part in ("g", "d"):
+            for n, t in ref[part].items():
+                if t.is_floating_point():
+                    off += int(((got[part][n] - t).abs() > 0.01 * lr).sum())
+                    total += t.numel()
+        assert off <= 1e-3 * total, (off, total)
+    cls = to_device(run_classifier_steps(to_device(classifier_inputs(), cuda), None), "cpu")
+    for out in outs:
+        got = out["classifier_steps"]["state"]
+        np.testing.assert_allclose(np.asarray(out["classifier_steps"]["losses"]),
+                                   np.asarray(cls["losses"]), rtol=1e-4)
+        off = total = 0
+        for n, t in cls["state"].items():
+            if "running" in n:
+                assert relative(got[n], t) < 1e-3, n
+            elif t.is_floating_point():
+                off += int(((got[n] - t).abs() > 1e-5).sum())  # 1 % of Adam's lr, 1e-3
+                total += t.numel()
+        assert off <= 1e-3 * total, (off, total)

@@ -49,7 +49,8 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.eval.spaces", "viscoin_tpu_torch.cli.serve",
             "viscoin_tpu_torch.cli.amplify", "viscoin_tpu_torch.cli.amplify_pca",
             "viscoin_tpu_torch.cli.concepts", "viscoin_tpu_torch.cli.concept_heatmaps",
-            "viscoin_tpu_torch.cli.logs", "viscoin_tpu_torch.cli.to_pickle"} <= set(mods)
+            "viscoin_tpu_torch.cli.logs", "viscoin_tpu_torch.cli.to_pickle",
+            "viscoin_tpu_torch.parallel", "viscoin_tpu_torch.parallel.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -196,7 +197,7 @@ def test_gan_trainer_entry_points_default_to_cuda(monkeypatch):
     assert inspect.signature(draw_step).parameters["device"].default is inspect.Parameter.empty
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _train_gan("synthetic", None, 1, 4, False, "out")
+        _train_gan("synthetic", None, 1, 4, "out")
     if torch.backends.cuda.is_built():
         pytest.skip("a CUDA build of torch may create CUDA tensors lazily")
     with pytest.raises((RuntimeError, AssertionError)):

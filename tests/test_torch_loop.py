@@ -32,6 +32,7 @@ from viscoin_tpu_torch.models.explainer import Explainer
 from viscoin_tpu_torch.models.lpips import LPIPS
 from viscoin_tpu_torch.models.resnet import Classifier
 from viscoin_tpu_torch.models.stylegan import Generator, GeneratorAdapted
+from viscoin_tpu_torch.parallel.mesh import Mesh
 from viscoin_tpu_torch.train import viscoin as T
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
@@ -305,8 +306,8 @@ def test_resume_meta_mismatch_raises(tmp_path):
 
 def test_stop_after_profile_and_refusals(tmp_path):
     """stop_after keeps the schedule of cfg.iterations; profile_dir writes a
-    chrome trace; a mesh, a sharded loader, a batch-size mismatch and a
-    too-small dataset raise."""
+    chrome trace; a mesh over unsharded loaders, a sharded loader without a
+    mesh, a batch-size mismatch and a too-small dataset raise."""
     timings = {}
     run(str(tmp_path), 100, stop_after=3, eval_every=0, checkpoint_every=0, timings=timings,
         profile_dir=str(tmp_path / "prof"))
@@ -316,8 +317,10 @@ def test_stop_after_profile_and_refusals(tmp_path):
     m, gen, lpips = tiny()
     cfg = T.VisCoINTrainingParams(iterations=2, batch_size=B)
     tl, el = loaders()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.train_viscoin(m, gen, lpips, tl, el, cfg, mesh=object(), device="cpu")
+    # A mesh needs the loaders sharded over it (one shard per rank).
+    with pytest.raises(ValueError, match="shard"):
+        T.train_viscoin(m, gen, lpips, tl, el, cfg, mesh=Mesh(0, 2, torch.device("cpu")),
+                        device="cpu")
     sharded = DataLoader(SyntheticDataset(n=8, image_size=IMG), B, shard=(0, 2))
     with pytest.raises(ValueError, match="sharded"):
         T.train_viscoin(m, gen, lpips, sharded, el, cfg, device="cpu")

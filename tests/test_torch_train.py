@@ -46,6 +46,7 @@ from viscoin_tpu_torch.models.stylegan import Generator as TGenerator
 from viscoin_tpu_torch.models.stylegan import GeneratorAdapted as TGeneratorAdapted
 from viscoin_tpu_torch.models.stylegan import MappingNetwork as TMappingNetwork
 from viscoin_tpu_torch.models.stylegan import adapted_state_from_gan
+from viscoin_tpu_torch.parallel.mesh import Mesh
 from viscoin_tpu_torch.train import losses as TL
 from viscoin_tpu_torch.train import viscoin as T
 from viscoin_tpu_torch.utils.weights import load_jax_tree, tree_to_state_dict
@@ -464,5 +465,15 @@ def test_sample_fakes_and_seeds():
     assert torch.equal(r1, torch.rand(4, generator=T.step_generator(7, 3, "cpu")))
     with pytest.raises(ValueError, match="remat"):
         T.make_loss_fn(models, None, None, T.VisCoINTrainingParams(remat="vgg"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.make_train_step(None, None, None, cfg, mesh=object())
+    # Data parallelism: a rank samples its rows of the global batch from
+    # seeds of its own; at world size 1 the seeds are the one-process seeds.
+    cpu = torch.device("cpu")
+    rank1 = Mesh(rank=1, world=2, device=cpu)
+    half = T.make_sample_fakes(tg, T.VisCoINTrainingParams(batch_size=4), rank1)(
+        frozen, T.fake_sample_keys(7, 0, 2, rank1))
+    assert half.shape == (2, 2, 3, 16, 16)
+    assert T.fake_sample_keys(7, 0, 2, Mesh(rank=0, world=1, device=cpu)) == \
+        T.fake_sample_keys(7, 0, 2)
+    assert T.fake_sample_keys(7, 0, 2, rank1) != T.fake_sample_keys(7, 0, 2, Mesh(0, 2, cpu))
+    with pytest.raises(ValueError, match="does not divide"):
+        T.make_sample_fakes(tg, cfg, rank1)

@@ -1,0 +1,466 @@
+"""One rank of the port's data-parallel CPU tests (tests/test_torch_parallel.py,
+tests/test_torch_dp_train.py): joins a gloo group of WORLD processes on
+127.0.0.1 and runs the named scenarios, each reading its inputs from
+``<dir>/<scenario>.in.pt`` (written by the test) and writing what it computed
+to ``<dir>/<scenario>.rank<r>.pt``.
+
+    python tests/torch_dp_worker.py RANK WORLD PORT DIR DEVICE SCENARIO [SCENARIO ...]
+
+DEVICE "cpu" runs on the CPU; a CUDA device ("cuda:0") puts every rank's
+inputs on that one card and joins over gloo (NCCL refuses two ranks on one
+card). It imports torch and the port only. Each ``run_<scenario>(inputs,
+mesh)`` also runs without a mesh, which is how the tests compute the
+one-process reference on the global batch.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from viscoin_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_batch,
+    all_mean,
+    all_reduce_grads,
+    all_sum,
+    barrier,
+    broadcast_tree,
+    make_mesh,
+)
+
+def _rows(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """This rank's rows of a global batch (all of them without a mesh)."""
+    return x if mesh is None else x[mesh.rows(mesh.local(x.shape[0]))]
+
+
+def const_noise(*modules) -> None:
+    """Make every synthesis network of ``modules`` run with its constant
+    noise buffers, whatever noise mode the caller asks for: one process and
+    each rank of several then see the same noise per sample."""
+    for module in modules:
+        synthesis = module.synthesis
+        forward = type(synthesis).forward
+
+        def const(ws, *args, _s=synthesis, _f=forward, **kw):
+            kw.pop("generator", None)
+            kw["noise_mode"] = "const"
+            return _f(_s, ws, *args, **kw)
+
+        synthesis.forward = const
+
+
+# ------------------------------- collectives --------------------------------- #
+
+
+def collectives_loss(x: torch.Tensor, a: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+                     mesh: Mesh | None) -> torch.Tensor:
+    """A rank's loss through every differentiable collective: a nonlinear
+    function of the gathered batch (with a minibatch-stddev-like statistic
+    that couples the rows), of the mean over the ranks of the local means,
+    and of the local rows alone."""
+    xg = all_gather_batch(x, mesh)
+    std = torch.sqrt(((xg - xg.mean(0)) ** 2).mean(0) + 1e-8)
+    f = (torch.tanh(xg @ a) ** 2).sum() + (std * xg[:, :1]).sum()
+    m = all_mean(x.mean(0), mesh)
+    return f + (m @ v) ** 2 + (torch.sin(x) * u).sum() + all_sum((x ** 3).sum(), mesh)
+
+
+def run_collectives(inp: dict, mesh: Mesh | None) -> dict:
+    """Values, first and second derivatives of :func:`collectives_loss` on
+    this rank's rows; all_reduce_grads, broadcast_tree and a barrier on
+    rank-dependent tensors."""
+    x = _rows(inp["x"], mesh).clone().requires_grad_(True)
+    rank = 0 if mesh is None else mesh.rank
+    u = _rows(inp["u"], mesh)
+    loss = collectives_loss(x, inp["a"], inp["v"], u, mesh)
+    (g,) = torch.autograd.grad(loss, x, create_graph=True)
+    (h,) = torch.autograd.grad((g ** 2).sum(), x)
+    out = {"loss": loss.detach(), "g": g.detach(), "h": h}
+    if mesh is not None:
+        grads = [inp["grads"][rank][k] for k in sorted(inp["grads"][rank])]
+        out["mean_grads"] = all_reduce_grads(grads, mesh)
+        tree = {k: t.clone() for k, t in inp["grads"][rank].items()}
+        broadcast_tree(tree, mesh)
+        out["broadcast"] = tree
+        barrier(mesh)
+    return out
+
+
+def run_mbstd(inp: dict, mesh: Mesh | None) -> dict:
+    """The discriminator's minibatch stddev on this rank's rows, and the
+    gradient of a loss through it."""
+    from viscoin_tpu_torch.models.stylegan import MinibatchStdLayer
+
+    x = _rows(inp["x"], mesh).clone().requires_grad_(True)
+    y = MinibatchStdLayer(group_size=4)(x, mesh)
+    loss = (y ** 2 * _rows(inp["w"], mesh)).sum()
+    (g,) = torch.autograd.grad(loss, x)
+    return {"y": y.detach(), "g": g}
+
+
+def run_batchnorm(inp: dict, mesh: Mesh | None) -> dict:
+    """Train-mode ConvBN on this rank's rows: outputs, the input's and the
+    parameters' gradients, the running statistics."""
+    layer = inp["layer"]
+    x = _rows(inp["x"], mesh).clone().requires_grad_(True)
+    y = layer(x, train=True, mesh=mesh)
+    grads = torch.autograd.grad((y * _rows(inp["w"], mesh)).sum(),
+                                [x, layer.conv.weight, layer.bn.weight])
+    return {"y": y.detach(), "gx": grads[0], "gw": grads[1], "gscale": grads[2],
+            "running": (layer.bn.running_mean.clone(), layer.bn.running_var.clone())}
+
+
+# ------------------------------ the VisCoIN step ------------------------------ #
+
+
+def run_viscoin_step(inp: dict, mesh: Mesh | None) -> dict:
+    """VisCoIN steps (float inputs, external fakes, the global dropout
+    mask's rows of this rank: its real rows, then its synthetic ones), one
+    per ``inp["micro"]`` entry (the batch reversed for odd entries), so that
+    ``gradient_accumulation`` = 2 takes one update on two micro-steps: the
+    last metrics, the updated parameters and the Adams' first moments."""
+    from viscoin_tpu_torch.train import viscoin as T
+
+    models, lpips = inp["models"], inp["lpips"]
+    cfg = T.VisCoINTrainingParams(**inp["cfg"])
+    frozen = T.make_frozen(models, None, lpips, cfg.compute_dtype)
+    state = T.create_train_state(models, cfg)
+    step = T.make_train_step(models, None, lpips, cfg, preprocess=False, external_fakes=True,
+                             mesh=mesh)
+    B = inp["real"].shape[0]
+    for j in range(inp.get("micro", 1)):
+        order = torch.arange(B) if j % 2 == 0 else torch.arange(B - 1, -1, -1)
+        mask = inp["mask"][torch.cat([order, B + order])]
+        mask = torch.cat([_rows(mask[:B], mesh), _rows(mask[B:], mesh)])
+        state, metrics = step(state, frozen, _rows(inp["real"][order], mesh),
+                              _rows(inp["labels"][order], mesh),
+                              torch.Generator(inp["real"].device).manual_seed(0),
+                              _rows(inp["fake"][order], mesh), dropout_mask=mask)
+    params = {f"{g}.{n}": p.detach().clone() for g, grp in state.params.items()
+              for n, p in grp.items()}
+    moments = {}
+    for opt in (state.opt, state.gan_opt):
+        for g, grp in state.params.items():
+            for n, p in grp.items():
+                if p in opt.state:
+                    moments[f"{g}.{n}"] = opt.state[p]["exp_avg"].clone()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "params": params,
+            "exp_avg": moments}
+
+
+# -------------------------------- the GAN step -------------------------------- #
+
+
+def run_gan_steps(inp: dict, mesh: Mesh | None, skip_grad_reduce: bool = False) -> dict:
+    """The GAN step at steps ``inp["steps"]`` (set on the state's counter:
+    R1 and the path length, plain, the ADA adjustment, the path length),
+    with constant synthesis noise and each rank's rows of the global draws:
+    every step's metrics, then G, D, the EMA, both Adams' first moments
+    (beta1 = 0: the last step's averaged gradients), w_avg, pl_mean and the
+    ADA state. ``skip_grad_reduce``: a planted fault, the gradients not averaged
+    over the ranks."""
+    from viscoin_tpu_torch.train import gan as TG
+
+    g, d = inp["g"], inp["d"]
+    const_noise(g)
+    cfg = TG.GANTrainingParams(**inp["cfg"])
+    state = TG.create_gan_train_state(g, d, cfg)
+    step = TG.make_gan_train_step(g, d, cfg, mesh)
+    if skip_grad_reduce:
+        TG.all_reduce_grads = lambda grads, mesh: grads
+    out: dict = {"metrics": []}
+    for j, i in enumerate(inp["steps"]):
+        state.step = i
+        draws = TG.draw_step(cfg, g, 7, i, inp["images"].device, mesh)
+        _, metrics = step(state, _rows(inp["images"][j], mesh), draws)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    out.update(g=state.generator.state_dict(), d=state.discriminator.state_dict(),
+               g_ema=state.g_ema.state_dict(), w_avg=state.w_avg.clone(),
+               exp_avg={f"{who}.{n}": opt.state[p]["exp_avg"].clone()
+                        for who, module, opt in (("G", g, state.g_opt), ("D", d, state.d_opt))
+                        for n, p in module.named_parameters()},
+               pl_mean=float(state.pl_mean), ada_p=float(state.ada_p),
+               ada_rt=float(state.ada_rt))
+    return out
+
+
+def gan_inputs() -> dict:
+    """The GAN scenario at toy widths (32², z 8, w 16, channel_base 256,
+    channel_max 16, mbstd group 4, global batch 8; ADA at p = 0.2 with a
+    short horizon, so that step 3 adjusts it), its weights perturbed."""
+    from viscoin_tpu_torch.models.bundle import init_models
+    from viscoin_tpu_torch.models.stylegan import Discriminator, Generator
+
+    g = init_models(Generator(z_dim=8, w_dim=16, img_resolution=32, mapping_layers=2,
+                              channel_base=256, channel_max=16, device="cpu"), 3)
+    d = init_models(Discriminator(img_resolution=32, channel_base=256, channel_max=16,
+                                  mbstd_group_size=4, device="cpu"), 4)
+    rng = np.random.default_rng(21)
+    with torch.no_grad():  # non-zero biases, constants and noise strengths
+        for module in (g, d):
+            for p in module.parameters():
+                p.add_(0.05 * torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)))
+    steps = (0, 1, 3, 4)
+    return dict(g=g, d=d, steps=steps,
+                cfg=dict(batch_size=8, augment_p=0.2, ada_interval=4, ada_kimg=0.1,
+                         ema_kimg=0.01, style_mixing_prob=0.5),
+                images=torch.from_numpy(rng.integers(0, 256, (len(steps), 8, 32, 32, 3),
+                                                     dtype=np.uint8)))
+
+
+def relative(got, want) -> float:
+    """max |got - want| / max |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-12))
+
+
+def gan_deviation(outs: list[dict], ref: dict, key: str) -> dict[str, float]:
+    """The largest deviation over the ranks of scenario ``key``'s GAN run
+    from the one-process run ``ref``: every step's metrics (relative, at
+    least 1e-3 absolute), each G, D and EMA tensor, each first moment and
+    w_avg (of its scale), pl_mean and the ADA state."""
+    dev: dict[str, float] = {}
+
+    def put(name, value):
+        dev[name] = max(dev.get(name, 0.0), value)
+
+    for out in outs:
+        got = out[key]
+        for j, (m, w) in enumerate(zip(got["metrics"], ref["metrics"])):
+            for k in w:
+                put(f"metric {j} {k}", abs(m[k] - w[k]) / max(abs(w[k]), 1e-3))
+        for n, t in ref["exp_avg"].items():
+            put(f"exp_avg {n}", relative(got["exp_avg"][n], t))
+        for part in ("g", "d", "g_ema"):
+            for n, t in ref[part].items():
+                if t.is_floating_point():
+                    put(f"{part}.{n}", relative(got[part][n], t))
+        put("w_avg", relative(got["w_avg"], ref["w_avg"]))
+        for k in ("pl_mean", "ada_p", "ada_rt"):
+            put(k, abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-3))
+    return dev
+
+
+# ----------------------------- the classifier step ---------------------------- #
+
+
+def classifier_inputs() -> dict:
+    """Two classifier steps at toy widths (a 4-stage ResNet of width 8-64,
+    5 classes, 32², global batch 8) with their flips."""
+    from viscoin_tpu_torch.models.bundle import init_models
+    from viscoin_tpu_torch.models.resnet import Classifier
+
+    rng = np.random.default_rng(31)
+    model = init_models(Classifier(output_classes=5, embedding_size=8,
+                                   hidden_sizes=(8, 16, 32, 64), depths=(1, 1, 1, 1),
+                                   device="cpu"), 5)
+    return dict(model=model,
+                images=torch.from_numpy(rng.integers(0, 256, (2, 8, 32, 32, 3), dtype=np.uint8)),
+                labels=torch.from_numpy(rng.integers(0, 5, (2, 8))),
+                flips=torch.from_numpy(rng.random((2, 8)) < 0.5))
+
+
+def run_classifier_steps(inp: dict, mesh: Mesh | None) -> dict:
+    """Two classifier steps (BatchNorm in train mode) with the global
+    flips' rows: losses, counts of correct predictions, the parameters and
+    the running statistics."""
+    from viscoin_tpu_torch.train import classifiers as TC
+
+    model = inp["model"]
+    params = TC.ClassifierTrainingParams(batch_size=inp["images"].shape[1])
+    state = TC.create_classifier_state(model, params, steps_per_epoch=10)
+    step = TC.make_classifier_train_step("float32", mesh)
+    losses = []
+    for j in range(inp["images"].shape[0]):
+        loss, correct = step(state, _rows(inp["images"][j], mesh), _rows(inp["labels"][j], mesh),
+                             _rows(inp["flips"][j], mesh))
+        losses.append((float(loss), float(correct)))
+    return {"losses": losses, "state": model.state_dict()}
+
+
+# ---------------------------- the sharded evaluation -------------------------- #
+
+
+def run_test_viscoin(inp: dict, mesh: Mesh | None) -> dict:
+    """``test_viscoin`` with FID (a fixed linear detector) over a test set
+    whose last global batch is ragged (the shards padded by ``pad_final``),
+    and the faithfulness probe over the ranks."""
+    from viscoin_tpu_torch.data.datasets import SyntheticDataset
+    from viscoin_tpu_torch.data.loader import DataLoader
+    from viscoin_tpu_torch.eval import viscoin as TE
+
+    models, lpips, proj = inp["models"], inp["lpips"], inp["proj"]
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    loader = DataLoader(SyntheticDataset(n=inp["n"], n_classes=inp["n_classes"],
+                                         image_size=inp["size"], mode="test"),
+                        inp["batch"], shuffle=False, num_threads=0, shard=shard,
+                        pad_final=shard[1] > 1)  # as data/utils.py::get_dataloaders
+
+    def detector(x):
+        return x.reshape(x.shape[0], -1) @ proj
+
+    res = TE.test_viscoin(models, lpips, loader, compute_fid=True, fid_detector=detector,
+                          mesh=mesh)
+    probe = TE.make_faithfulness_fn(models, mesh)(inp["probe_images"])
+    return {"results": res.__dict__, "probe": probe}
+
+
+def run_gan_fid(inp: dict, mesh: Mesh | None) -> dict:
+    """``train gan``'s in-loop FID statistics with a fixed linear detector:
+    the real side over the dataset's batches in order (each rank its
+    shard), the fake side from the EMA generator (each rank its rows of
+    every batch's latents; constant synthesis noise): both sides' means,
+    covariances and counts, and the FID."""
+    from viscoin_tpu_torch.data.datasets import SyntheticDataset
+    from viscoin_tpu_torch.eval.fid import fid_from_stats
+    from viscoin_tpu_torch.train import gan as TG
+
+    g = inp["g"].eval().requires_grad_(False)
+    const_noise(g)
+    proj = inp["proj"]
+
+    def detector(x):
+        return x.reshape(x.shape[0], -1) @ proj
+
+    fake_fn, real_fn = TG.make_gan_fid_fns(inp["batch"], mesh)
+    ds = SyntheticDataset(n=inp["n"], image_size=g.img_resolution, mode="train",
+                          transform="gan")
+    real = TG.accumulate_real_fid_stats(detector, real_fn, ds, inp["batch"], inp["samples"],
+                                        device=proj.device, mesh=mesh)
+    fake = TG.accumulate_fake_fid_stats(detector, fake_fn, g, 11, inp["samples"], mesh=mesh)
+    return {"real": (*real.get_mean_cov(), real.num_items),
+            "fake": (*fake.get_mean_cov(), fake.num_items), "fid": fid_from_stats(real, fake)}
+
+
+# ---------------------------------- the command ------------------------------- #
+
+
+def run_command(inp: dict, mesh: Mesh | None) -> dict:
+    """``python -m viscoin_tpu_torch train viscoin`` (its ``main``) at toy
+    widths in this rank's own working directory, then its resume from rank
+    0's training state; the group is the command's own (WORLD_SIZE set)."""
+    from viscoin_tpu_torch.__main__ import main
+    from viscoin_tpu_torch.cli import train as cli_train
+    from viscoin_tpu_torch.models import bundle as tb
+    from viscoin_tpu_torch.models.concept_extractor import ConceptExtractor
+    from viscoin_tpu_torch.models.explainer import Explainer
+    from viscoin_tpu_torch.models.lpips import LPIPS
+    from viscoin_tpu_torch.models.resnet import Classifier
+    from viscoin_tpu_torch.models.stylegan import Generator, GeneratorAdapted
+
+    def toy_modules(n_classes, size, device="cuda"):
+        models = tb.VisCoINModels(
+            classifier=Classifier(**dict(inp["classifier"], output_classes=n_classes),
+                                  device=device),
+            concept_extractor=ConceptExtractor(**inp["psi"], device=device),
+            explainer=Explainer(n_concepts=inp["psi"]["n_concepts"], n_classes=n_classes,
+                                device=device),
+            gan=GeneratorAdapted(**dict(inp["gan"], img_resolution=size), device=device))
+        generator = Generator(z_dim=16, w_dim=32, img_resolution=size, channel_base=256,
+                              channel_max=16, mapping_layers=2, device=device)
+        return (tb.init_models(models, 0), tb.init_models(generator, 1),
+                tb.init_models(LPIPS(device=device), 2))
+
+    cli_train.build_viscoin_modules = toy_modules
+    rank = int(os.environ["RANK"])
+    work = os.path.join(inp["dir"], f"rank{rank}")
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    os.environ.update(VISCOIN_SYNTH_N="8", VISCOIN_SYNTH_SIZE="32")
+    base = ["train", "viscoin", "--device", "cpu", "--dataset", "synthetic", "--batch-size", "4",
+            "--eval-every", "1", "--checkpoint-every", "2", "--faithfulness-every", "2",
+            "--prefetch", "0"]
+    os.environ["MASTER_PORT"] = str(inp["ports"][0])
+    rcs = [main([*base, "--epochs", "3"])]
+    first = sorted(os.listdir(work))
+    os.environ["MASTER_PORT"] = str(inp["ports"][1])  # a new group for the resume
+    rcs.append(main([*base, "--epochs", "4", "--resume",
+                     os.path.join(inp["dir"], "rank0", "train_state")]))
+    return {"rcs": rcs, "first": first, "files": sorted(os.listdir(work))}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def to_device(obj, device):
+    """``obj`` (tensors and modules, in dicts, lists and tuples) on ``device``."""
+    if isinstance(obj, (torch.Tensor, torch.nn.Module)):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(v, device) for v in obj)
+    return obj
+
+
+def run_ranks(work_dir, inputs: dict[str, dict], world: int = 2, timeout: float = 120.0,
+              device: str = "cpu") -> list[dict]:
+    """Write each scenario's inputs, run ``world`` worker processes over
+    gloo (each with a one-thread torch) on ``device`` and return, per rank,
+    {scenario: its output}, on the CPU. Every wait is bounded by
+    ``timeout`` seconds: a hang kills the workers and fails."""
+    import subprocess
+    from pathlib import Path
+
+    work_dir = Path(work_dir)
+    for name, inp in inputs.items():
+        torch.save(inp, work_dir / f"{name}.in.pt")
+    repo = str(Path(__file__).resolve().parent.parent)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(world), port,
+                               str(work_dir), device, *inputs], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return [{name: torch.load(work_dir / f"{name}.rank{r}.pt", weights_only=False,
+                              map_location="cpu")
+             for name in inputs} for r in range(world)]
+
+
+def main(argv: list[str]) -> int:
+    rank, world, port, out_dir, device, *scenarios = argv
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank, MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=port)
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False  # the card's runs are held to the fp32 reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    np.random.seed(0)
+    for name in scenarios:
+        inp = to_device(torch.load(os.path.join(out_dir, f"{name}.in.pt"), weights_only=False),
+                        device)
+        if name == "command":  # the command joins and leaves the group itself
+            out = run_command(inp, None)
+        else:
+            mesh = make_mesh(device, backend="gloo")
+            fn = globals()[f"run_{inp.get('fn', name)}"]
+            out = fn(inp, mesh, **inp.get("kw", {}))
+        torch.save(out, os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

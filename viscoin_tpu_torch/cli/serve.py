@@ -10,11 +10,13 @@ then serves it over HTTP (``serve/server.py::run_server``), printing the
 bound address (``--port 0`` takes a free port). SIGINT stops it: the
 micro-batchers close and the command returns normally.
 
+``--data-parallel`` serves one replica on every visible card and splits
+each device batch over them (``serve/engine.py``; the batch size must divide
+by the card count), as the JAX command does over its devices; with one card
+it serves on it.
+
 Not ported yet, and raising with the ROADMAP item's name: sealed artifacts
-(``--from-artifact``, ``export-serving``; "Serving remainder") and serving
-over more than one visible card (``--data-parallel``; "Data parallelism").
-With one visible card, ``--data-parallel`` serves on it, as the JAX command
-does with one device.
+(``--from-artifact``, ``export-serving``; "Serving remainder").
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ def add_parser(subparsers) -> None:
     p.add_argument("--from-artifact", default=None,
                    help="Serve a sealed export-serving artifact (not ported yet)")
     p.add_argument("--data-parallel", action=argparse.BooleanOptionalAction, default=False,
-                   help="Shard each device batch over all visible cards (one card: serves on "
-                        "it; more: not ported yet)")
+                   help="Shard each device batch over all visible cards, one replica each")
     p.set_defaults(func=serve)
 
     e = subparsers.add_parser("export-serving",
@@ -70,13 +71,16 @@ def serve(args: argparse.Namespace) -> None:
     if args.from_artifact is not None:
         raise NotImplementedError(f"serve --from-artifact is not ported yet ({SERVING_REMAINDER})")
     device = card_or_cpu("serve", args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"serve --data-parallel over {torch.cuda.device_count()} cards is not ported yet "
-            "(ROADMAP.md, queue 1: Data parallelism); with one visible card it serves on it")
+    devices = None
+    if args.data_parallel and device.type == "cuda":
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if args.batch_size % len(devices):
+            raise ValueError(f"serve --data-parallel: --batch-size {args.batch_size} does not "
+                             f"divide over the {len(devices)} visible cards")
+        print(f"--data-parallel: a replica on each of {len(devices)} visible card(s)", flush=True)
     models = load_viscoin_bundle(args.viscoin_pickle_path, device=device)
     engine = InferenceEngine(models, batch_size=args.batch_size,
-                             compute_dtype=args.compute_dtype, device=device)
+                             compute_dtype=args.compute_dtype, device=device, devices=devices)
     del models  # the engine holds its own copy
     print("warming up (one batch through each endpoint)...", flush=True)
     engine.warmup()

@@ -36,6 +36,15 @@ EMA-generator samples against as many training images, logged to the jsonl
 as ``{"iteration", "fid"}``; the detector is ``--fid-detector`` or
 ``checkpoints/inception``.
 
+``--data-parallel`` (the default) trains over every visible card, as the
+JAX command does over every device, one process per card
+(``parallel/mesh.py``): under ``torchrun`` the command joins its group
+(``torchrun --nproc-per-node N -m viscoin_tpu_torch train ...``, any N,
+even 1); otherwise, with several visible cards, it starts one worker
+process per card itself. ``--batch-size`` stays the global batch. With one
+card (or the CPU) and no ``torchrun``, there is no mesh. Rank 0 writes the
+logs and the checkpoints. ``--model-parallel`` > 1 is not ported.
+
 The ``concept2clip`` model is not ported yet.
 """
 
@@ -48,10 +57,11 @@ import torch
 
 from viscoin_tpu_torch.cli.utils import add_common_options, card_or_cpu, existing_path
 from viscoin_tpu_torch.data.utils import default_checkpoints, get_dataloaders
+from viscoin_tpu_torch.parallel.mesh import destroy_mesh
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
 NOT_PORTED = {"concept2clip": "queue 1: Concept2CLIP (train/concept2clip.py)"}
-DATA_PARALLEL = "queue 1: data parallelism (parallel/mesh.py as DDP)"
+MODEL_PARALLEL = "queue 1: model parallelism, --model-parallel"
 DEFAULT_FID_DETECTOR = "checkpoints/inception"
 
 
@@ -65,8 +75,8 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
                    help="The amount of steps to accumulate gradients before stepping the "
                         "optimizers")
     p.add_argument("--data-parallel", action=argparse.BooleanOptionalAction, default=True,
-                   help="Shard the batch over all visible cards (one card: runs on it; more "
-                        "are not ported yet)")
+                   help="Shard the batch over all visible cards, one process per card (under "
+                        "torchrun: over its processes)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="Devices per model-parallel group (not ported yet beyond 1)")
     p.add_argument("--optimizer", choices=["adam", "sgd"], default=None,
@@ -132,43 +142,55 @@ def train(args: argparse.Namespace) -> None:
     if args.model_name in NOT_PORTED:
         raise NotImplementedError(f"`train {args.model_name}` is not ported yet "
                                   f"(ROADMAP.md, {NOT_PORTED[args.model_name]})")
+    if args.model_name not in ("classifier", "gan", "viscoin"):
+        raise ValueError(f"Unknown model name: {args.model_name}")
     ds_kwargs = _dataset_kwargs(args.dataset, args.image_size)
-    if args.model_name == "classifier":
-        _train_classifier(args.dataset, args.checkpoints, args.batch_size, args.learning_rate,
-                          args.epochs, args.output_weights, args.data_parallel,
-                          compute_dtype=args.compute_dtype, optimizer=args.optimizer,
-                          momentum=args.momentum, ds_kwargs=ds_kwargs, device=args.device)
-        return
     if args.model_name == "gan":
         detector = args.fid_detector_path or DEFAULT_FID_DETECTOR
         if args.fid_every and not os.path.exists(detector):
             args.parser.error(f"--fid-every needs a FID detector; none at {detector} (port one "
                               "with `python -m viscoin_tpu_torch port-weights inception`, or "
                               "pass --fid-detector)")
+    device = card_or_cpu(f"train {args.model_name}", args.device)
+    workers = _spawned_workers(device, args.data_parallel, args.model_parallel)
+    if workers > 1:
+        _spawn(args, workers)
+        return
+    mesh = _build_mesh(device, args.data_parallel)
+    try:
+        _train(args, ds_kwargs, mesh, device if mesh is None else mesh.device)
+    finally:
+        destroy_mesh(mesh)
+
+
+def _train(args: argparse.Namespace, ds_kwargs: dict, mesh, device) -> None:
+    if args.model_name == "classifier":
+        _train_classifier(args.dataset, args.checkpoints, args.batch_size, args.learning_rate,
+                          args.epochs, args.output_weights, compute_dtype=args.compute_dtype,
+                          optimizer=args.optimizer, momentum=args.momentum, ds_kwargs=ds_kwargs,
+                          device=device, mesh=mesh)
+    elif args.model_name == "gan":
         _train_gan(args.dataset, args.learning_rate, args.epochs, args.batch_size,
-                   args.data_parallel, args.output_weights, args.channel_base,
-                   args.channel_max, resume_from=args.resume_from,
-                   model_parallel=args.model_parallel, compute_dtype=args.compute_dtype,
+                   args.output_weights, args.channel_base, args.channel_max,
+                   resume_from=args.resume_from, compute_dtype=args.compute_dtype,
                    fid_detector_path=args.fid_detector_path, fid_every=args.fid_every,
                    fid_samples=args.fid_samples, mirror=args.mirror,
                    snapshot_every=args.snapshot_every, init_from=args.init_from,
                    ema_rampup=args.ema_rampup,
                    prefetch=0 if args.prefetch is None else args.prefetch,
-                   ds_kwargs=ds_kwargs, device=args.device,
+                   ds_kwargs=ds_kwargs, device=device, mesh=mesh,
                    **({"checkpoint_every": args.checkpoint_every}
                       if args.checkpoint_every is not None else {}))
-        return
-    if args.model_name != "viscoin":
-        raise ValueError(f"Unknown model name: {args.model_name}")
-    cadences = {k: getattr(args, k) for k in ("eval_every", "checkpoint_every",
-                                              "faithfulness_every")
-                if getattr(args, k) is not None}
-    _train_viscoin(args.dataset, args.learning_rate, args.epochs, args.batch_size,
-                   args.gradient_accumulation_steps, args.data_parallel, args.resume_from,
-                   args.profile_dir, args.fid_detector_path, model_parallel=args.model_parallel,
-                   compute_dtype=args.compute_dtype, ds_kwargs=ds_kwargs,
-                   prefetch=1 if args.prefetch is None else args.prefetch, device=args.device,
-                   **cadences)
+    else:
+        cadences = {k: getattr(args, k) for k in ("eval_every", "checkpoint_every",
+                                                  "faithfulness_every")
+                    if getattr(args, k) is not None}
+        _train_viscoin(args.dataset, args.learning_rate, args.epochs, args.batch_size,
+                       args.gradient_accumulation_steps, args.resume_from, args.profile_dir,
+                       args.fid_detector_path, compute_dtype=args.compute_dtype,
+                       ds_kwargs=ds_kwargs,
+                       prefetch=1 if args.prefetch is None else args.prefetch, device=device,
+                       mesh=mesh, **cadences)
 
 
 def _dataset_kwargs(dataset: str, image_size) -> dict:
@@ -182,44 +204,92 @@ def _dataset_kwargs(dataset: str, image_size) -> dict:
     return {"out_size": image_size}
 
 
-def _check_parallelism(device: torch.device, data_parallel: bool, model_parallel: int) -> None:
-    """One card (or the CPU) is all the port trains on."""
+def _spawned_workers(device: torch.device, data_parallel: bool, model_parallel: int) -> int:
+    """How many worker processes the command starts itself: one per visible
+    card with --data-parallel over several cards outside torchrun, else 0
+    (this process trains)."""
     if model_parallel > 1:
         raise NotImplementedError(f"--model-parallel {model_parallel} is not ported yet "
-                                  f"(ROADMAP.md, {DATA_PARALLEL})")
+                                  f"(ROADMAP.md, {MODEL_PARALLEL})")
     visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if data_parallel and visible > 1:
-        raise NotImplementedError(
-            f"--data-parallel over {visible} visible cards is not ported yet (ROADMAP.md, "
-            f"{DATA_PARALLEL}); make one card visible (CUDA_VISIBLE_DEVICES) or pass "
-            "--no-data-parallel")
+    if data_parallel and visible > 1 and "WORLD_SIZE" not in os.environ:
+        return visible
+    return 0
+
+
+def _build_mesh(device: torch.device, data_parallel: bool):
+    """The data-parallel mesh of this process: the torchrun group it was
+    started in (``WORLD_SIZE`` set, whatever the size), else None."""
+    from viscoin_tpu_torch.parallel.mesh import make_mesh
+
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    if not data_parallel:
+        raise ValueError(f"--no-data-parallel in a group of {os.environ['WORLD_SIZE']} "
+                         "processes (WORLD_SIZE is set): run one process, or drop the flag")
+    return make_mesh(device)
+
+
+def _spawn(args: argparse.Namespace, n: int) -> None:
+    """Run the command in ``n`` worker processes, one per visible card,
+    joined over 127.0.0.1 at a free port; returns when all have finished
+    and raises if one failed."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    options = {k: v for k, v in vars(args).items() if k not in ("func", "parser")}
+    print(f"--data-parallel: {n} visible cards, one worker process each (127.0.0.1:{port})",
+          flush=True)
+    mp.start_processes(_worker, args=(n, port, options), nprocs=n, join=True,
+                       start_method="spawn")
+
+
+def _worker(rank: int, world: int, port: int, options: dict) -> None:
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    train(argparse.Namespace(**options, parser=None))
 
 
 def _train_classifier(dataset: str, checkpoints, batch_size, learning_rate, epochs,
-                      output_weights, data_parallel=True, compute_dtype="bfloat16",
-                      optimizer=None, momentum=None, ds_kwargs=None, device="cuda"):
+                      output_weights, compute_dtype="bfloat16", optimizer=None, momentum=None,
+                      ds_kwargs=None, device="cuda", mesh=None):
     """The classifier stage: train, then save the best test accuracy's
     variables to ``output_weights`` (npz layout)."""
+    from viscoin_tpu_torch.parallel.mesh import is_main
     from viscoin_tpu_torch.train.classifiers import ClassifierTrainingParams, train_classifier
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.weights import load_jax_tree
 
     device = card_or_cpu("train classifier", device)
-    _check_parallelism(device, data_parallel, 1)
     params = ClassifierTrainingParams(epochs, learning_rate, batch_size,
                                       compute_dtype=compute_dtype, optimizer=optimizer,
                                       momentum=momentum)
-    configure_score_logging(f"classifier_{params.epochs}.jsonl")
-    train_loader, test_loader = get_dataloaders(dataset, params.batch_size, **(ds_kwargs or {}))
+    if is_main(mesh):
+        configure_score_logging(f"classifier_{params.epochs}.jsonl")
+    train_loader, test_loader = get_dataloaders(dataset, params.batch_size, **_sharded(
+        ds_kwargs, mesh))
     model = build_classifier(train_loader.dataset.N_CLASSES, device)
     if checkpoints is not None:
         load_jax_tree(model, ckpt.restore_pytree(checkpoints))
-    else:
+    elif is_main(mesh):
         print("NOTE: no --checkpoints given: random init (port pretrained torch weights with "
               "`python -m viscoin_tpu_torch port-weights classifier`).")
-    best, _ = train_classifier(model, train_loader, test_loader, params)
-    ckpt.save_pytree(best, output_weights)
-    ckpt.wait_for_saves()
+    best, _ = train_classifier(model, train_loader, test_loader, params, mesh=mesh)
+    if is_main(mesh):
+        ckpt.save_pytree(best, output_weights)
+    ckpt.wait_for_saves(mesh)
+
+
+def _sharded(ds_kwargs: dict | None, mesh) -> dict:
+    """``get_dataloaders`` options: with a mesh, this rank's shard of every
+    global batch, the test loader's ragged tail padded (and masked)."""
+    if mesh is None:
+        return dict(ds_kwargs or {})
+    return {**(ds_kwargs or {}), "shard": (mesh.rank, mesh.world)}
 
 
 def build_classifier(n_classes: int, device="cuda"):
@@ -272,25 +342,29 @@ def build_viscoin_modules(n_classes: int, size: int, device="cuda"):
 
 
 def _train_viscoin(dataset: str, learning_rate, epochs, batch_size, gradient_accumulation_steps,
-                   data_parallel, resume_from=None, profile_dir=None, fid_detector_path=None,
-                   model_parallel=1, compute_dtype="bfloat16", ds_kwargs=None, eval_every=2000,
+                   resume_from=None, profile_dir=None, fid_detector_path=None,
+                   compute_dtype="bfloat16", ds_kwargs=None, eval_every=2000,
                    checkpoint_every=20_000, faithfulness_every=25_000, prefetch=1,
-                   device="cuda"):
+                   device="cuda", mesh=None):
     from viscoin_tpu_torch.models.stylegan import adapted_state_from_gan
+    from viscoin_tpu_torch.parallel.mesh import is_main
     from viscoin_tpu_torch.train.viscoin import VisCoINTrainingParams, train_viscoin
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.weights import load_jax_tree
 
     device = card_or_cpu("train viscoin", device)
-    _check_parallelism(device, data_parallel, model_parallel)
 
     # Unset options fall back to the dataclass defaults, as the JAX command's do.
     params = VisCoINTrainingParams(**{k: v for k, v in dict(
         learning_rate=learning_rate, iterations=epochs, batch_size=batch_size,
         gradient_accumulation=gradient_accumulation_steps,
         compute_dtype=compute_dtype).items() if v is not None})
-    configure_score_logging(f"viscoin_{params.iterations}.jsonl")
-    train_loader, test_loader = get_dataloaders(dataset, params.batch_size, **(ds_kwargs or {}))
+    if mesh is not None:
+        mesh.local(params.batch_size)  # the global batch must divide over the ranks
+    if is_main(mesh):
+        configure_score_logging(f"viscoin_{params.iterations}.jsonl")
+    train_loader, test_loader = get_dataloaders(dataset, params.batch_size,
+                                                **_sharded(ds_kwargs, mesh))
     n_classes = train_loader.dataset.N_CLASSES
     size = train_loader.dataset.out_size
     models, generator, lpips = build_viscoin_modules(n_classes, size, device)
@@ -320,7 +394,7 @@ def _train_viscoin(dataset: str, learning_rate, epochs, batch_size, gradient_acc
         print(f"NOTE: no {DEFAULT_FID_DETECTOR}: in-training eval skips FID (port weights with "
               "`python -m viscoin_tpu_torch port-weights inception`, or pass --fid-detector).")
 
-    train_viscoin(models, generator, lpips, train_loader, test_loader, params,
+    train_viscoin(models, generator, lpips, train_loader, test_loader, params, mesh=mesh,
                   resume_from=resume_from, profile_dir=profile_dir, fid_detector=fid_detector,
                   eval_every=eval_every,
                   checkpoint_every=checkpoint_every, faithfulness_every=faithfulness_every,
@@ -349,11 +423,11 @@ def build_gan_modules(size: int, channel_base: int, channel_max: int, batch_size
 _FID_TAG, _SNAPSHOT_TAG = 0x7FFFFFFE, 0x7FFFFFFF
 
 
-def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, output_weights,
+def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
                channel_base=16384, channel_max=512, resume_from=None, checkpoint_every=10_000,
-               seed=0, model_parallel=1, compute_dtype="bfloat16", fid_detector_path=None,
+               seed=0, compute_dtype="bfloat16", fid_detector_path=None,
                fid_every=0, fid_samples=8192, mirror=True, snapshot_every=0, init_from=None,
-               ema_rampup=None, ds_kwargs=None, prefetch=0, device="cuda"):
+               ema_rampup=None, ds_kwargs=None, prefetch=0, device="cuda", mesh=None):
     """StyleGAN2 training (``epochs`` counts iterations): the metrics every
     100 iterations and the last to ``gan_<iterations>.jsonl``, the training
     state every ``checkpoint_every`` iterations (i > start) and at the end to
@@ -363,7 +437,10 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
     starts a fresh one. ``fid_every``: the FID of ``fid_samples`` EMA samples
     (batch j of the estimate at iteration i seeded ``fold_seed(fold_seed(seed,
     FID_TAG, i), j)``) against the first ``fid_samples`` training images in
-    order, every ``fid_every`` iterations (i > start) and at the last."""
+    order, every ``fid_every`` iterations (i > start) and at the last. With
+    a data-parallel ``mesh`` each rank loads and steps on its shard of every
+    global batch and samples its share of the FID fakes; rank 0 logs and
+    writes."""
     import json
 
     import numpy as np
@@ -371,6 +448,7 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
     from viscoin_tpu_torch.data.loader import DataLoader, DevicePrefetcher, loop_iter
     from viscoin_tpu_torch.data.utils import get_datasets
     from viscoin_tpu_torch.eval.viscoin import to_device
+    from viscoin_tpu_torch.parallel.mesh import broadcast_tree, is_main
     from viscoin_tpu_torch.train.gan import (
         GANTrainingParams,
         create_gan_train_state,
@@ -385,7 +463,6 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
     from viscoin_tpu_torch.utils.logging import get_logger
 
     device = card_or_cpu("train gan", device)
-    _check_parallelism(device, data_parallel, model_parallel)
     detector_path = fid_detector_path or DEFAULT_FID_DETECTOR
     if fid_every and not os.path.exists(detector_path):
         raise ValueError(f"--fid-every needs a FID detector; none at {detector_path} (port one "
@@ -398,15 +475,20 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
         iterations=epochs, learning_rate=learning_rate, batch_size=batch_size,
         compute_dtype=compute_dtype, mirror=mirror, ema_rampup=ema_rampup).items()
         if v is not None})
+    # The JAX command's multi-process rules: a batch that divides over the
+    # ranks, one loader shard per rank (the same global order everywhere).
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    local_bs = cfg.batch_size if mesh is None else mesh.local(cfg.batch_size)
     train_ds, _ = get_datasets(dataset, "gan", train_only=True, **(ds_kwargs or {}))
-    loader = DataLoader(train_ds, cfg.batch_size, shuffle=True)
+    loader = DataLoader(train_ds, cfg.batch_size, shuffle=True, shard=shard)
     if len(train_ds) < cfg.batch_size:
         raise ValueError(f"dataset has {len(train_ds)} samples < batch_size={cfg.batch_size}: "
                          "no full batch can ever be formed")
     size = train_ds.out_size
     generator, discriminator = build_gan_modules(size, channel_base, channel_max,
                                                  cfg.batch_size, device, seed)
-    configure_score_logging(f"gan_{cfg.iterations}.jsonl")
+    if is_main(mesh):
+        configure_score_logging(f"gan_{cfg.iterations}.jsonl")
     logger = get_logger()
     state = create_gan_train_state(generator, discriminator, cfg)
     if init_from:
@@ -415,7 +497,7 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
         warm_start_gan_state(state, ckpt.restore_pytree(init_from), d_params)
         print(f"warm start from {init_from} (generator"
               + (" + discriminator)" if d_params is not None else "; fresh discriminator)"))
-    step = make_gan_train_step(generator, discriminator, cfg)
+    step = make_gan_train_step(generator, discriminator, cfg, mesh)
     snapshot_fn = make_gan_snapshot_fn(16) if snapshot_every else None
     fid = None
     if fid_every:
@@ -427,23 +509,27 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
         )
 
         detector = _load_fid_detector(detector_path, device)
-        fake_images_fn, real_images_fn = make_gan_fid_fns(cfg.batch_size)
+        fake_images_fn, real_images_fn = make_gan_fid_fns(cfg.batch_size, mesh)
         stats_real = accumulate_real_fid_stats(detector, real_images_fn, train_ds,
-                                               cfg.batch_size, fid_samples, device=device)
+                                               cfg.batch_size, fid_samples, device=device,
+                                               mesh=mesh)
         print(f"FID every {fid_every} it: {stats_real.num_items} real samples accumulated, "
               f"{fid_samples} fakes per estimate")
 
         def fid(i: int) -> float:
             stats_fake = accumulate_fake_fid_stats(detector, fake_images_fn, state.g_ema,
-                                                   fold_seed(seed, _FID_TAG, i), fid_samples)
+                                                   fold_seed(seed, _FID_TAG, i), fid_samples,
+                                                   mesh=mesh)
             return fid_from_stats(stats_real, stats_fake)
 
     state_path = f"{output_weights}.train_state"
     resume_meta = {"batch_size": cfg.batch_size, "seed": seed, "augment": cfg.augment,
                    "compute_dtype": cfg.compute_dtype, "mirror": cfg.mirror,
                    "ema_rampup": cfg.ema_rampup}
-    if resume_from:
+    if resume_from:  # every rank reads the same state
         ckpt.restore_gan_train_state(state, resume_from, expect_meta=resume_meta)
+    if mesh is not None:  # every rank starts from rank 0's weights and moments
+        broadcast_tree(_gan_state_tensors(state), mesh)
     start = state.step
     if start:
         # Replay the position: only full batches become steps.
@@ -454,7 +540,7 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
 
     def next_images():
         images, _ = next(it)
-        while images.shape[0] != cfg.batch_size:
+        while images.shape[0] != local_bs:
             images, _ = next(it)
         return to_device(images, device)
 
@@ -463,31 +549,46 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, data_parallel, o
     try:
         for i in range(start, cfg.iterations):
             images = next_batch()
-            state, metrics = step(state, images, draw_step(cfg, generator, seed, i, device))
-            if i % 100 == 0 or i == cfg.iterations - 1:
+            state, metrics = step(state, images, draw_step(cfg, generator, seed, i, device, mesh))
+            if (i % 100 == 0 or i == cfg.iterations - 1) and is_main(mesh):
                 values = torch.stack([v.float().cpu() for v in metrics.values()]).double()
                 logger.info(json.dumps({"iteration": i, **{
                     k: float(v) for k, v in zip(metrics, values)}}))
             if fid is not None and ((i > start and i % fid_every == 0)
                                     or i == cfg.iterations - 1):
                 score = fid(i)
-                logger.info(json.dumps({"iteration": i, "fid": score}))
-                print(f"it {i}: fid={score:.3f} ({fid_samples} fakes)")
-            if snapshot_fn is not None and (i % snapshot_every == 0 or i == cfg.iterations - 1):
+                if is_main(mesh):
+                    logger.info(json.dumps({"iteration": i, "fid": score}))
+                    print(f"it {i}: fid={score:.3f} ({fid_samples} fakes)")
+            if snapshot_fn is not None and is_main(mesh) and (
+                    i % snapshot_every == 0 or i == cfg.iterations - 1):
                 from PIL import Image
 
                 u8 = snapshot_fn(state.g_ema, fold_seed(seed, _SNAPSHOT_TAG)).cpu().numpy()
                 n, h, w, c = u8.shape  # 16 -> a 4x4 grid
                 grid = u8.reshape(4, 4, h, w, c).transpose(0, 2, 1, 3, 4).reshape(4 * h, 4 * w, c)
                 Image.fromarray(np.ascontiguousarray(grid)).save(f"fakes_{i:06d}.png")
-            if checkpoint_every and i > start and i % checkpoint_every == 0:
+            if checkpoint_every and i > start and i % checkpoint_every == 0 and is_main(mesh):
                 ckpt.save_gan_train_state(state, state_path, meta=resume_meta, async_save=True)
     finally:
         if prefetcher is not None:
             prefetcher.close()
         it.close()
-    ckpt.wait_for_saves()
-    ckpt.save_gan_train_state(state, state_path, meta=resume_meta)
-    ckpt.save_pytree(export_generator_vars(state), output_weights)
-    print(f"saved EMA generator variables to {output_weights} (+ resumable train state at "
-          f"{state_path})")
+    if is_main(mesh):
+        ckpt.wait_for_saves()
+        ckpt.save_gan_train_state(state, state_path, meta=resume_meta)
+        ckpt.save_pytree(export_generator_vars(state), output_weights)
+        print(f"saved EMA generator variables to {output_weights} (+ resumable train state at "
+              f"{state_path})")
+    ckpt.wait_for_saves(mesh)
+
+
+def _gan_state_tensors(state) -> list[torch.Tensor]:
+    """G, D and the EMA (parameters and buffers), both Adams' moments,
+    w_avg, pl_mean and r_t, in an order every rank shares."""
+    out = [t for m in (state.generator, state.discriminator, state.g_ema)
+           for t in (*m.parameters(), *m.buffers())]
+    for opt in (state.g_opt, state.d_opt):
+        for p in (p for group in opt.param_groups for p in group["params"]):
+            out += [v for k, v in opt.state.get(p, {}).items() if k != "step"]
+    return out + [state.w_avg, state.pl_mean, state.ada_rt]

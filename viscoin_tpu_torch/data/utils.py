@@ -85,7 +85,11 @@ def get_datasets(name: str, transform: Literal["train", "test", "gan"] | None = 
 
 def get_dataloaders(name: str, batch_size: int,
                     transform: Literal["train", "test", "gan"] | None = None,
-                    shuffle: bool = True, **kwargs):
+                    shuffle: bool = True, shard: tuple[int, int] = (0, 1), **kwargs):
+    """(train, test) loaders of ``batch_size``; ``shard=(rank, world)``
+    makes them yield a data-parallel rank's slice of every global batch,
+    the test loader's ragged last batch padded (its padding masked) rather
+    than dropped."""
     train, test = get_datasets(name, transform, **kwargs)
-    return DataLoader(train, batch_size, shuffle=shuffle), DataLoader(test, batch_size,
-                                                                      shuffle=shuffle)
+    return (DataLoader(train, batch_size, shuffle=shuffle, shard=shard),
+            DataLoader(test, batch_size, shuffle=shuffle, shard=shard, pad_final=shard[1] > 1))

@@ -19,6 +19,11 @@ Counterpart of ``viscoin_tpu/eval/viscoin.py``:
 Every generator pass uses ``noise_mode="const"``. The functions run on the
 device and in the dtype of the bundle's parameters, under ``no_grad``, and
 return numpy; images come back in the JAX package's HWC layout.
+
+With a data-parallel ``mesh`` (``parallel/mesh.py``) every rank runs its
+shard of each global batch: the metric sums are all-reduced and the FID
+features gathered, padding rows masked, so every rank returns the numbers
+of one process over the whole loader.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from viscoin_tpu_torch.data.transforms import device_preprocess
 from viscoin_tpu_torch.eval.fid import FeatureStats, fid_from_stats
 from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
+from viscoin_tpu_torch.parallel.mesh import all_gather_batch, all_sum
 from viscoin_tpu_torch.utils.types import TestingResults
 
 
@@ -65,12 +71,6 @@ def _placement(models: torch.nn.Module) -> tuple[torch.device, torch.dtype]:
     return p.device, p.dtype
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("evaluation over a device mesh is not ported yet "
-                                  "(ROADMAP.md, queue 1: data parallelism)")
-
-
 def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``; on a CUDA device through pinned memory."""
     t = torch.from_numpy(np.ascontiguousarray(array))
@@ -93,8 +93,8 @@ def make_test_step(models: VisCoINModels, lpips_module, mesh=None):
     float) -> (sums, rebuilt, x)``, tensors on the bundle's device: ``sums``
     maps :data:`METRIC_KEYS` to 0-d fp32 tensors (per-sample values times
     ``valid``, summed), ``rebuilt`` the reconstruction and ``x`` the
-    preprocessed batch (fp32 NCHW)."""
-    _no_mesh(mesh)
+    preprocessed batch (fp32 NCHW). With a ``mesh`` the batch is this rank's
+    shard and the sums are the global batch's (one all-reduce)."""
 
     @torch.no_grad()
     def step(images_u8, labels, valid):
@@ -130,6 +130,8 @@ def make_test_step(models: VisCoINModels, lpips_module, mesh=None):
             "correct_expl_preds": ((preds_expl == labels) * valid).sum(),
             "n_valid": valid.sum(),
         }
+        if mesh is not None:
+            out = dict(zip(out, all_sum(torch.stack([v.float() for v in out.values()]), mesh)))
         return out, rebuilt, x
 
     return step
@@ -139,35 +141,57 @@ def _host(t) -> np.ndarray:
     return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _gathered(rows, mesh) -> np.ndarray:
+    """Host fp32 rows (a tensor or an array) of this rank, with a ``mesh``
+    those of the whole global batch in rank order."""
+    if mesh is None:
+        return _host(rows)
+    return _host(all_gather_batch(torch.as_tensor(rows, device=mesh.device).float(), mesh))
+
+
 def test_viscoin(models: VisCoINModels, lpips_module, dataloader, compute_fid: bool = False,
                  fid_detector=None, verbose: bool = True, mesh=None,
                  step=None) -> TestingResults:
     """The ensemble's metrics over a test loader: losses averaged over the
     valid samples, prediction statistics in percent. ``step``: a prebuilt
     :func:`make_test_step` (the training loop builds it once).
-    ``fid_detector``: a callable (float NCHW images) -> (B, D) features."""
+    ``fid_detector``: a callable (float NCHW images) -> (B, D) features.
+
+    ``mesh``: every rank passes its loader shard (``DataLoader(shard=(rank,
+    world))``, with ``pad_final`` when the last global batch is ragged);
+    the sums are reduced over the ranks and the FID features of each global
+    batch gathered in rank order (B x D floats, where the JAX package
+    reduces D x D moments), so every rank holds the one-process statistics."""
     del verbose
-    _no_mesh(mesh)
-    if getattr(dataloader, "shard", (0, 1))[1] != 1:
-        raise NotImplementedError("a sharded test loader needs the multi-process eval, which "
-                                  "is not ported yet (ROADMAP.md, queue 1: data parallelism)")
+    world = 1 if mesh is None else mesh.world
+    if getattr(dataloader, "shard", (0, 1))[1] != world:
+        raise ValueError(f"test loader shard world {getattr(dataloader, 'shard', (0, 1))[1]} "
+                         f"!= {world}: over a mesh every rank passes its DataLoader(shard=(rank, "
+                         "world)), without one an unsharded loader")
+    if (world > 1 and not getattr(dataloader, "pad_final", False)
+            and len(dataloader.dataset) % dataloader.batch_size):
+        # A sharded loader without pad_final drops the ragged tail: the
+        # metrics would leave those samples out.
+        raise ValueError(f"a sharded test loader needs DataLoader(pad_final=True): the dataset's "
+                         f"{len(dataloader.dataset)} samples leave a ragged last batch")
     if step is None:
-        step = make_test_step(models, lpips_module)
+        step = make_test_step(models, lpips_module, mesh)
     device, _ = _placement(models)
     use_fid = compute_fid and fid_detector is not None
+    local_bs = dataloader.batch_size // world
     sums = np.zeros(len(METRIC_KEYS))
     stats_real, stats_fake = FeatureStats(), FeatureStats()
     for images, labels in dataloader:
-        images, labels, valid = pad_batch(dataloader.batch_size, images, labels)
-        n = int(valid.sum())  # the padding is a suffix of the batch
+        images, labels, valid = pad_batch(local_bs, images, labels)
+        valid_t = to_device(valid, device)
         metrics, rebuilt, x = step(to_device(images, device),
-                                   to_device(labels.astype(np.int64), device),
-                                   to_device(valid, device))
+                                   to_device(labels.astype(np.int64), device), valid_t)
         # One device-to-host transfer for all the sums of the batch.
         sums += torch.stack([metrics[k] for k in METRIC_KEYS]).double().cpu().numpy()
         if use_fid:
-            stats_fake.append(_host(fid_detector(rebuilt))[:n])
-            stats_real.append(_host(fid_detector(x))[:n])
+            keep = _gathered(valid_t, mesh) > 0
+            stats_fake.append(_gathered(fid_detector(rebuilt), mesh)[keep])
+            stats_real.append(_gathered(fid_detector(x), mesh)[keep])
     total = dict(zip(METRIC_KEYS, sums.tolist()))
     n_total = max(total["n_valid"], 1.0)
     results = TestingResults(
@@ -303,19 +327,22 @@ def make_faithfulness_fn(models: VisCoINModels, mesh=None):
         rebuilt = G(Phi, Phi', const noise) -> f -> Psi -> Theta -> softmax
 
     Returns ``probe(images_u8 (B, H, W, 3) uint8 on the device) -> (B,)``,
-    the probability of concept_pred on the reconstruction."""
-    _no_mesh(mesh)
+    the probability of concept_pred on the reconstruction. With a ``mesh``
+    every rank passes the same B images, scores its B / world of them and
+    returns all B, gathered in order."""
 
     @torch.no_grad()
     def probe(images_u8: torch.Tensor) -> torch.Tensor:
         _, dtype = _placement(models)
+        if mesh is not None:
+            images_u8 = images_u8[mesh.rows(mesh.local(images_u8.shape[0]))]
         x = device_preprocess(images_u8).to(dtype)
         phi, phi_prime, logits = _encode(models, x)
         concept_pred = logits.float().argmax(1)
         rebuilt = models.gan(phi, phi_prime, noise_mode="const")
         _, _, logits2 = _encode(models, rebuilt)
         probas = F.softmax(logits2.float(), dim=1)
-        return probas.gather(1, concept_pred[:, None])[:, 0]
+        return all_gather_batch(probas.gather(1, concept_pred[:, None])[:, 0], mesh)
 
     return probe
 

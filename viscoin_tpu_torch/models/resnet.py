@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from viscoin_tpu_torch.parallel.mesh import all_mean
+
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Normal with variance 1 / fan_in (fan_in = product of the dims after 0)."""
@@ -50,27 +52,31 @@ class ConvBN(nn.Module):
         lecun_normal_(self.conv.weight, generator)
         self.bn.reset_parameters()
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
         x = self.conv(x)
         bn = self.bn
         if train:
-            x = self._batch_norm_train(x)
+            x = self._batch_norm_train(x, mesh)
         else:
             mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
             shift = bn.bias.float() - bn.running_mean.float() * mul
             x = x * mul.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
         return torch.relu(x) if self.act else x
 
-    def _batch_norm_train(self, x: torch.Tensor) -> torch.Tensor:
+    def _batch_norm_train(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         """flax's train-mode BatchNorm: the batch's mean and biased variance
         in at least fp32, the variance as E[x²] - E[x]² clipped at 0 (flax's
         fast variance, which the gradients differentiate too), y = (x - mean)
         * rsqrt(var + eps) * scale + bias in that precision, cast back to x's
-        dtype; the running statistics move towards the batch's."""
+        dtype; the running statistics move towards the batch's. With a
+        data-parallel ``mesh`` E[x] and E[x²] are the global batch's (one
+        differentiable all-reduce of the equal ranks' means), as under the
+        JAX package's GSPMD, so the running statistics agree on every rank."""
         bn = self.bn
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        moments = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+        mean, meansq = all_mean(moments, mesh)
+        var = (meansq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
@@ -92,10 +98,10 @@ class Bottleneck(nn.Module):
         self.shortcut = (ConvBN(in_channels, out_channels, 1, stride, act=False, device=device)
                          if in_channels != out_channels or stride != 1 else None)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.conv3(self.conv2(self.conv1(x, train), train), train)
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
+        y = self.conv3(self.conv2(self.conv1(x, train, mesh), train, mesh), train, mesh)
         if self.shortcut is not None:
-            x = self.shortcut(x, train)
+            x = self.shortcut(x, train, mesh)
         return torch.relu(y + x)
 
 
@@ -119,13 +125,13 @@ class ResNetBackbone(nn.Module):
                 ch = out
             self.stages.append(names)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        x = self.embedder(x, train)
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None):
+        x = self.embedder(x, train, mesh)
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
         hidden = [x]
         for names in self.stages:
             for name in names:
-                x = getattr(self, name)(x, train)
+                x = getattr(self, name)(x, train, mesh)
             hidden.append(x)
         return x.mean(dim=(2, 3)), tuple(hidden)
 
@@ -150,8 +156,9 @@ class Classifier(nn.Module):
                                    generator=generator)
         self.linear.bias.zero_()
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None):
         """``train``: BatchNorm on the batch's statistics, which it folds into
-        the running ones (the JAX module's ``train=True``)."""
-        pooled, hidden = self.resnet(x, train)
+        the running ones (the JAX module's ``train=True``); with a
+        data-parallel ``mesh``, on the global batch's."""
+        pooled, hidden = self.resnet(x, train, mesh)
         return self.linear(pooled), hidden

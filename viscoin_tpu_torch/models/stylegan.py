@@ -36,6 +36,7 @@ from viscoin_tpu_torch.ops import (
     upsample2d,
 )
 from viscoin_tpu_torch.ops.bias_act import activation_funcs
+from viscoin_tpu_torch.parallel.mesh import all_gather_batch
 
 RESAMPLE_FILTER = (1.0, 3.0, 3.0, 1.0)
 
@@ -441,17 +442,25 @@ class MinibatchStdLayer(nn.Module):
         super().__init__()
         self.group_size, self.num_channels = group_size, num_channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C, H, W = x.shape
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """With a data-parallel ``mesh`` the groups are those of the global
+        batch, as the JAX layer's under GSPMD: a group spans ranks, so the
+        statistic is taken over the gathered batch (differentiably) and each
+        rank keeps its own rows."""
+        b, C, H, W = x.shape
+        xg = all_gather_batch(x.float(), mesh)
+        B = xg.shape[0]
         G = min(self.group_size, B)
         G = B // (B // G) if B % G == 0 else 1
         F_ = self.num_channels
-        y = x.reshape(G, B // G, F_, C // F_, H, W).float()
+        y = xg.reshape(G, B // G, F_, C // F_, H, W)
         y = y - y.mean(dim=0, keepdim=True)
         y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
         y = y.mean(dim=(2, 3, 4))  # (B // G, F)
         y = y.repeat(G, 1).to(x.dtype)  # (B, F): sample s takes y[s % (B // G)]
-        return torch.cat([x, y[:, :, None, None].expand(B, F_, H, W)], dim=1)
+        if mesh is not None:
+            y = y[mesh.rows(b)]
+        return torch.cat([x, y[:, :, None, None].expand(b, F_, H, W)], dim=1)
 
 
 class DiscriminatorBlock(nn.Module):
@@ -516,11 +525,13 @@ class Discriminator(nn.Module):
     def channels(self, res: int) -> int:
         return min(self.channel_base // res, self.channel_max)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, mesh=None) -> torch.Tensor:
+        """``mesh``: the data-parallel mesh whose global batch the
+        minibatch stddev groups span (None: this batch alone)."""
         x = None
         for i, res in enumerate(self.resolutions):
             x = getattr(self, f"b{res}")(x, img if i == 0 else None)
-        x = self.conv(self.mbstd(x))
+        x = self.conv(self.mbstd(x, mesh))
         # JAX flattens NHWC: the fc's input runs over (h, w, c).
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.out(self.fc(x))

@@ -11,11 +11,15 @@ variants as one device batch.
 
 The engine runs on ``device`` ("cuda" by default) and raises at
 construction when that device is a CUDA device and none is present; it
-never carries on on the CPU unless asked for ``device="cpu"``.
+never carries on on the CPU unless asked for ``device="cpu"``. With
+``devices`` (data parallelism, as the JAX engine's mesh) it keeps one
+replica per device, splits each padded device batch into equal parts, one
+per replica, and concatenates the outputs; ``amplify`` stays on the first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import numpy as np
@@ -25,19 +29,10 @@ from viscoin_tpu_torch.data.transforms import denormalize, device_preprocess, ho
 from viscoin_tpu_torch.eval.viscoin import amplify_concepts, make_amplify_fns
 from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
+from viscoin_tpu_torch.parallel.mesh import pad_to_multiple
 from viscoin_tpu_torch.utils.gradcam import psi_gradcams
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def pad_to_multiple(batch: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
-    """Pad the leading dim up to a multiple by repeating the first row;
-    returns (padded, real_count)."""
-    n = batch.shape[0]
-    rem = (-n) % multiple
-    if rem == 0:
-        return batch, n
-    return np.concatenate([batch, np.repeat(batch[:1], rem, axis=0)], axis=0), n
 
 
 def prepare_image(img_u8: np.ndarray, resolution: int) -> np.ndarray:
@@ -77,22 +72,33 @@ class InferenceEngine:
         compute_dtype: "float32" or "bfloat16". Logits, probabilities and
             concept activations always come out fp32.
         device: "cuda" (default) or "cpu".
+        devices: data parallelism: one replica on each of these devices
+            (``device`` is then the first); each device batch splits into
+            equal parts over them, so ``batch_size`` must divide by their
+            count, as the JAX engine's by its mesh.
     """
 
     def __init__(self, models: VisCoINModels, batch_size: int = 8,
-                 compute_dtype: str = "float32", device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 compute_dtype: str = "float32", device="cuda", devices=None):
+        devices = [torch.device(d) for d in (devices or [device])]
+        if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
             raise RuntimeError("InferenceEngine(device='cuda'): no CUDA device is available; "
                                "pass device='cpu' to run the plain versions on the CPU")
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}")
         self.batch_size = int(batch_size)
+        if self.batch_size % len(devices):
+            raise ValueError(f"batch_size {self.batch_size} must divide by the {len(devices)} "
+                             "devices")
+        self.device = devices[0]
         self.compute_dtype = compute_dtype
         self.dtype = COMPUTE_DTYPES[compute_dtype]
         self.resolution = models.gan.img_resolution
-        self.models = copy.deepcopy(models).to(device=self.device, dtype=self.dtype)
-        self.models.eval().requires_grad_(False)
+        self.replicas = []
+        for d in devices:
+            replica = copy.deepcopy(models).to(device=d, dtype=self.dtype)
+            self.replicas.append((d, replica.eval().requires_grad_(False)))
+        self.models = self.replicas[0][1]
         self._amplify_fns = make_amplify_fns(self.models)
 
     def prepare_image(self, img_u8: np.ndarray) -> np.ndarray:
@@ -100,68 +106,78 @@ class InferenceEngine:
 
     # ------------------------------ device side ----------------------------- #
 
-    def _encode(self, chunk: np.ndarray):
-        images = torch.from_numpy(chunk).to(self.device)
+    def _split(self, fn, chunk: np.ndarray) -> dict:
+        """``fn(models, device, part) -> {name: tensor}`` on every replica's
+        equal part of the device batch, each under its device (the kernels
+        launch on the current one); every part is issued before any is read
+        back, then the outputs are concatenated in order."""
+        parts = np.split(chunk, len(self.replicas))
+        outs = []
+        for (device, models), part in zip(self.replicas, parts):
+            ctx = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+            with ctx:
+                outs.append(fn(models, device, part))
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs]) for k in outs[0]}
+
+    def _encode(self, models, device, chunk: np.ndarray):
+        images = torch.from_numpy(chunk).to(device)
         x = device_preprocess(images).to(self.dtype)
-        m = self.models
-        logits, hidden = m.classify(x)
-        phi, phi_prime = m.extract_concepts(hidden)
-        return logits.float(), phi, phi_prime, m.explain(phi).float()
+        logits, hidden = models.classify(x)
+        phi, phi_prime = models.extract_concepts(hidden)
+        return logits.float(), phi, phi_prime, models.explain(phi).float()
 
     @torch.inference_mode()
-    def _classify(self, chunk: np.ndarray) -> dict:
-        logits, phi, _, expl_logits = self._encode(chunk)
-        out = {
+    def _classify(self, models, device, chunk: np.ndarray) -> dict:
+        logits, phi, _, expl_logits = self._encode(models, device, chunk)
+        return {
             "logits": logits,
             "probas": torch.softmax(logits, dim=-1),
             "expl_logits": expl_logits,
             "expl_probas": torch.softmax(expl_logits, dim=-1),
             "concepts": max_pool_concepts(phi).float(),
         }
-        return {k: v.cpu().numpy() for k, v in out.items()}
 
     @torch.inference_mode()
-    def _reconstruct(self, chunk: np.ndarray) -> dict:
-        logits, phi, phi_prime, expl_logits = self._encode(chunk)
-        recon = self.models.reconstruct(phi, phi_prime, noise_mode="const")
+    def _reconstruct(self, models, device, chunk: np.ndarray) -> dict:
+        logits, phi, phi_prime, expl_logits = self._encode(models, device, chunk)
+        recon = models.reconstruct(phi, phi_prime, noise_mode="const")
         # The generator reconstructs in ImageNet-normalized space; invert to
         # display range and quantize on the device (3 bytes/px to the host).
         img01 = denormalize(recon.float()).clamp(0.0, 1.0)
         recon_u8 = torch.round(img01 * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
-        out = {"reconstruction_u8": recon_u8, "preds": logits.argmax(dim=-1),
-               "expl_preds": expl_logits.argmax(dim=-1)}
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return {"reconstruction_u8": recon_u8, "preds": logits.argmax(dim=-1),
+                "expl_preds": expl_logits.argmax(dim=-1)}
 
-    def _explain(self, chunk: np.ndarray) -> dict:
+    def _explain(self, models, device, chunk: np.ndarray) -> dict:
         # Not under inference mode: the backward needs autograd. The
         # classifier runs without a graph; only the taps require a gradient.
-        images = torch.from_numpy(chunk).to(self.device)
+        images = torch.from_numpy(chunk).to(device)
         x = device_preprocess(images).to(self.dtype)
         with torch.no_grad():
-            logits, hidden = self.models.classify(x)
-        heatmaps, phi, expl_logits = psi_gradcams(self.models, hidden[-3:])
+            logits, hidden = models.classify(x)
+        heatmaps, phi, expl_logits = psi_gradcams(models, hidden[-3:])
         logits = logits.float()
-        out = {"logits": logits, "expl_logits": expl_logits, "preds": logits.argmax(dim=-1),
-               "expl_preds": expl_logits.argmax(dim=-1),
-               "concepts": max_pool_concepts(phi).float(),
-               **{f"heatmap_{name}": m for name, m in heatmaps.items()}}
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return {"logits": logits, "expl_logits": expl_logits, "preds": logits.argmax(dim=-1),
+                "expl_preds": expl_logits.argmax(dim=-1),
+                "concepts": max_pool_concepts(phi).float(),
+                **{f"heatmap_{name}": m for name, m in heatmaps.items()}}
 
     # ------------------------------- endpoints ------------------------------ #
 
     def classify(self, images_u8: np.ndarray) -> dict:
         """u8 batch -> classifier and explainer logits/probas, pooled concepts."""
-        return run_padded(self._classify, images_u8, self.batch_size)
+        return run_padded(lambda c: self._split(self._classify, c), images_u8, self.batch_size)
 
     def reconstruct(self, images_u8: np.ndarray) -> dict:
         """u8 batch -> u8 reconstructions G(Psi(f(x))) and both predictions."""
-        return run_padded(self._reconstruct, images_u8, self.batch_size)
+        return run_padded(lambda c: self._split(self._reconstruct, c), images_u8,
+                          self.batch_size)
 
     def explain(self, images_u8: np.ndarray) -> dict:
         """u8 batch -> GradCAM heatmaps of Psi's conv1..conv5 (``heatmap_conv1``
         ... (B, h, w) fp32) for the explainer's cross-entropy at its own
         prediction, both predictions, the logits and pooled concepts."""
-        return run_padded(self._explain, images_u8, self.batch_size)
+        return run_padded(lambda c: self._split(self._explain, c), images_u8, self.batch_size)
 
     def amplify(self, image_u8: np.ndarray, selection, multipliers, seed: int = 0):
         """One image's concept amplification: every variant (2 x len(multipliers)

@@ -70,6 +70,11 @@ class AugmentDraws:
     sat_do: torch.Tensor
     sat: torch.Tensor            # normal
 
+    def rows(self, index: slice) -> "AugmentDraws":
+        """The draws of the images ``index`` selects (a rank's rows of the
+        global batch's draws)."""
+        return AugmentDraws(**{f.name: getattr(self, f.name)[index] for f in fields(self)})
+
     @classmethod
     def from_arrays(cls, arrays: dict) -> "AugmentDraws":
         """From a dict of array-likes keyed by field name (fp32; ``r90_k``

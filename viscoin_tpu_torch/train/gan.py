@@ -27,8 +27,16 @@ What differs from JAX, by design:
 
 The in-loop FID (``make_gan_fid_fns``, ``accumulate_*_fid_stats``) samples
 the EMA generator with latents and synthesis noise from generators seeded
-per batch, as the draws of a step are. A device mesh for data parallelism
-waits (ROADMAP.md, queue 1: data parallelism).
+per batch, as the draws of a step are.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): one process per card,
+each on its slice of the global batch. The G and D gradients are averaged
+over the ranks (one collective each per step); the minibatch stddev groups
+span the ranks as under the JAX package's GSPMD; the path-length mean is
+the global one, differentiably (``all_mean``); ADA's r_t and ``w_avg``'s
+batch mean are global means; each rank's draws are its rows of the global
+batch's, and its synthesis noise its own. The FID samples are sharded and
+the features gathered.
 """
 
 from __future__ import annotations
@@ -43,8 +51,9 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from viscoin_tpu_torch.models.stylegan import num_ws_for_resolution
+from viscoin_tpu_torch.parallel.mesh import Mesh, all_gather_batch, all_mean, all_reduce_grads
 from viscoin_tpu_torch.train.augment import AugmentDraws, ada_update, augment, draw_augment
-from viscoin_tpu_torch.train.viscoin import fold_seed, make_cast
+from viscoin_tpu_torch.train.viscoin import fold_seed, make_cast, rank_seed
 
 _NOISE_TAGS = {"g": 1, "d": 2, "ppl": 3}  # synthesis noise generators of a step's phases
 _DEVICE_TAG = 0x44455643  # "DEVC": the device generator of a step's tensors
@@ -208,14 +217,15 @@ def make_gan_snapshot_fn(n_images: int):
 # --------------------------------- FID -------------------------------------- #
 
 
-def make_gan_fid_fns(batch_size: int):
+def make_gan_fid_fns(batch_size: int, mesh: Mesh | None = None):
     """The in-loop FID's two image sources, both ImageNet-normalized float
     NCHW, the domain the detectors take (``models/inception.py``):
     ``fake_images(g_ema, seed)`` samples ``batch_size`` images of the EMA
     generator (z and random synthesis noise from one generator seeded
     ``seed``, no truncation; a test may pass the latents ``z``),
     ``real_images(images_u8)`` converts a loader batch on its device. Both
-    go through the same [0, 1] -> ImageNet normalization."""
+    go through the same [0, 1] -> ImageNet normalization. With a ``mesh``
+    a rank samples its rows of the batch's latents, with noise of its own."""
     from viscoin_tpu_torch.data.transforms import device_preprocess, normalize_only
 
     @torch.no_grad()
@@ -224,6 +234,9 @@ def make_gan_fid_fns(batch_size: int):
         gen = torch.Generator(device=device).manual_seed(int(seed))
         if z is None:
             z = torch.randn((batch_size, g_ema.z_dim), device=device, generator=gen)
+        if mesh is not None:
+            z = z[mesh.rows(mesh.local(batch_size))]
+            gen = torch.Generator(device=device).manual_seed(rank_seed(int(seed), mesh))
         img = g_ema(z, noise_mode="random", generator=gen)
         return normalize_only(((img.float() + 1.0) * 0.5).clamp(0.0, 1.0))
 
@@ -234,40 +247,50 @@ def make_gan_fid_fns(batch_size: int):
     return fake_images, real_images
 
 
-def _features(detector, images: torch.Tensor) -> np.ndarray:
-    return detector(images).detach().double().cpu().numpy()
+def _features(detector, images: torch.Tensor, mesh: Mesh | None = None) -> np.ndarray:
+    """The detector's features of ``images``, with a ``mesh`` those of the
+    global batch (every rank's rows, gathered in rank order)."""
+    features = detector(images).detach()
+    if mesh is not None:
+        features = all_gather_batch(features.float(), mesh)
+    return features.double().cpu().numpy()
 
 
 def accumulate_real_fid_stats(detector, real_images_fn, dataset, batch_size: int,
-                              max_items: int, capture_all: bool = False, device="cuda"):
+                              max_items: int, capture_all: bool = False, device="cuda",
+                              mesh: Mesh | None = None):
     """The real side's FID moments: one pass in order over ``dataset``
     through ``real_images_fn`` and ``detector``, stopped at ``max_items``;
-    a partial last batch is skipped, as in the JAX package."""
+    a partial last batch is skipped, as in the JAX package. With a ``mesh``
+    each rank runs its shard of every batch."""
     from viscoin_tpu_torch.data.loader import DataLoader
     from viscoin_tpu_torch.eval.fid import FeatureStats
 
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    rows = batch_size // shard[1]
     stats = FeatureStats(max_items=max_items, capture_all=capture_all)
-    for images, _ in DataLoader(dataset, batch_size, shuffle=False):
-        if images.shape[0] != batch_size:
+    for images, _ in DataLoader(dataset, batch_size, shuffle=False, shard=shard):
+        if images.shape[0] != rows:
             continue
         batch = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-        stats.append(_features(detector, real_images_fn(batch)))
+        stats.append(_features(detector, real_images_fn(batch), mesh))
         if stats.num_items >= max_items:
             break
     return stats
 
 
 def accumulate_fake_fid_stats(detector, fake_images_fn, g_ema, base_seed: int, max_items: int,
-                              capture_all: bool = False):
+                              capture_all: bool = False, mesh: Mesh | None = None):
     """The fake side's FID moments: batch j sampled by ``fake_images_fn``
     with the seed ``fold_seed(base_seed, j)``, until ``max_items`` (the last
-    batch's overshoot is cut)."""
+    batch's overshoot is cut). With a ``mesh`` each rank samples its rows of
+    every batch (``make_gan_fid_fns(mesh=)``)."""
     from viscoin_tpu_torch.eval.fid import FeatureStats
 
     stats = FeatureStats(max_items=max_items, capture_all=capture_all)
     j = 0
     while stats.num_items < max_items:
-        stats.append(_features(detector, fake_images_fn(g_ema, fold_seed(base_seed, j))))
+        stats.append(_features(detector, fake_images_fn(g_ema, fold_seed(base_seed, j)), mesh))
         j += 1
     return stats
 
@@ -305,11 +328,29 @@ class GANStepDraws:
                  for k, v in self.__dict__.items()}
         return GANStepDraws(**moved)
 
+    def shard(self, mesh: Mesh) -> "GANStepDraws":
+        """A rank's draws: its rows of the global batch's per-image draws
+        (the style-mixing cutoffs are the batch's), and synthesis noise
+        seeds of its own."""
+        rows = mesh.rows(mesh.local(self.z.shape[0]))
+        out = {}
+        for k, v in self.__dict__.items():
+            if isinstance(v, torch.Tensor):
+                v = v[rows]
+            elif isinstance(v, AugmentDraws):
+                v = v.rows(rows)
+            out[k] = v
+        out["noise_seeds"] = {k: rank_seed(v, mesh) for k, v in self.noise_seeds.items()}
+        return GANStepDraws(**out)
 
-def draw_step(cfg: GANTrainingParams, generator, seed: int, step: int, device) -> GANStepDraws:
+
+def draw_step(cfg: GANTrainingParams, generator, seed: int, step: int, device,
+              mesh: Mesh | None = None) -> GANStepDraws:
     """Step ``step``'s random numbers, a pure function of (seed, step):
     host draws from a CPU generator seeded ``fold_seed(seed, step)``, device
-    draws from one seeded ``fold_seed(seed, step, DEVICE_TAG)``."""
+    draws from one seeded ``fold_seed(seed, step, DEVICE_TAG)``. With a
+    ``mesh`` every rank draws the global batch's and keeps its own
+    (:meth:`GANStepDraws.shard`)."""
     B, z_dim = cfg.batch_size, generator.z_dim
     num_ws = num_ws_for_resolution(generator.img_resolution)
     host = torch.Generator().manual_seed(fold_seed(seed, step))
@@ -335,7 +376,7 @@ def draw_step(cfg: GANTrainingParams, generator, seed: int, step: int, device) -
         draws.zp = latents()
         draws.pl_y = torch.randn((B, generator.synthesis.img_channels, res, res),
                                  device=device, generator=dev)
-    return draws
+    return draws if mesh is None else draws.shard(mesh)
 
 
 # ------------------------------ the losses ---------------------------------- #
@@ -346,11 +387,13 @@ def _sub(params: dict, prefix: str) -> dict:
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
 
-def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams):
+def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Mesh | None = None):
     """The step's loss functions, factored out (as in JAX) so that tests can
     differentiate exactly what the step differentiates. Parameters are
     passed as {name: tensor} dicts of the modules' parameters (the fp32
-    masters; they are cast to the compute dtype inside).
+    masters; they are cast to the compute dtype inside). With a ``mesh`` the
+    batch statistics (mbstd, the path-length mean, r_t, the mean w) are the
+    global batch's; the losses stay this rank's means.
 
     Returns a dict with ``g_loss_fn``, ``d_loss_fn``, ``ppl_penalty`` and
     the compute dtype ``dt``."""
@@ -377,7 +420,7 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams):
         """D with the ADA pipe in front (both real and fake batches)."""
         if use_aug:
             images = augment(images, aug_p, draws)
-        return functional_call(discriminator, d_params, (images,))
+        return functional_call(discriminator, d_params, (images,), {"mesh": mesh})
 
     def mixed_ws(g_params, z, z_mix, cutoff: int):
         """Style mixing: layers >= cutoff take the second latent's styles.
@@ -394,7 +437,7 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams):
         fake = synth(g_params, ws_used, noise_seed)
         logits = run_d(d_params, fake.to(dt), aug_p, aug_draws).float()
         # The non-saturating G loss; aux: the batch mean of w for w_avg.
-        return F.softplus(-logits).mean(), ws[:, 0].float().mean(dim=0)
+        return F.softplus(-logits).mean(), all_mean(ws[:, 0].detach().float().mean(dim=0), mesh)
 
     def ppl_penalty(g_params, z, noise_seed, pl_y, pl_mean):
         """Path-length regularisation: (||d(img . y)/d ws|| - pl_mean)^2,
@@ -408,9 +451,10 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams):
         proj = (img.float() * (pl_y / math.sqrt(h * w))).sum()
         (pl_grads,) = torch.autograd.grad(proj, ws, create_graph=True)
         pl_lengths = pl_grads.float().square().sum(dim=2).mean(dim=1).sqrt()
-        new_pl_mean = pl_mean + cfg.ppl_decay * (pl_lengths.mean() - pl_mean)
+        batch_mean = all_mean(pl_lengths.mean(), mesh)  # not detached: the global mean
+        new_pl_mean = pl_mean + cfg.ppl_decay * (batch_mean - pl_mean)
         penalty = (pl_lengths - new_pl_mean).square().mean()
-        return penalty * cfg.ppl_weight * cfg.ppl_interval, (pl_lengths.mean(), new_pl_mean)
+        return penalty * cfg.ppl_weight * cfg.ppl_interval, (batch_mean, new_pl_mean)
 
     def d_loss_fn(d_params, g_params, real, z, z_mix, cutoff, noise_seed, do_r1: bool, aug_p,
                   aug_draws_f, aug_draws_r):
@@ -430,8 +474,8 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams):
             (grad_real,) = torch.autograd.grad(real_logits.sum(), real, create_graph=True)
             r1 = grad_real.float().square().sum(dim=(1, 2, 3)).mean()
             loss = loss + (cfg.r1_gamma / 2) * r1 * cfg.r1_interval
-        # aux: r_t, the ADA overfitting signal E[sign(D(real))].
-        return loss, (r1.detach(), torch.sign(real_logits.detach()).mean())
+        # aux: r_t, the ADA overfitting signal E[sign(D(real))] (global).
+        return loss, (r1.detach(), all_mean(torch.sign(real_logits.detach()).mean(), mesh))
 
     return {"g_loss_fn": g_loss_fn, "d_loss_fn": d_loss_fn, "ppl_penalty": ppl_penalty,
             "dt": dt}
@@ -472,22 +516,30 @@ def ema_beta(cfg: GANTrainingParams, step: int, batch: int) -> float:
                                                              np.float32(1e-8))))
 
 
-def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams):
+def _reduced(grads: list, mesh: Mesh | None) -> list:
+    return grads if mesh is None else all_reduce_grads(grads, mesh)
+
+
+def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams,
+                        mesh: Mesh | None = None):
     """One alternating G/D step with style mixing, lazy R1 and PPL, w_avg
     tracking, the generator EMA and ADA.
 
     Returns ``step(state, images, draws) -> (state, metrics)``: ``images``
     (B, H, W, C) uint8 on the device, ``draws`` from :func:`draw_step` for
     ``state.step``. The state is updated in place and returned; the metrics
-    are 0-d device tensors (r1 and pl_lengths 0 off their cadence)."""
-    fns = make_gan_loss_fns(generator, discriminator, cfg)
+    are 0-d device tensors (r1 and pl_lengths 0 off their cadence). With a
+    data-parallel ``mesh`` the images and draws are this rank's slice of the
+    global batch, each update takes the gradients' mean over the ranks, and
+    the metrics are global."""
+    fns = make_gan_loss_fns(generator, discriminator, cfg, mesh)
     g_loss_fn, d_loss_fn, ppl_penalty = fns["g_loss_fn"], fns["d_loss_fn"], fns["ppl_penalty"]
     dt = fns["dt"]
 
     def step(state: GANTrainState, images, draws: GANStepDraws):
         i = state.step
         x = preprocess_real(images, draws.flips if cfg.mirror else None).to(dt)
-        B = x.shape[0]
+        B = x.shape[0] * (1 if mesh is None else mesh.world)  # the global batch
         aug_p = float(state.ada_p) if cfg.augment == "ada" else cfg.augment_p
         g_named, d_named = state.g_params(), state.d_params()
         g_list, d_list = list(g_named.values()), list(d_named.values())
@@ -504,14 +556,14 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams):
                                                         state.pl_mean)
             g_grads = [a + b for a, b in zip(g_grads, _grads(scaled, g_list))]
             pl_len, new_pl_mean = pl_len.detach(), new_pl_mean.detach()
-        _adam_step(state.g_opt, g_list, g_grads)
+        _adam_step(state.g_opt, g_list, _reduced(g_grads, mesh))
 
         # The D phase, against the updated generator, with R1 on cadence.
         d_loss, (r1, rt_batch) = d_loss_fn(
             d_named, g_named, x, draws.z2.to(dt), draws.z2_mix.to(dt), draws.cutoff2,
             draws.noise_seeds["d"], i % cfg.r1_interval == 0, aug_p, draws.aug_df,
             draws.aug_dr)
-        _adam_step(state.d_opt, d_list, _grads(d_loss, d_list))
+        _adam_step(state.d_opt, d_list, _reduced(_grads(d_loss, d_list), mesh))
 
         with torch.no_grad():
             if cfg.augment == "ada":
@@ -525,7 +577,10 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams):
             torch._foreach_add_(ema, g_list, alpha=float(np.float32(1.0) - np.float32(beta)))
             state.pl_mean = new_pl_mean
         state.step = i + 1
-        metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(), "r1": r1,
+        losses = torch.stack([g_loss.detach(), d_loss.detach(), r1])
+        if mesh is not None:
+            losses = all_mean(losses, mesh)
+        metrics = {"g_loss": losses[0], "d_loss": losses[1], "r1": losses[2],
                    "pl_lengths": pl_len, "pl_mean": new_pl_mean,
                    "ada_p": state.ada_p.clone(), "ada_rt": rt_batch}
         return state, metrics

@@ -28,10 +28,14 @@ What differs from JAX, by design:
     :func:`make_frozen`, and the losses are computed in fp32;
   * ``remat`` maps to ``torch.utils.checkpoint``; the synthesis noise is
     drawn again from the same generator state when the synthesis is
-    recomputed, so the recompute sees the noise the forward saw.
-
-A device mesh (and with it multi-process training) is not ported
-(ROADMAP.md, queue 1: data parallelism); it raises.
+    recomputed, so the recompute sees the noise the forward saw;
+  * data parallelism (``mesh``, ``parallel/mesh.py``) runs one process per
+    card, each on its slice of the global batch: the gradients are averaged
+    over the ranks once per update and the logged losses are the global
+    means, so the update is the global batch's, as under the JAX package's
+    GSPMD (every loss is a mean over equal local batches). Each rank draws
+    its own flips, noise, dropout and synthetic batch (its seeds fold the
+    rank in; at world size 1 they are the one-process seeds).
 """
 
 from __future__ import annotations
@@ -47,13 +51,13 @@ from torch.utils.checkpoint import checkpoint
 
 from viscoin_tpu_torch.data.transforms import device_preprocess
 from viscoin_tpu_torch.models.bundle import VisCoINModels
+from viscoin_tpu_torch.parallel.mesh import Mesh, all_mean, all_reduce_grads, broadcast_tree
 from viscoin_tpu_torch.train import losses as L
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_TARGETS = ("lpips", "classifier", "gan")
 _SAMPLER_TAG = 0x53414D50  # "SAMP": keeps sampler seeds apart from step seeds
-MESH_NOT_PORTED = ("training over a device mesh (data or model parallel, several processes) is "
-                   "not ported yet (ROADMAP.md, queue 1: data parallelism)")
+_RANK_TAG = 0x52414E4B  # "RANK": a rank's own seeds under data parallelism
 TRAIN_METRICS = ("acc_loss", "cr_loss", "of_loss", "ortho_loss", "rec_loss", "gan_loss",
                  "inter_loss")
 
@@ -153,16 +157,29 @@ def create_train_state(models: VisCoINModels, cfg: VisCoINTrainingParams) -> Tra
     return TrainState(step=0, params=params, opt=opt, gan_opt=gan_opt, acc=acc)
 
 
+def _average_grads(params: list, mesh: Mesh | None) -> None:
+    """Replace the ``.grad`` of each parameter that has one by its mean over
+    the ranks (one collective per dtype)."""
+    if mesh is None:
+        return
+    with_grad = [p for p in params if p.grad is not None]
+    for p, g in zip(with_grad, all_reduce_grads([p.grad for p in with_grad], mesh)):
+        p.grad = g
+
+
 @torch.no_grad()
-def optimizer_update(state: TrainState, cfg: VisCoINTrainingParams, schedule) -> bool:
+def optimizer_update(state: TrainState, cfg: VisCoINTrainingParams, schedule,
+                     mesh: Mesh | None = None) -> bool:
     """After a backward: the optimizer part of one step, with
     ``optax.MultiSteps`` semantics. For k = ``cfg.gradient_accumulation`` > 1
     each micro-step folds its gradients into a running mean
     (acc += (g - acc) / (n + 1), n the micro-step within the window), and on
     the k-th both Adams step on that mean and the buffers reset; between,
     the parameters and the Adam moments do not move. The learning rate is
-    ``schedule(updates_taken * k)``. Advances ``state.step``; returns True
-    when the parameters were updated."""
+    ``schedule(updates_taken * k)``. With a ``mesh`` the gradients of an
+    update (the accumulated mean, after the last micro-step) are first
+    averaged over the ranks. Advances ``state.step``; returns True when the
+    parameters were updated."""
     k = cfg.gradient_accumulation
     micro = state.step
     state.step += 1
@@ -178,6 +195,7 @@ def optimizer_update(state: TrainState, cfg: VisCoINTrainingParams, schedule) ->
             return False
         for g, n, p in leaves:
             p.grad = state.acc[g][n]
+    _average_grads([p for _, _, p in leaves], mesh)
     lr = schedule((micro // k) * k)  # optax: the schedule at the count of updates taken
     for opt in (state.opt, state.gan_opt):
         for group in opt.param_groups:
@@ -229,38 +247,50 @@ def fold_seed(seed: int, *data: int) -> int:
     return (int(words[0]) << 31) ^ int(words[1])
 
 
-def step_generator(seed: int, step: int, device="cuda") -> torch.Generator:
-    """The generator of one training step, seeded from (seed, step): a
-    resumed run draws the same flips, noise and dropout at the same step."""
-    return torch.Generator(device=device).manual_seed(fold_seed(seed, step))
+def rank_seed(seed: int, mesh: Mesh | None) -> int:
+    """A rank's own seed under data parallelism (``seed`` itself without a
+    mesh or at world size 1, so one process draws the one-process numbers)."""
+    if mesh is None or mesh.world == 1:
+        return seed
+    return fold_seed(seed, _RANK_TAG, mesh.rank)
 
 
-def fake_sample_keys(seed: int, group_start: int, k: int) -> list[int]:
+def step_generator(seed: int, step: int, device="cuda", mesh: Mesh | None = None):
+    """The generator of one training step, seeded from (seed, step) and the
+    rank: a resumed run draws the same flips, noise and dropout at the same
+    step."""
+    return torch.Generator(device=device).manual_seed(rank_seed(fold_seed(seed, step), mesh))
+
+
+def fake_sample_keys(seed: int, group_start: int, k: int, mesh: Mesh | None = None) -> list[int]:
     """Sampler seeds of steps [group_start, group_start + k):
-    ``fold_seed(seed, step, TAG)``, apart from the step seeds."""
-    return [fold_seed(seed, group_start + j, _SAMPLER_TAG) for j in range(k)]
+    ``fold_seed(seed, step, TAG)``, apart from the step seeds, and the
+    rank's own under data parallelism."""
+    return [rank_seed(fold_seed(seed, group_start + j, _SAMPLER_TAG), mesh) for j in range(k)]
 
 
-def make_sample_fakes(generator_gan, cfg: VisCoINTrainingParams):
+def make_sample_fakes(generator_gan, cfg: VisCoINTrainingParams, mesh: Mesh | None = None):
     """The sampler of the frozen original generator's synthetic batches.
 
-    Returns ``sample(frozen, seeds) -> (K, batch_size, 3, H, W)`` in the
-    compute dtype, K = len(seeds) (from :func:`fake_sample_keys`). Row k's
-    latents are a function of seeds[k] alone; the synthesis runs once on the
-    K * batch_size latents, with its noise drawn from a generator keyed by
-    the group's first seed."""
+    Returns ``sample(frozen, seeds) -> (K, b, 3, H, W)`` in the compute
+    dtype, K = len(seeds) (from :func:`fake_sample_keys`), b the rank's rows
+    of ``cfg.batch_size`` (all of them without a ``mesh``). Row k's latents
+    are a function of seeds[k] alone; the synthesis runs once on the K * b
+    latents, with its noise drawn from a generator keyed by the group's
+    first seed."""
     dt = _dtype(cfg.compute_dtype)
+    rows = cfg.batch_size if mesh is None else mesh.local(cfg.batch_size)
 
     @torch.no_grad()
     def sample(frozen: dict, seeds: list[int]) -> torch.Tensor:
         gen_module = frozen["generator"]
         device = next(gen_module.parameters()).device
-        z = torch.cat([torch.randn((cfg.batch_size, generator_gan.z_dim), device=device,
+        z = torch.cat([torch.randn((rows, generator_gan.z_dim), device=device,
                                    generator=torch.Generator(device=device).manual_seed(s))
                        for s in seeds]).to(dt)
         noise = torch.Generator(device=device).manual_seed(fold_seed(seeds[0], 1))
         fakes = gen_module(z, noise_mode="random", generator=noise)
-        return fakes.to(dt).reshape(len(seeds), cfg.batch_size, *fakes.shape[1:])
+        return fakes.to(dt).reshape(len(seeds), rows, *fakes.shape[1:])
 
     return sample
 
@@ -366,9 +396,11 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
     ``labels`` (B,), ``rng`` the step's generator (:func:`step_generator`),
     ``fake`` (B, 3, H, W) from :func:`make_sample_fakes`, required with
     ``external_fakes`` (without, the step samples the frozen original
-    generator itself). The state is updated in place and returned."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    generator itself). The state is updated in place and returned.
+
+    With a data-parallel ``mesh`` the inputs are this rank's slice of the
+    global batch, the update takes the gradients' mean over the ranks and
+    the metrics are the global means (one more collective)."""
     schedule = make_lr_schedule(cfg.learning_rate, cfg.iterations)
     loss_fn = make_loss_fn(models, generator_gan, lpips_module, cfg)
 
@@ -386,7 +418,9 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
         total, metrics = loss_fn(state.params, frozen, real, labels, state.step, rng, fake,
                                  dropout_mask)
         total.backward()
-        optimizer_update(state, cfg, schedule)
+        optimizer_update(state, cfg, schedule, mesh)
+        if mesh is not None:
+            metrics = dict(zip(metrics, all_mean(torch.stack(list(metrics.values())), mesh)))
         return state, metrics
 
     return train_step
@@ -429,7 +463,18 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
     "probe"), with "n_<phase>" counts, "max_<phase>" and, under
     "seconds", every duration. ``stop_after``: at most this many steps in
     this call, on the full ``cfg.iterations`` schedule. ``profile_dir``: a
-    torch.profiler trace of steps 2 to 5 of this call (``trace.json``)."""
+    torch.profiler trace of steps 2 to 5 of this call (``trace.json``).
+
+    ``mesh``: data parallelism (every rank calls this with its own mesh).
+    ``cfg.batch_size`` stays the global batch; ``train_loader`` and
+    ``test_loader`` must be sharded over the mesh (``DataLoader(shard=(rank,
+    world))``; the test loader with ``pad_final`` when its last batch is
+    ragged). The weights start from rank 0's (after any resume); the eval
+    runs on every rank, while the jsonl records, the checkpoints, the probe
+    and the profile are rank 0's; every rank returns once rank 0's writes
+    are on disk. A resume replays the unbroken run exactly over the same
+    number of ranks; over another it continues with other random draws
+    (each rank's seeds fold its rank in)."""
     import json
     import os
     import time
@@ -442,34 +487,49 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
         test_viscoin,
         to_device,
     )
+    from viscoin_tpu_torch.parallel.mesh import is_main
     from viscoin_tpu_torch.utils import checkpoints as ckpt
     from viscoin_tpu_torch.utils.logging import get_logger
 
     device = _check_device(device, models)
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     logger = get_logger()
     loader_bs = getattr(train_loader, "batch_size", cfg.batch_size)
     if loader_bs != cfg.batch_size:
         raise ValueError(f"train_loader.batch_size={loader_bs} != "
                          f"cfg.batch_size={cfg.batch_size}")
-    if getattr(train_loader, "shard", (0, 1))[1] != 1:
-        raise ValueError("a sharded train_loader needs multi-process training: "
-                         + MESH_NOT_PORTED)
+    # A sharded loader yields this rank's slice of every global batch: one
+    # loader per rank of the mesh, exactly.
+    world = 1 if mesh is None else mesh.world
+    shard = getattr(train_loader, "shard", (0, 1))
+    if shard != (0 if mesh is None else mesh.rank, world):
+        raise ValueError(f"train_loader.shard={shard}: a run over {world} process(es) needs "
+                         f"DataLoader(shard=(rank, {world})) on each (a sharded loader needs "
+                         "a mesh)")
+    if mesh is not None and getattr(test_loader, "shard", (0, 1))[1] != world:
+        raise ValueError(f"test_loader.shard world {getattr(test_loader, 'shard', (0, 1))[1]} "
+                         f"!= the mesh's {world}: the in-loop eval feeds every rank its shard "
+                         "of each global test batch")
+    local_rows = cfg.batch_size // world
     if hasattr(train_loader, "dataset") and len(train_loader.dataset) < cfg.batch_size:
         raise ValueError(f"dataset has {len(train_loader.dataset)} samples < batch_size="
                          f"{cfg.batch_size}: no full batch can ever be formed")
     K = max(1, cfg.fake_presample_steps)
-    step_fn = make_train_step(models, generator_gan, lpips_module, cfg, external_fakes=True)
-    sample_fakes = make_sample_fakes(generator_gan, cfg)
+    if mesh is not None:  # every rank starts from rank 0's weights
+        broadcast_tree([t for m in (models, generator_gan, lpips_module) if m is not None
+                        for t in (*m.parameters(), *m.buffers())], mesh)
+    step_fn = make_train_step(models, generator_gan, lpips_module, cfg, external_fakes=True,
+                              mesh=mesh)
+    sample_fakes = make_sample_fakes(generator_gan, cfg, mesh)
     frozen = make_frozen(models, generator_gan, lpips_module, compute_dtype=cfg.compute_dtype)
     state = create_train_state(models, cfg)
     # The invariants of an exact replay, saved with every training state; a
     # mismatch on resume is an error, not a silently different stream.
     resume_meta = {"fake_presample_steps": K, "batch_size": cfg.batch_size, "seed": seed,
                    "compute_dtype": str(cfg.compute_dtype)}
-    if resume_from:
+    if resume_from:  # every rank reads the same state; rank 0's then stands
         state = ckpt.restore_train_state(state, resume_from, expect_meta=resume_meta)
+        if mesh is not None:
+            broadcast_tree(_state_tensors(state), mesh)
 
     start = state.step
     if start and hasattr(train_loader, "skip_batches"):
@@ -483,7 +543,7 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
 
     def pull_and_place():
         images, labels = next(train_iter)
-        while images.shape[0] != cfg.batch_size:  # skip ragged final batches
+        while images.shape[0] != local_rows:  # skip ragged final batches
             images, labels = next(train_iter)
         return to_device(images, device), to_device(labels.astype(np.int64), device)
 
@@ -507,7 +567,7 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
     end = cfg.iterations if stop_after is None else min(cfg.iterations, start + stop_after)
     try:
         for i in range(start, end):
-            if profile_dir and i == start + 2:  # past the first steps' one-off costs
+            if profile_dir and is_main(mesh) and i == start + 2:  # past the one-off costs
                 from torch.profiler import ProfilerActivity, profile
 
                 activities = [ProfilerActivity.CPU]
@@ -519,10 +579,10 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
             images, labels = next_batch()
             group = (i // K) * K  # aligned to absolute steps: any resume regenerates it
             if fake_group_start != group:
-                fake_group = sample_fakes(frozen, fake_sample_keys(seed, group, K))
+                fake_group = sample_fakes(frozen, fake_sample_keys(seed, group, K, mesh))
                 fake_group_start = group
             state, metrics = step_fn(state, frozen, images, labels,
-                                     step_generator(seed, i, device), fake_group[i - group])
+                                     step_generator(seed, i, device, mesh), fake_group[i - group])
             mark("steps", t_step)
             if profiler is not None and i == start + 5:
                 _stop_profiler(profiler, profile_dir)
@@ -533,15 +593,17 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
                 values = torch.stack([metrics[k] for k in TRAIN_METRICS]).double().cpu()
                 record = {f"train_{k}": float(v) for k, v in zip(TRAIN_METRICS, values)}
                 if eval_step is None:
-                    eval_step = make_test_step(models, lpips_module)
+                    eval_step = make_test_step(models, lpips_module, mesh)
                 results = test_viscoin(models, lpips_module, test_loader,
                                        compute_fid=fid_detector is not None,
-                                       fid_detector=fid_detector, verbose=False, step=eval_step)
+                                       fid_detector=fid_detector, verbose=False, mesh=mesh,
+                                       step=eval_step)
                 record.update({f"test_{k}": v for k, v in results.__dict__.items()})
-                logger.info(json.dumps(record))
+                if is_main(mesh):  # one jsonl log, not one per rank
+                    logger.info(json.dumps(record))
                 mark("eval", t_eval)
 
-            if checkpoint_every and i % checkpoint_every == 0:
+            if checkpoint_every and i % checkpoint_every == 0 and is_main(mesh):
                 t_ckpt = time.perf_counter()
                 ckpt.save_viscoin(models, os.path.join(
                     checkpoint_dir,
@@ -551,7 +613,7 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
                                       meta=resume_meta, async_save=True)
                 mark("checkpoint", t_ckpt)
 
-            if faithfulness_every and i % faithfulness_every == 0 and i > 0:
+            if faithfulness_every and i % faithfulness_every == 0 and i > 0 and is_main(mesh):
                 t_probe = time.perf_counter()
                 if probe_fn is None:
                     probe_fn = make_faithfulness_fn(models)
@@ -572,8 +634,21 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
         train_iter.close()
         if profiler is not None:
             _stop_profiler(profiler, profile_dir)
-    ckpt.wait_for_saves()
+    ckpt.wait_for_saves(mesh)  # rank 0's checkpoints are on disk before any rank returns
     return models
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """The trainable parameters, the Adam moments and the accumulation
+    buffers, in an order every rank shares (the Adams' step counts, host
+    scalars, are left out)."""
+    out = [p for grp in state.params.values() for p in grp.values()]
+    for opt in (state.opt, state.gan_opt):
+        for p in (p for group in opt.param_groups for p in group["params"]):
+            out += [v for k, v in opt.state.get(p, {}).items() if k != "step"]
+    if state.acc is not None:
+        out += [a for grp in state.acc.values() for a in grp.values()]
+    return out
 
 
 def _stop_profiler(profiler, profile_dir: str) -> None:

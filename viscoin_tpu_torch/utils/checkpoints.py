@@ -30,6 +30,11 @@ to). With ``async_save`` the host snapshot is taken before the call returns
 wait) and the write runs on one background thread, in submission order;
 :func:`wait_for_saves` joins every pending save and then raises the first
 error.
+
+Under data parallelism every rank holds the same state: rank 0 alone
+writes (the trainers guard their saves with ``parallel.mesh.is_main``) and
+the other ranks wait for its writes at :func:`wait_for_saves`' barrier;
+every rank reads a checkpoint on resume.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from viscoin_tpu_torch.models.concept_extractor import ConceptExtractor
 from viscoin_tpu_torch.models.explainer import Explainer
 from viscoin_tpu_torch.models.resnet import Classifier
 from viscoin_tpu_torch.models.stylegan import GeneratorAdapted
+from viscoin_tpu_torch.parallel.mesh import barrier
 from viscoin_tpu_torch.utils.weights import bundle_to_jax_tree, load_jax_variables
 
 NPZ_NAME = "arrays.npz"
@@ -89,10 +95,12 @@ class _Writer:
 _writer = _Writer()
 
 
-def wait_for_saves() -> None:
+def wait_for_saves(mesh=None) -> None:
     """Block until every pending asynchronous save has been installed; then
-    raise the first writer error, if any."""
+    raise the first writer error, if any. With a data-parallel ``mesh``,
+    then wait for every rank (rank 0's writes are on disk for all)."""
     _writer.wait()
+    barrier(mesh)
 
 
 def _atomic_install(path: str, write_fn) -> None:
