@@ -21,7 +21,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                planes, the runtime-K instantiation (K = 2, 3, 5, 16),
                misaligned views; bias_act and bias_act_grad's dx bit-equal,
                db within 1e-5, upfirdn2d within 1e-5 (fp32) or 2e-2 (bf16)
-               of the output's scale; then <y, A x> = <A^T y, x> for every
+               of the output's scale, and each call through its registered
+               operator (torch.ops.viscoin.*, what a loaded artifact runs)
+               bit-equal to the direct launch; then <y, A x> = <A^T y, x> for every
                FIR of the training step, A^T by autograd (the adjoint kernel);
   4. slice     the flagship bundle (ResNet-50, 256 concepts, 200 classes,
                256² GeneratorAdapted, channel_base 16384) from a seed, served
@@ -32,16 +34,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                against the card in fp32;
   6. server    the HTTP server on 127.0.0.1, port 0: concurrent classify and
                reconstruct requests, /healthz and /v1/stats;
-  7. train     the VisCoIN training step at flagship width (the bundle, a
+  7. export    sealed artifacts of the bundle (serve/export.py) in fp32 and
+               bf16, traced on the card: export wall s and bytes, load s;
+               against the live engine on 10 images, every output bit-equal
+               under cuDNN's deterministic algorithms, one device batch's
+               launches equal (classify and explain none), events ms per
+               batch of each endpoint side by side, and one profiled batch
+               of each: device ms, kernels and aten calls per batch, and
+               the device ms by kernel class; `serve --from-artifact`
+               in a fresh process per dtype: /v1/classify, /v1/reconstruct,
+               /v1/explain against the live engine (within 1e-5 of the
+               scale, 1 u8 level, the bit-equal ones named), /v1/amplify
+               400, SIGINT: exit 0;
+  8. train     the VisCoIN training step at flagship width (the bundle, a
                frozen original Generator with 2 mapping layers, LPIPS-VGG;
                batch 8 real + 8 synthetic, sampled 2 steps at a time), in
                float32 and bfloat16: exact launch counts of one step and one
                sampler call, finite losses, a non-zero gradient on every
                trainable leaf, 3 + 10 steps on the host clock, peak memory,
                one step under torch.profiler;
-  8. train-cpu one fp32 step's gradients at full width on 1 real + 1
+  9. train-cpu one fp32 step's gradients at full width on 1 real + 1
                synthetic image, card against device="cpu";
-  9. loop      train_viscoin at flagship width on SyntheticDataset (200
+10. loop      train_viscoin at flagship width on SyntheticDataset (200
                classes, 256², 64 train and 20 test images, the native
                loader with 8 threads, prefetch 1): run A (8 iterations,
                eval, checkpoint and probe every 4), run B (checkpoint every
@@ -62,10 +76,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                run; the bundle the loop wrote reloads and reconstructs
                bit-equal to the bundle it saved; step, eval, checkpoint,
                probe and loader times, peak memory;
- 10. cli       `python -m viscoin_tpu_torch train viscoin` at 256² on the
+11. cli       `python -m viscoin_tpu_torch train viscoin` at 256² on the
                card in a temporary directory (3 iterations, then a resume
                to 4): the jsonl keys, the bundles and the training state;
- 11. gan       the `train gan` step at full width (256², z = w = 512, 2
+12. gan       the `train gan` step at full width (256², z = w = 512, 2
                mapping layers, channel_base 16384, batch 16, mbstd group 4,
                ada_p 0.2), fp32 and bf16, at each cadence type (R1 with the
                path length, plain, path length, R1 alone): launches exactly
@@ -77,18 +91,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                <y, A x> = <A^T y, x> for its FIRs; the median step per
                cadence type, a 16-step cycle (launches exact; img/s, peak
                memory), one profiled step of each regulariser;
- 12. gan-cpu   one fp32 step with both regularisers at full width on 4
+13. gan-cpu   one fp32 step with both regularisers at full width on 4
                images, card against device="cpu" (learning rate 0, noise
                strengths 0, the same draws and synthesis noise): losses, R1,
                path lengths and every G and D gradient; then R1's gradients
                alone for every D leaf; a control on the card with a planted
                fault in bias_act's second order must miss that check;
- 13. gan-cli   `python -m viscoin_tpu_torch train gan` at 256² in a
+14. gan-cli   `python -m viscoin_tpu_torch train gan` at 256² in a
                temporary directory under cuDNN deterministic: 4 iterations
                (checkpoint and snapshot every 2), a resume to 6 within
                RESUME_RTOL of an unbroken run to 6, then `train viscoin`
                loading the exported EMA generator;
- 14. port      seeded sources in the reference's layouts at the manifests'
+15. port      seeded sources in the reference's layouts at the manifests'
                full shapes (ResNet-50 with 200 and 10 classes, LPIPS-VGG,
                pytorch-fid Inception, the 256² NVlabs generator and
                discriminator in a fabricated network pickle), clean against
@@ -97,7 +111,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                on a mis-shaped copy; each result on the card, exported and
                imported again, bit-equal to its source; `train viscoin`
                then reads the ported classifier, GAN and LPIPS (phase 15);
- 15. fid       Inception features card against the host CPU (TF32 at the
+16. fid       Inception features card against the host CPU (TF32 at the
                defaults); the inception-nvlabs route (a traced full-width
                detector in that convention, ported, both compared on the
                card); `train gan --fid-every 2 --fid-samples 64` at 256²,
@@ -107,14 +121,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                --fid-detector` on the ported pieces, one eval, finite
                fid_score; an Inception batch of 64 and an estimate of 64
                fakes timed;
- 16. classifier one fp32 train step (ResNet-50, 200 classes, 256², batch
+17. classifier one fp32 train step (ResNet-50, 200 classes, 256², batch
                8) card against the host CPU: loss, every gradient, the BN
                running statistics; the step at batch 32 in fp32 and bf16
                (median of 10 after 3, img/s, peak memory, busy share);
                `train classifier` from the ported classifier, then `test
                classifier` on its output (the best epoch's accuracy), which
                loads as `train viscoin` loads its classifier;
- 17. gan-tools the GAN tools at the JAX command's full widths, in the same
+18. gan-tools the GAN tools at the JAX command's full widths, in the same
                directory (the ported 256² generator, LPIPS-VGG, Inception):
                `dataset-tool` packs 32 synthetic images at 256² (each member
                equals host_gan_transform of its source); `generate --seeds 0-15
@@ -134,7 +148,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                through the JAX package's one-pass LPIPS form; `fid --dataset
                packed.zip --metric fid --metric kid --metric pr` (one host
                matrix square root; the features it used equal a recomputation);
- 18. analysis  the flagship bundle saved to a temporary directory: `python -m
+19. analysis  the flagship bundle saved to a temporary directory: `python -m
                viscoin_tpu_torch serve --compute-dtype float32 --port 0` in a
                process of its own (its printed address; startup seconds),
                /v1/classify, /v1/reconstruct, /v1/explain and /v1/amplify
@@ -152,7 +166,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                level); amplify, concepts, concept-heatmaps and logs as
                commands where matplotlib is installed, else their
                ImportError and their computations in-process; to-pickle;
- 19. dp        data parallelism (parallel/mesh.py), see phase_dp: (a) `train
+20. dp        data parallelism (parallel/mesh.py), see phase_dp: (a) `train
                viscoin` at flagship width under `torchrun --nproc-per-node 1`
                (NCCL at world size 1) against --no-data-parallel: jsonl records,
                the training state and the launches bit-equal; (b) two
@@ -164,7 +178,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                all-reduce) must fail; (c) `serve --data-parallel` on the one
                card bit-equal to the engine; wall time and peak memory per
                rank;
- 20. timings   per kernel (CUDA events at the path's shapes, summed over the
+21. timings   per kernel (CUDA events at the path's shapes, summed over the
                loop's run A, the GAN's 16-step cycle, one FID estimate, the
                projection's 100 timed steps, one PPL batch and amplify-pca
                --pca 2 as they made each call, and over one reconstruct
@@ -175,10 +189,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                sum by the profiler (bias_act_grad's over both its kernels,
                bias_act_grad_kernel and, where a call sums db,
                bias_act_grad_db_kernel); each wrapper's host time per call at its
-               smallest path shape; the same for a probe chunk (N = 32) and
+               smallest path shape, direct and through its registered
+               operator (torch.ops.viscoin.*); the same for a probe chunk (N = 32) and
                an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
                and peak memory, and a torch.profiler breakdown of reconstruct;
- 21. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+22. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
                library_ms all over the loop's run A (``ms_over`` says so),
                the same over the GAN cycle (``gan_cycle_*``), one FID
                estimate (``fid_sampling_*``), the projection's timed steps
@@ -211,6 +226,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -422,6 +438,22 @@ def run_kernel(call, x, arg, kw):
     return (ba._bias_act_cuda if call[0] == "bias_act" else up._upfirdn2d_cuda)(x, arg, **kw)
 
 
+def run_op(call, x, arg, kw):
+    """The same call through the registered operator ``torch.ops.viscoin.*``
+    (what a loaded serving artifact runs)."""
+    if call[0] == "bias_act_grad":
+        b, dy, need_db, dy_add = arg
+        return torch.ops.viscoin.bias_act_grad(x, b, dy, dy_add, kw["act"], kw["alpha"],
+                                               kw["gain"], kw["clamp"], need_db)
+    if call[0] == "bias_act":
+        return torch.ops.viscoin.bias_act(x, arg, kw["act"], kw["alpha"], kw["gain"],
+                                          kw["clamp"])
+    return torch.ops.viscoin.upfirdn2d(x, list(up._taps(arg)), list(up._pair(kw["up"])),
+                                       list(up._pair(kw["down"])),
+                                       list(up.parse_padding(kw["padding"])),
+                                       bool(kw["flip_filter"]), float(kw["gain"]))
+
+
 def run_plain(call, x, arg, kw):
     if call[0] == "bias_act_grad":
         b, dy, need_db, dy_add = arg
@@ -565,6 +597,10 @@ def phase_kernels(path_calls: dict[str, dict[tuple, int]], configurations: bool 
         x, arg, kw = make_inputs(call, gen)
         got = run_kernel(call, x, arg, kw)
         want = run_plain(call, x, arg, kw)
+        # The registered operator (a loaded artifact's route) is the same launch.
+        for a, b in zip(*(t if isinstance(t, tuple) else (t,)
+                          for t in (run_op(call, x, arg, kw), got))):
+            assert (a is None and b is None) or torch.equal(a, b), ("operator", call)
         torch.cuda.synchronize()
         if call[0] == "bias_act_grad":  # (dx, db): db sums in another order than the plain
             (got, db), (want, want_db) = got, want
@@ -585,7 +621,8 @@ def phase_kernels(path_calls: dict[str, dict[tuple, int]], configurations: bool 
         if lib is not None:  # the yardstick must compute the same function
             lerr, lscale = max_err(lib(), want)
             assert lerr <= TOL[call[2]] * lscale, ("library", call, lerr, lscale)
-    say("kernels", f"{len(checks)} kernel-vs-plain comparisons passed (the shapes of "
+    say("kernels", f"{len(checks)} kernel-vs-plain comparisons passed, each kernel "
+        "bit-equal through its registered operator (the shapes of "
         f"{', '.join(path_calls)}"
         + (", and the test configurations" if configurations else "") + "; bias_act and "
         f"bias_act_grad's dx bit-equal, db within {DB_TOL:g} of its scale and one rounding); "
@@ -776,6 +813,275 @@ def phase_server(models) -> dict:
         httpd.server_close()
         vs.close()
         thread.join(30)
+
+
+# --------------------------------- phase 7 ---------------------------------- #
+
+# The served artifact against the live engine where they are not bit-equal,
+# of each output's scale (u8 within one level): a server process picks
+# cuDNN's default, atomic algorithms for the generator's transposed
+# convolutions, whose sums may land a rounding apart.
+EXPORT_TOL = 1e-5
+
+
+class ServeProcess:
+    """``python -m viscoin_tpu_torch serve <args> --port 0`` in a process of
+    its own, its output read on a thread: :meth:`wait_for` a line,
+    :meth:`stop` by SIGINT (its exit code), :meth:`kill` whatever is left."""
+
+    def __init__(self, args: list[str]):
+        import queue
+
+        self.lines: queue.Queue = queue.Queue()
+        self.log: list[str] = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "viscoin_tpu_torch", "serve", *args, "--port", "0"],
+            env=pipe_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for ln in self.proc.stdout:
+            self.lines.put((time.perf_counter(), ln))
+        self.lines.put(None)
+
+    def wait_for(self, pattern: str, timeout: float = 300.0):
+        """(the time the first line matching ``pattern`` came, its match)."""
+        import re
+
+        deadline = time.perf_counter() + timeout
+        while True:
+            item = self.lines.get(timeout=max(0.1, deadline - time.perf_counter()))
+            if item is None:
+                raise RuntimeError(f"serve exited {self.proc.wait()} before {pattern!r}:\n"
+                                   + "".join(self.log)[-4000:])
+            self.log.append(item[1])
+            match = re.search(pattern, item[1])
+            if match:
+                return item[0], match
+
+    def stop(self) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGINT)
+        code = self.proc.wait(timeout=120)
+        self.reader.join(30)
+        while (item := self.lines.get_nowait()) is not None:
+            self.log.append(item[1])
+        return code
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def _post(base: str, route: str, imgs: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, images=imgs)
+    req = urllib.request.Request(base + route, data=buf.getvalue(),
+                                 headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        assert r.status == 200, (route, r.status)
+        return r.read()
+
+
+def _first_diff(a: dict, b: dict) -> dict[str, float]:
+    """Each key's largest deviation of ``a`` from ``b`` (u8 in levels, the
+    rest of ``b``'s scale)."""
+    return {k: float(_u8_dev(a[k], b[k])) if b[k].dtype == np.uint8 else _rel(a[k], b[k])
+            for k in b}
+
+
+def export_served(srv: "ServeProcess", live, imgs: np.ndarray, dtype: str) -> dict:
+    """The fresh process's /v1/classify, /v1/reconstruct and /v1/explain on
+    ``imgs`` (one request each: the server batches them as the engine does)
+    against the live engine; /v1/amplify answers 400; SIGINT ends it."""
+    t_up, match = srv.wait_for(r"serving on (http://\S+)")
+    base = match.group(1)
+    with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    assert health["device"].startswith("cuda") and health["compute_dtype"] == dtype, health
+    assert health["batch_size"] == BATCH, health
+    dev: dict[str, float] = {}
+    cls = json.loads(_post(base, "/v1/classify?top_k=5", imgs))
+    want = live.classify(imgs)
+    assert cls["preds"] == want["logits"].argmax(-1).tolist()
+    assert cls["expl_preds"] == want["expl_logits"].argmax(-1).tolist()
+    for key, idx, src in (("top_probas", "top_classes", "probas"),
+                          ("top_expl_probas", "top_expl_classes", "expl_probas"),
+                          ("top_concept_activations", "top_concepts", "concepts")):
+        dev[f"classify {key}"] = _rel(cls[key], np.take_along_axis(
+            want[src], np.asarray(cls[idx]), -1))
+    rec = np.load(io.BytesIO(_post(base, "/v1/reconstruct", imgs)))
+    want = live.reconstruct(imgs)
+    dev["reconstruct u8"] = float(_u8_dev(rec["reconstruction_u8"], want["reconstruction_u8"]))
+    expl = np.load(io.BytesIO(_post(base, "/v1/explain?top_k=5", imgs)))
+    want = live.explain(imgs)
+    np.testing.assert_array_equal(expl["expl_preds"], want["expl_preds"])
+    for i in range(1, 6):
+        dev[f"explain heatmap_conv{i}"] = _rel(expl[f"heatmap_conv{i}"], want[f"heatmap_conv{i}"])
+    try:
+        _post(base, "/v1/amplify?top_k_concepts=4", imgs[:1])
+        raise AssertionError("/v1/amplify answered an artifact's server")
+    except urllib.error.HTTPError as e:
+        assert e.code == 400, e.code
+    code = srv.stop()
+    assert code == 0, (code, "".join(srv.log)[-3000:])
+    assert any("micro-batchers closed" in ln for ln in srv.log), "".join(srv.log)[-3000:]
+    for key, d in dev.items():
+        assert d <= (1 if "u8" in key else EXPORT_TOL), (dtype, key, d)
+    return {"up_s": t_up - srv.t0, "deviation": dev,
+            "bit_equal": sorted(k for k, d in dev.items() if d == 0)}
+
+
+def batch_profile(fn, iters: int = 3) -> dict | None:
+    """One batch of ``fn`` under torch.profiler, averaged over ``iters``
+    after a warm-up step: the device kernels' ms and count, the aten calls
+    the host made (nested ones included) and the device ms by kernel class
+    (``KERNEL_CLASSES``). None when the tracer recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = kernel_events(prof)
+    if not events:
+        return None
+    by_class: dict[str, float] = {}
+    for e in events:
+        cls = classify_kernel(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3 / iters
+    aten = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+    return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / iters,
+            "kernels": sum(e.count for e in events) / iters, "aten_calls": aten / iters,
+            "by_class": by_class}
+
+
+def phase_export(models, device: dict) -> dict:
+    """Sealed artifacts of the flagship bundle (serve/export.py), in fp32
+    and bf16, traced on the card: the export's wall s and bytes; the
+    artifact loaded here (its s) against the live InferenceEngine on 10
+    images, every output bit-equal under cuDNN's deterministic algorithms,
+    the launches of one device batch of each endpoint equal (reconstruct's
+    those of ``expected_launches``), events ms per batch of each endpoint
+    against the live engine's, and one profiled batch of each (whether a gap
+    is device work or the host's); `serve --from-artifact` in a fresh
+    process per dtype (started as soon as its artifact is written), its
+    answers against the live engine (TF32 at the defaults, as that process
+    runs)."""
+    from viscoin_tpu_torch.utils.cudnn import deterministic_cudnn
+    from viscoin_tpu_torch.serve.export import ENDPOINTS, export_serving, load_exported
+
+    card = device["nvidia_smi"]
+    tf32_defaults(device)
+    per_batch = expected_launches(models)
+    want_launches = {"classify": {k: 0 for k in KERNELS}, "reconstruct": per_batch,
+                     "explain": {k: 0 for k in KERNELS}}
+    imgs = seeded_images(10, SEED + 93)
+    root = tempfile.mkdtemp(prefix="viscoin_export_")
+    out: dict = {}
+    servers: dict[str, ServeProcess] = {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            art = os.path.join(root, dtype)
+            t0 = time.perf_counter()
+            export_serving(models, art, batch_size=BATCH, compute_dtype=dtype,
+                           platforms=("cuda",))
+            out[dtype] = {"export_s": time.perf_counter() - t0, "bytes": {
+                f: os.path.getsize(os.path.join(art, f)) for f in sorted(os.listdir(art))}}
+            servers[dtype] = ServeProcess(["--from-artifact", art])
+        for dtype in ("float32", "bfloat16"):
+            res = out[dtype]
+            t0 = time.perf_counter()
+            eng = load_exported(os.path.join(root, dtype))
+            res["load_s"] = time.perf_counter() - t0
+            live = InferenceEngine(models, batch_size=BATCH, compute_dtype=dtype, device="cuda")
+            b8 = imgs[:BATCH]
+            launches = {}
+            for label, e in (("artifact", eng), ("live", live)):
+                for name in ENDPOINTS:
+                    getattr(e, name)(b8)
+                    _kernels.reset_launch_counts()
+                    getattr(e, name)(b8)
+                    torch.cuda.synchronize()
+                    launches[f"{label} {name}"] = _kernels.launch_counts()
+            for name in ENDPOINTS:
+                assert launches[f"artifact {name}"] == launches[f"live {name}"] == \
+                    want_launches[name], (dtype, name, launches)
+            with deterministic_cudnn():
+                for name in ENDPOINTS:
+                    got, want = getattr(eng, name)(imgs), getattr(live, name)(imgs)
+                    assert set(got) == set(want), (dtype, name)
+                    diff = _first_diff(got, want)
+                    assert all(d == 0 for d in diff.values()), (dtype, name, diff)
+            # Host-bound batches whose pace moves with the host: alternate the
+            # two (artifact, live, live, artifact, ...) and keep the medians.
+            res["ms"] = {}
+            for name in ENDPOINTS:
+                times = {"artifact": [], "live": []}
+                for label in ("artifact", "live", "live", "artifact") * 3:
+                    e = eng if label == "artifact" else live
+                    times[label].append(cuda_ms(lambda: getattr(e, name)(b8), iters=5,
+                                                warmup=1))
+                for label, t in times.items():
+                    res["ms"][f"{name} {label}"] = statistics.median(t)
+            res["profile"] = {f"{name} {label}": batch_profile(lambda: getattr(e, name)(b8))
+                              for name in ENDPOINTS
+                              for label, e in (("artifact", eng), ("live", live))}
+            res["launches"] = {name: launches[f"artifact {name}"] for name in ENDPOINTS}
+            res["served"] = export_served(servers[dtype], live, imgs, dtype)
+            prof = res["profile"]
+            if any(v is None for v in prof.values()):
+                say("profile", f"export {dtype}: not measured (the tracer recorded no kernel "
+                    f"in {[k for k, v in prof.items() if v is None]})")
+            for name in ENDPOINTS:
+                a, w = prof[f"{name} artifact"], prof[f"{name} live"]
+                if a is None or w is None:
+                    continue
+                classes = sorted(set(a["by_class"]) | set(w["by_class"]),
+                                 key=lambda c: -abs(a["by_class"].get(c, 0.0)
+                                                    - w["by_class"].get(c, 0.0)))
+                say("profile", f"export {dtype} {name}, one batch of {BATCH} (mean of 3) "
+                    f"artifact / live: device {a['device_ms']:.3f} / {w['device_ms']:.3f} ms, "
+                    f"kernels {a['kernels']:.1f} / {w['kernels']:.1f}, aten calls "
+                    f"{a['aten_calls']:.0f} / {w['aten_calls']:.0f}; by class: "
+                    + ", ".join(f"{c} {a['by_class'].get(c, 0.0):.3f} / "
+                                f"{w['by_class'].get(c, 0.0):.3f}" for c in classes)
+                    + f"; {card}")
+            del eng, live
+            torch.cuda.empty_cache()
+            say("export", f"{dtype}: export_serving of classify, reconstruct, explain (batch "
+                f"{BATCH}, traced on the card) {res['export_s']:.1f} s, "
+                f"{sum(res['bytes'].values()) / 2**20:.1f} MiB ("
+                + ", ".join(f"{f} {n / 2**20:.2f}" for f, n in res['bytes'].items())
+                + f" MiB); loaded in {res['load_s']:.1f} s; against the live engine on 10 "
+                f"images under deterministic cuDNN: every output bit-equal; launches per "
+                f"device batch equal ({res['launches']['reconstruct']} on reconstruct, none on "
+                f"classify and explain); events ms per batch of {BATCH} (medians of 6 "
+                "alternating runs of 5), artifact / live: "
+                + ", ".join(f"{n} {res['ms'][n + ' artifact']:.2f} / {res['ms'][n + ' live']:.2f}"
+                            for n in ENDPOINTS)
+                + f"; `serve --from-artifact` in its own process up in "
+                f"{res['served']['up_s']:.1f} s, over HTTP against the live engine: "
+                + ", ".join(f"{k} {d:.3g}" for k, d in res["served"]["deviation"].items())
+                + f" (tolerance {EXPORT_TOL:g} of the scale, 1 u8 level; "
+                f"{len(res['served']['bit_equal'])} of {len(res['served']['deviation'])} "
+                f"bit-equal), /v1/amplify 400, SIGINT: exit 0; {card}")
+    finally:
+        for srv in servers.values():
+            srv.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 # ------------------------------ training phases ----------------------------- #
@@ -3208,61 +3514,25 @@ def analysis_serve(models, bundle: str, device: dict) -> dict:
     then /v1/classify, /v1/reconstruct, /v1/explain and /v1/amplify against
     the in-process engine (the same TF32 defaults); SIGINT stops it, exit 0
     with its batchers closed."""
-    import queue
-    import re
-    import signal
-
     card = device["nvidia_smi"]
     tf32_defaults(device)  # what the subprocess runs with
-    cmd = [sys.executable, "-m", "viscoin_tpu_torch", "serve", "--viscoin-pickle-path", bundle,
-           "--compute-dtype", "float32", "--port", "0"]
-    lines: queue.Queue = queue.Queue()
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, env=pipe_env(), stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    reader = threading.Thread(target=lambda: [lines.put((time.perf_counter(), ln))
-                                              for ln in proc.stdout] + [lines.put(None)],
-                              daemon=True)
-    reader.start()
-    log: list[str] = []
-
-    def next_line(pattern: str, timeout: float = 300.0):
-        deadline = time.perf_counter() + timeout
-        while True:
-            item = lines.get(timeout=max(0.1, deadline - time.perf_counter()))
-            if item is None:
-                raise RuntimeError(f"serve exited {proc.wait()} before {pattern!r}:\n"
-                                   + "".join(log)[-4000:])
-            log.append(item[1])
-            match = re.search(pattern, item[1])
-            if match:
-                return item[0], match
-
+    srv = ServeProcess(["--viscoin-pickle-path", bundle, "--compute-dtype", "float32"])
     out: dict = {}
     try:
-        t_warm, _ = next_line(r"warming up")
-        t_up, match = next_line(r"serving on (http://\S+)")
+        t_warm, _ = srv.wait_for(r"warming up")
+        t_up, match = srv.wait_for(r"serving on (http://\S+)")
         base = match.group(1)
-        out.update(load_s=t_warm - t0, warmup_s=t_up - t_warm, startup_s=t_up - t0)
+        out.update(load_s=t_warm - srv.t0, warmup_s=t_up - t_warm, startup_s=t_up - srv.t0)
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         assert health["status"] == "ok" and health["device"].startswith("cuda"), health
         assert health["compute_dtype"] == "float32" and health["batch_size"] == BATCH, health
 
-        def post(route: str, imgs: np.ndarray) -> bytes:
-            buf = io.BytesIO()
-            np.savez(buf, images=imgs)
-            req = urllib.request.Request(base + route, data=buf.getvalue(),
-                                         headers={"Content-Type": "application/octet-stream"})
-            with urllib.request.urlopen(req, timeout=300) as r:
-                assert r.status == 200, (route, r.status)
-                return r.read()
-
         imgs = seeded_images(3, SEED + 90)
         engine = InferenceEngine(models, batch_size=BATCH, compute_dtype="float32",
                                  device="cuda")
         err: dict[str, float] = {}
-        cls = json.loads(post("/v1/classify?top_k=5", imgs))
+        cls = json.loads(_post(base, "/v1/classify?top_k=5", imgs))
         want = engine.classify(imgs)
         assert cls["preds"] == want["logits"].argmax(-1).tolist()
         assert cls["expl_preds"] == want["expl_logits"].argmax(-1).tolist()
@@ -3271,11 +3541,11 @@ def analysis_serve(models, bundle: str, device: dict) -> dict:
                               ("top_concept_activations", "top_concepts", "concepts")):
             err[f"classify {key}"] = _rel(cls[key], np.take_along_axis(
                 want[src], np.asarray(cls[idx]), -1))
-        rec = np.load(io.BytesIO(post("/v1/reconstruct", imgs)))
+        rec = np.load(io.BytesIO(_post(base, "/v1/reconstruct", imgs)))
         want = engine.reconstruct(imgs)
         err["reconstruct u8"] = float(_u8_dev(rec["reconstruction_u8"],
                                               want["reconstruction_u8"]))
-        expl = np.load(io.BytesIO(post("/v1/explain?top_k=5", imgs)))
+        expl = np.load(io.BytesIO(_post(base, "/v1/explain?top_k=5", imgs)))
         want = engine.explain(imgs)
         np.testing.assert_array_equal(expl["expl_preds"], want["expl_preds"])
         np.testing.assert_array_equal(expl["preds"], want["preds"])
@@ -3285,7 +3555,7 @@ def analysis_serve(models, bundle: str, device: dict) -> dict:
         err["explain top_concept_activations"] = _rel(
             expl["top_concept_activations"],
             np.take_along_axis(want["concepts"], expl["top_concepts"], -1))
-        amp = np.load(io.BytesIO(post("/v1/amplify?top_k_concepts=4&seed=3", imgs[:1])))
+        amp = np.load(io.BytesIO(_post(base, "/v1/amplify?top_k_concepts=4&seed=3", imgs[:1])))
         res = engine.amplify(imgs[0], {"method": "top_k", "k": 4}, [0.0, 1.0, 2.0, 4.0], seed=3)
         want_u8 = np.round(np.clip(np.stack(res.amplified_images) * np.asarray(
             IMAGENET_STD, np.float32) + np.asarray(IMAGENET_MEAN, np.float32), 0, 1)
@@ -3298,17 +3568,11 @@ def analysis_serve(models, bundle: str, device: dict) -> dict:
             assert e <= (1 if "u8" in key else AMPLIFY_TOL if "amplify" in key else SERVE_TOL), \
                 (key, e)
         out["errors"] = err
-        proc.send_signal(signal.SIGINT)
-        code = proc.wait(timeout=120)
-        reader.join(30)
-        while (item := lines.get_nowait()) is not None:
-            log.append(item[1])
-        assert code == 0, (code, "".join(log)[-3000:])
-        assert any("micro-batchers closed" in ln for ln in log), "".join(log)[-3000:]
+        code = srv.stop()
+        assert code == 0, (code, "".join(srv.log)[-3000:])
+        assert any("micro-batchers closed" in ln for ln in srv.log), "".join(srv.log)[-3000:]
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(30)
+        srv.kill()
     say("analysis", f"`python -m viscoin_tpu_torch serve --compute-dtype float32 --port 0` "
         f"(batch {BATCH}) in its own process: up in {out['startup_s']:.1f} s (interpreter, "
         f"torch and the bundle's load {out['load_s']:.1f} s, warm-up of the three batched "
@@ -3353,7 +3617,7 @@ def analysis_explain(models, cpu_models, device: dict) -> dict:
     and a planted fault (the gradient of another class than the explained
     one) that check must catch; an explain batch timed (TF32 at the
     defaults)."""
-    from viscoin_tpu_torch.cli import generate as gen_cmd
+    from viscoin_tpu_torch.utils import cudnn as cudnn_mod
     from viscoin_tpu_torch.utils.gradcam import concept_extractor_gradcams
 
     card = device["nvidia_smi"]
@@ -3372,12 +3636,12 @@ def analysis_explain(models, cpu_models, device: dict) -> dict:
         for key in a:
             assert np.array_equal(a[key], b[key]), (dtype, "two explain calls differ", key)
         # The control: two calls with cuDNN's default algorithms in the backward.
-        orig = gen_cmd.deterministic_cudnn
-        gen_cmd.deterministic_cudnn = contextlib.nullcontext
+        orig = cudnn_mod.deterministic_cudnn
+        cudnn_mod.deterministic_cudnn = contextlib.nullcontext
         try:
             c, d = engine.explain(imgs), engine.explain(imgs)
         finally:
-            gen_cmd.deterministic_cudnn = orig
+            cudnn_mod.deterministic_cudnn = orig
         nondet = max(float(np.abs(c[k] - d[k]).max()) for k in c if k.startswith("heatmap"))
         maps = [f"heatmap_conv{i}" for i in range(1, 6)]
         for key in maps:
@@ -4142,7 +4406,7 @@ def dp_serve(models, card: str) -> dict:
     """(c) `serve --data-parallel` (its engine, built by the command on the
     one visible card: one replica) against InferenceEngine(device="cuda"):
     classify, reconstruct and explain on 10 images bit-equal."""
-    from viscoin_tpu_torch.cli.generate import deterministic_cudnn
+    from viscoin_tpu_torch.utils.cudnn import deterministic_cudnn
     from viscoin_tpu_torch.serve import server
 
     t0 = time.perf_counter()
@@ -4196,7 +4460,7 @@ def phase_dp(models, device: dict) -> dict:
     return out
 
 
-# --------------------------------- phase 7 ---------------------------------- #
+# ---------------------------------- timings --------------------------------- #
 
 
 def bound_ms(call: tuple) -> tuple[float, float, int]:
@@ -4410,20 +4674,24 @@ def time_path(label: str, calls: dict[tuple, int], gen: torch.Generator, card: s
         f"(profiler), plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms, "
         f"library {format(s['library_ms'], '.4f') if s['lib_all'] else 'none'}"
         for n, s in sums.items()) + f"; {card}")
-    # The wrappers' host cost at their smallest path shape.
+    # The wrappers' host cost at their smallest path shape: the direct launch
+    # (what eager calls take) and the registered operator (a loaded artifact's).
     host = {}
     for name in names:
         call = min((c for c in calls if c[0] == name), key=lambda c: math.prod(c[1]))
         x, arg, kw = inputs[call]
-        host[name] = dict(shape=list(call[1]), us=host_us(lambda: run_kernel(call, x, arg, kw)))
+        host[name] = dict(shape=list(call[1]), us=host_us(lambda: run_kernel(call, x, arg, kw)),
+                          op_us=host_us(lambda: run_op(call, x, arg, kw)))
         say("timings", f"{label} {name} wrapper at {call[1]}: {host[name]['us']:.2f} us of "
-            f"host time per call (1000 calls, one synchronise); {card}")
+            f"host time per call direct, {host[name]['op_us']:.2f} us through "
+            f"torch.ops.viscoin.{name} (1000 calls, one synchronise); {card}")
     inputs.clear()
     return sums, rows, host
 
 
 def kernel_entry(name: str, s: dict, launches: int, over: str) -> dict:
-    return {"name": name, "route": "cuda", **KERNELS[name], "launches": launches,
+    return {"name": name, "route": "cuda", **KERNELS[name], "op": f"viscoin::{name}",
+            "launches": launches,
             "max_abs_err": None, "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],
             "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
@@ -4616,6 +4884,7 @@ def main() -> int:
     record["slice"] = phase_slice(models)
     record["cpu"] = phase_cpu(models)
     record["server"] = phase_server(models)
+    record["export"] = phase_export(models, record["device"])
     tf32_defaults(record["device"])
     record["train"], train_launches = phase_train(runs, models, record["device"]["nvidia_smi"],
                                                   train_calls)

@@ -223,19 +223,42 @@ def test_serve_command_answers_explain_over_http(bundle_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, error, match", [
-    (["serve", "--from-artifact", "art"], NotImplementedError, "Serving remainder"),
-    (["export-serving", "--output", "art"], NotImplementedError, "Serving remainder"),
+    (["serve", "--from-artifact", "art", "--batch-size", "8"], ValueError,
+     "--batch-size cannot be combined with --from-artifact"),
+    (["export-serving", "--output", "art", "--viscoin-pickle-path", "no-such-bundle"],
+     FileNotFoundError, "no-such-bundle"),
     (["serve", "--data-parallel", "--batch-size", "3"], ValueError, "3 does not divide over "
                                                                     "the 2 visible cards"),
 ], ids=["from-artifact", "export-serving", "data-parallel"])
-def test_unported_serving_options_raise(argv, error, match, monkeypatch):
-    """Sealed artifacts raise, naming their ROADMAP item, before reading
-    anything; so does serving over two cards at a batch that does not divide
-    over them (data parallelism is ported: serve/engine.py's replicas)."""
+def test_unported_serving_options_raise(argv, error, match, monkeypatch, tmp_path):
+    """What cannot be served raises before anything is read or built: a
+    flag the artifact's manifest fixed beside --from-artifact, an
+    export-serving of a bundle that does not exist, and serving over two
+    cards at a batch that does not divide over them. (Sealed artifacts and
+    data parallelism are ported: tests/test_torch_export.py serves an
+    artifact; serve/engine.py keeps the replicas.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(error, match=match):
         main(argv)
+    assert not (tmp_path / "art").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--batch-size", "8"], ["--compute-dtype", "float32"], ["--data-parallel"],
+    ["--no-data-parallel", "--batch-size", "2"],
+], ids=["batch-size", "compute-dtype", "data-parallel", "two"])
+def test_from_artifact_refuses_the_sealed_flags(flags, tmp_path):
+    """`serve --from-artifact` refuses an explicitly passed --batch-size,
+    --compute-dtype or --data-parallel (the artifact's manifest fixed them),
+    naming each, before it reads the artifact; their defaults pass."""
+    with pytest.raises(ValueError, match="cannot be combined with --from-artifact") as err:
+        main(["serve", "--from-artifact", str(tmp_path / "none"), "--device", "cpu", *flags])
+    named = [f for f in flags if f.startswith("--")]
+    assert all(f.replace("--no-", "--") in str(err.value) for f in named)
+    with pytest.raises(FileNotFoundError):
+        main(["serve", "--from-artifact", str(tmp_path / "none"), "--device", "cpu"])
 
 
 def test_data_parallel_on_one_card_serves_on_it(bundle_dir, monkeypatch):

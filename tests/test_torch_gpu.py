@@ -201,6 +201,45 @@ def test_toy_engine_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(got_c["logits"], want_c["logits"], rtol=1e-4, atol=1e-4)
 
 
+def test_toy_artifact_on_the_card_equals_the_engine_and_serves_the_cpu(cuda, tmp_path):
+    """A sealed artifact traced on the card for the card and the CPU
+    (serve/export.py): on the card every endpoint bit-equal to the live
+    engine (cuDNN's deterministic algorithms on both: the transposed
+    convolutions' atomics otherwise) with a reconstruct batch's launches
+    equal; the same programs loaded on the CPU (moved there at load) equal
+    to the live CPU engine. At 128², so that GradCAM's maps are not the
+    constant 0 (at 32² Psi's convolutions give 1x1 maps)."""
+    from viscoin_tpu_torch.serve.export import ENDPOINTS, export_serving, load_exported
+    from viscoin_tpu_torch.utils.cudnn import deterministic_cudnn
+
+    models = default_models(n_classes=5, n_concepts=8, img_resolution=128, channel_base=256,
+                            channel_max=16, device="cpu", seed=1)
+    manifest = export_serving(models.cuda(), str(tmp_path), batch_size=4,
+                              platforms=("cuda", "cpu"))
+    assert manifest["traced_on"] == "cuda:0" and manifest["platforms"] == ["cuda", "cpu"]
+    imgs = np.random.default_rng(5).integers(0, 256, (5, 128, 128, 3), dtype=np.uint8)
+    for device in ("cuda", "cpu"):
+        artifact = load_exported(str(tmp_path), device=device)
+        live = InferenceEngine(models, batch_size=4, device=device)
+        with deterministic_cudnn():
+            for name in ENDPOINTS:
+                counts = []
+                for engine in (artifact, live):
+                    _kernels.reset_launch_counts()
+                    out = getattr(engine, name)(imgs)
+                    counts.append(_kernels.launch_counts())
+                    if engine is artifact:
+                        got = out
+                for key in out:
+                    assert np.array_equal(got[key], out[key]), (device, name, key)
+                assert counts[0] == counts[1], (device, name, counts)
+                if device == "cuda" and name == "reconstruct":
+                    assert counts[0]["bias_act"] > 0 and counts[0]["upfirdn2d"] > 0, counts
+                if name == "explain":
+                    maps = [out[f"heatmap_conv{i}"] for i in range(1, 6)]
+                    assert any((m.max(axis=(1, 2)) > m.min(axis=(1, 2))).any() for m in maps)
+
+
 GRAD_KW = (dict(act="lrelu", alpha=None, gain=2.0 ** 0.5, clamp=None),
            dict(act="linear", alpha=None, gain=1.0, clamp=0.5),
            dict(act="relu", alpha=None, gain=1.5, clamp=None),
@@ -232,7 +271,7 @@ def test_bias_act_grad_kernel_matches_plain(cuda, dtype):
         for x, bias in ((base[:-1].view(shape), b[:-1]), (base[1:].view(shape), b[1:]),
                         (base[:-1].view(shape), None)):
             for kw in GRAD_KW:
-                dx, db = _bias_act_grad_cuda(x, bias, dy, **kw)
+                dx, db = _bias_act_grad_cuda(x, bias, dy, None, **kw)
                 want_dx, want_db = bias_act_grad_plain(x, bias, dy, **kw)
                 assert dx.dtype == dtype and torch.equal(dx, want_dx), (shape, kw)
                 if bias is None:
@@ -302,7 +341,7 @@ def test_bias_act_grad_db_is_deterministic(cuda):
         dy = torch.randn(shape, device=cuda, generator=g)
         b = torch.randn(shape[1], device=cuda, generator=g)
         kw = GRAD_KW[0]
-        dbs = [_bias_act_grad_cuda(x, b, dy, **kw)[1] for _ in range(5)]
+        dbs = [_bias_act_grad_cuda(x, b, dy, None, **kw)[1] for _ in range(5)]
         assert all(torch.equal(dbs[0], d) for d in dbs[1:]), shape
         assert_db_close(dbs[0], bias_act_grad_plain(x, b, dy, **kw)[1])
 

@@ -50,7 +50,9 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.cli.amplify", "viscoin_tpu_torch.cli.amplify_pca",
             "viscoin_tpu_torch.cli.concepts", "viscoin_tpu_torch.cli.concept_heatmaps",
             "viscoin_tpu_torch.cli.logs", "viscoin_tpu_torch.cli.to_pickle",
-            "viscoin_tpu_torch.parallel", "viscoin_tpu_torch.parallel.mesh"} <= set(mods)
+            "viscoin_tpu_torch.parallel", "viscoin_tpu_torch.parallel.mesh",
+            "viscoin_tpu_torch.ops.library", "viscoin_tpu_torch.serve.export",
+            "viscoin_tpu_torch.example", "viscoin_tpu_torch.utils.cudnn"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -148,19 +150,20 @@ def test_gan_tools_default_to_cuda_and_raise_without_a_card(monkeypatch, argv):
 
 @pytest.mark.parametrize("argv", [
     ["serve"],
+    ["serve", "--from-artifact", "art"],
+    ["export-serving", "-o", "art"],
     ["amplify", "--concept-top-k", "1"],
     ["amplify-pca"],
     ["concepts"],
     ["concept-heatmaps"],
     ["to-pickle", "--checkpoints", ".", "--output", "out"],
-], ids=lambda a: a[0])
+], ids=lambda a: " ".join(a[:2]) if "--from-artifact" in a else a[0])
 def test_serving_and_analysis_commands_default_to_cuda_and_raise_without_a_card(
         monkeypatch, argv):
-    """`serve` and the analysis commands of a bundle run on the card unless
-    given --device cpu; without a card they raise before reading anything.
-    `export-serving` takes --device as JAX's does (and raises, not ported);
-    `logs` reads and draws on the host only and has no --device, as
-    `dataset-tool`."""
+    """`serve` (of a bundle or of an artifact), `export-serving` and the
+    analysis commands of a bundle run on the card unless given --device cpu;
+    without a card they raise before reading anything. `logs` reads and
+    draws on the host only and has no --device, as `dataset-tool`."""
     from viscoin_tpu_torch.__main__ import build_parser, main
 
     assert build_parser().parse_args(argv).device == "cuda"
@@ -246,8 +249,8 @@ def test_wrappers_never_go_plain_off_the_cpu(monkeypatch, op):
 
     def grad(x):  # the backward kernel's wrapper; on the CPU, the Function's backward
         if x.device.type != "cpu":
-            return _bias_act_grad_cuda(x, None, torch.ones_like(x), act="lrelu", alpha=None,
-                                       gain=1.0, clamp=None)[0]
+            return _bias_act_grad_cuda(x, None, torch.ones_like(x), None, act="lrelu",
+                                       alpha=None, gain=1.0, clamp=None)[0]
         x.requires_grad_(True)
         return torch.autograd.grad(bias_act(x, act="lrelu").sum(), x)[0]
 
@@ -257,6 +260,50 @@ def test_wrappers_never_go_plain_off_the_cpu(monkeypatch, op):
     with pytest.raises((ValueError, RuntimeError)):
         call(torch.empty(1, 2, 4, 4, device="meta"))
     assert call(torch.ones(1, 2, 4, 4)).device.type == "cpu"
+    assert built == []
+
+
+@pytest.mark.parametrize("op", ["bias_act", "bias_act_grad", "upfirdn2d"])
+def test_registered_ops_cuda_implementations_never_go_plain(monkeypatch, op):
+    """Each viscoin:: operator has a CUDA kernel in the dispatcher, the
+    implementation of ops/library.py. Given a tensor that is not a CUDA
+    tensor, that implementation raises in the kernel's wrapper: it never
+    runs a plain version (each patched here to fail loudly), and a failing
+    build is not caught."""
+    import importlib
+
+    from viscoin_tpu_torch.ops import library
+
+    ba_mod = importlib.import_module("viscoin_tpu_torch.ops.bias_act")
+    up_mod = importlib.import_module("viscoin_tpu_torch.ops.upfirdn2d")
+
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(f"viscoin::{op}", "CUDA")
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(f"viscoin::{op}", "CPU")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran")
+
+    for mod, name in ((ba_mod, "bias_act_plain"), (ba_mod, "bias_act_grad_plain"),
+                      (ba_mod, "_bias_act_cpu"), (ba_mod, "_bias_act_grad_cpu"),
+                      (up_mod, "upfirdn2d_plain"), (up_mod, "_upfirdn2d_cpu")):
+        monkeypatch.setattr(mod, name, plain)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    built = []
+
+    def fake_entry(name):
+        built.append(name)
+        raise RuntimeError("build failed")
+
+    monkeypatch.setattr(_kernels, "entry", fake_entry)
+    impl = library.IMPLS[(op, "CUDA")]
+    taps = list(setup_filter([1.0, 3.0, 3.0, 1.0]).taps)
+    for device in ("cpu", "meta"):
+        x = torch.ones(1, 2, 4, 4, device=device)
+        args = {"bias_act": (x, None, "lrelu", None, 1.0, None),
+                "bias_act_grad": (x, None, x, None, "lrelu", None, 1.0, None, True),
+                "upfirdn2d": (x, taps, [2, 2], [1, 1], [2, 1, 2, 1], False, 4.0)}[op]
+        with pytest.raises(ValueError, match="kernel takes CUDA tensors"):
+            impl(*args)
     assert built == []
 
 

@@ -6,7 +6,8 @@ never ``jax`` or ``viscoin_tpu``.
 
 Layout:
     ops/       bias_act and upfirdn2d (hand-written CUDA kernels in csrc/,
-               forward and backward, plain torch versions for CPU tensors),
+               forward and backward, plain torch versions for CPU tensors,
+               registered as viscoin:: operators in library.py),
                conv2d_resample, modulated_conv2d.
     models/    ResNet-50 classifier f, ConceptExtractor Psi, Explainer Theta,
                the adapted and the original StyleGAN2 generators and the
@@ -20,15 +21,18 @@ Layout:
     eval/      the ensemble's and the classifier's test metrics,
                amplification, the faithfulness probe, FID, KID and
                precision/recall.
-    serve/     InferenceEngine (classify, reconstruct, amplify), MicroBatcher,
-               and the stdlib HTTP server.
+    serve/     InferenceEngine (classify, reconstruct, explain, amplify),
+               MicroBatcher, the stdlib HTTP server, and sealed torch.export
+               artifacts (export.py).
     train/     the classifier, VisCoIN and StyleGAN2 trainers (steps, losses,
                loops), ADA.
     utils/     weights (JAX variables <-> modules), porting and exporting
                (the reference's torch state_dicts <-> JAX variables),
                checkpoints, jsonl logging.
-    cli/       `python -m viscoin_tpu_torch port-weights | train | test`.
+    cli/       `python -m viscoin_tpu_torch <command>` (port-weights, train,
+               test, serve, export-serving, the GAN tools, the analysis).
     csrc/      CUDA C++ sources, built at first use into csrc/build/.
+    example.py `python -m viscoin_tpu_torch.example`: the forward on two images.
 """
 
 __version__ = "0.1.0"

@@ -59,7 +59,7 @@ def pca_images(models, latent: np.ndarray, components: np.ndarray,
     display over its row (as the JAX command)."""
     import torch
 
-    from viscoin_tpu_torch.cli.generate import deterministic_cudnn
+    from viscoin_tpu_torch.utils.cudnn import deterministic_cudnn
     from viscoin_tpu_torch.utils.images import from_torch
 
     p = next(models.parameters())

@@ -20,11 +20,11 @@ renders the same PNG in every run on the card.
 from __future__ import annotations
 
 import argparse
-import contextlib
 
 import torch
 
 from viscoin_tpu_torch.cli.utils import add_device_option, add_gan_option
+from viscoin_tpu_torch.utils.cudnn import deterministic_cudnn
 
 
 def parse_seeds(spec: str, flag: str = "--seeds") -> list[int]:
@@ -71,19 +71,6 @@ def save_png(arr, path: str) -> None:
 
     arr = arr.numpy() if isinstance(arr, torch.Tensor) else arr
     Image.fromarray(arr[..., 0] if arr.shape[-1] == 1 else arr).save(path)
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN's deterministic algorithms inside, the caller's setting after:
-    the up-convs run as transposed convolutions, whose default cuDNN
-    algorithms add with atomics, so two runs of one seed would differ."""
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
 
 
 def noise_generator(device, first_seed: int, offset: int) -> torch.Generator:

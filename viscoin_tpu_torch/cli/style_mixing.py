@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from viscoin_tpu_torch.cli.generate import (
-    deterministic_cudnn,
     noise_generator,
     parse_seeds,
     save_png,
@@ -32,6 +31,7 @@ from viscoin_tpu_torch.cli.generate import (
     to_u8,
 )
 from viscoin_tpu_torch.cli.utils import add_device_option, add_gan_option
+from viscoin_tpu_torch.utils.cudnn import deterministic_cudnn
 
 
 def add_parser(subparsers) -> argparse.ArgumentParser:

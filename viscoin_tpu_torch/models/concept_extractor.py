@@ -44,7 +44,13 @@ _POOL_MATRICES: dict[tuple, torch.Tensor] = {}
 def _pool_matrix(in_size: int, out_size: int, like: torch.Tensor) -> torch.Tensor:
     """The averaging matrix on ``like``'s device and dtype, made once (a copy
     to the card per call would wait for the stream), outside inference mode
-    so that a matrix first made while serving can enter autograd later."""
+    so that a matrix first made while serving can enter autograd later.
+    While a program is traced for ``torch.export`` it is made afresh and not
+    kept: it becomes the program's constant, and a tensor of the tracer's
+    must not outlive its trace."""
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(_adaptive_pool_matrix(in_size, out_size)).to(like.device,
+                                                                             like.dtype)
     key = (in_size, out_size, like.device, like.dtype)
     m = _POOL_MATRICES.get(key)
     if m is None:

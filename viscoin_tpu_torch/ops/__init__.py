@@ -1,7 +1,11 @@
 """Compute ops. ``bias_act`` and ``upfirdn2d`` launch hand-written CUDA
 kernels (``csrc/``) for CUDA tensors and run their plain torch versions for
-CPU tensors; dense convolutions are cuDNN."""
+CPU tensors; dense convolutions are cuDNN. Importing this package registers
+the kernels as the operators ``viscoin::bias_act``, ``viscoin::bias_act_grad``
+and ``viscoin::upfirdn2d`` (``ops/library.py``), which a loaded
+``torch.export`` program needs."""
 
+from viscoin_tpu_torch.ops import library  # noqa: F401 - registers viscoin::*
 from viscoin_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from viscoin_tpu_torch.ops.conv2d_resample import conv2d, conv2d_resample
 from viscoin_tpu_torch.ops.modulated_conv import modulated_conv2d

@@ -20,6 +20,13 @@ the JAX package's XLA path, ties included; a third order raises. The other
 six activations take the composed torch path on every device, as in JAX,
 with torch's autograd. There is no fallback: a CUDA tensor launches the
 kernel or raises.
+
+Both kernels are also the registered operators ``viscoin::bias_act`` and
+``viscoin::bias_act_grad`` (``ops/library.py``), whose implementations are
+the functions below. The Functions call those functions directly, by
+device, and the operators only while a program is traced for
+``torch.export`` (``serve/export.py``), so that the sealed program holds
+them.
 """
 
 from __future__ import annotations
@@ -93,9 +100,9 @@ class _BiasAct(torch.autograd.Function):
     def forward(ctx, x, b, act, alpha, gain, clamp):
         ctx.save_for_backward(x, b)
         ctx.args = dict(act=act, alpha=alpha, gain=gain, clamp=clamp)
-        if x.device.type != "cpu":
-            return _bias_act_cuda(x, b, **ctx.args)
-        return bias_act_plain(x, b, **ctx.args)
+        if torch.compiler.is_exporting():
+            return torch.ops.viscoin.bias_act(x, b, act, alpha, gain, clamp)
+        return (_bias_act_cuda if x.device.type != "cpu" else _bias_act_cpu)(x, b, **ctx.args)
 
     @staticmethod
     def backward(ctx, dy):
@@ -116,7 +123,7 @@ class _BiasActGrad(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, b)
         ctx.args = args
-        return _grad_route(x)(x, b, dy, need_db=need_db, **args)
+        return _grad(x, b, dy, None, need_db, args)
 
     @staticmethod
     @once_differentiable
@@ -126,12 +133,18 @@ class _BiasActGrad(torch.autograd.Function):
         x, b = ctx.saved_tensors
         if g_dx is None:
             g_dx = torch.zeros_like(x)
-        g_dy, _ = _grad_route(x)(x, b, g_dx, dy_add=g_db, need_db=False, **ctx.args)
+        g_dy, _ = _grad(x, b, g_dx, g_db, False, ctx.args)
         return None, None, g_dy, None, None
 
 
-def _grad_route(x: torch.Tensor):
-    return _bias_act_grad_cuda if x.device.type != "cpu" else bias_act_grad_plain
+def _grad(x, b, dy, dy_add, need_db, args):
+    """The backward kernel (the operator while a program is traced), or its
+    plain version for a CPU tensor."""
+    if torch.compiler.is_exporting():
+        return torch.ops.viscoin.bias_act_grad(x, b, dy, dy_add, args["act"], args["alpha"],
+                                               args["gain"], args["clamp"], need_db)
+    route = _bias_act_grad_cuda if x.device.type != "cpu" else _bias_act_grad_cpu
+    return route(x, b, dy, need_db=need_db, dy_add=dy_add, **args)
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -181,6 +194,14 @@ def bias_act_plain(x, b=None, *, act="linear", alpha=None, gain=None, clamp=None
     return y.to(x.dtype)
 
 
+def _bias_act_cpu(x, b, act, alpha, gain, clamp):
+    """The CPU implementation: the plain version as a fresh contiguous
+    tensor (an operator's output may not alias its input, which the plain
+    version's identity case would)."""
+    y = bias_act_plain(x, b, act=act, alpha=alpha, gain=gain, clamp=clamp)
+    return y.clone(memory_format=torch.contiguous_format) if y is x else y.contiguous()
+
+
 def bias_act_grad_plain(x, b, dy, *, act, alpha=None, gain, clamp=None, need_db=True,
                         dy_add=None):
     """The plain version of the backward kernel, for linear / relu / lrelu:
@@ -215,6 +236,13 @@ def bias_act_grad_plain(x, b, dy, *, act, alpha=None, gain, clamp=None, need_db=
     if b is not None and need_db:
         db = g.sum(dim=[d for d in range(g.ndim) if d != 1]).to(dtype=b.dtype, device=b.device)
     return g.to(x.dtype), db
+
+
+def _bias_act_grad_cpu(x, b, dy, dy_add, act, alpha, gain, clamp, need_db=True):
+    """The CPU implementation: the plain version, dx contiguous."""
+    dx, db = bias_act_grad_plain(x, b, dy, act=act, alpha=alpha, gain=gain, clamp=clamp,
+                                 need_db=need_db, dy_add=dy_add)
+    return dx.contiguous(), db
 
 
 # --------------------------------------------------------------------------- #
@@ -319,7 +347,7 @@ def _kernel_params(x, aligned, act, alpha, gain, clamp) -> _BiasActParams:
                    None if clamp is None else float(clamp))
 
 
-def _bias_act_cuda(x, b, *, act, alpha, gain, clamp):
+def _bias_act_cuda(x, b, act, alpha, gain, clamp):
     x, b = _kernel_inputs("bias_act", x, b)
     fn = _kernels.entry("bias_act")
     y = torch.empty_like(x)
@@ -330,7 +358,7 @@ def _bias_act_cuda(x, b, *, act, alpha, gain, clamp):
     return y
 
 
-def _bias_act_grad_cuda(x, b, dy, *, act, alpha, gain, clamp, need_db=True, dy_add=None):
+def _bias_act_grad_cuda(x, b, dy, dy_add, act, alpha, gain, clamp, need_db=True):
     """The backward kernel: ``(dx, db)`` as :func:`bias_act_grad_plain`
     returns them. ``dy`` may be any layout (autograd hands over expanded
     and non-contiguous gradients); it is made contiguous in x's type.

@@ -27,7 +27,14 @@ no gradient (it is a module constant).
 :func:`setup_filter` returns 1-D normalized taps for a 1-D input (the
 StyleGAN ``[1, 3, 3, 1]``), so the generator's resampling always reaches the
 kernel. Keep filters as host values (tuples, lists, CPU tensors): the kernel
-wrapper reads the taps on the host.
+wrapper reads the taps on the host. A filter from :func:`setup_filter`
+carries its taps, read where it was made, so a traced program never reads
+them from a tensor.
+
+The kernel is also the registered operator ``viscoin::upfirdn2d``
+(``ops/library.py``), whose implementations are :func:`_upfirdn2d_cuda` and
+:func:`_upfirdn2d_cpu`. The Function calls them directly, by device, and
+the operator only while a program is traced for ``torch.export``.
 """
 
 from __future__ import annotations
@@ -85,7 +92,10 @@ def setup_filter(f, *, normalize: bool = True, flip_filter: bool = False,
         f = f / f.sum()
     if flip_filter:
         f = f.flip(list(range(f.ndim)))
-    return f * (gain ** (f.ndim / 2))
+    f = f * (gain ** (f.ndim / 2))
+    if f.ndim == 1:
+        f.taps = tuple(f.tolist())  # what _taps reads; deepcopy and pickling keep it
+    return f
 
 
 def _filter_2d(f) -> torch.Tensor:
@@ -118,11 +128,16 @@ class _Upfirdn2d(torch.autograd.Function):
         ctx.args = (f, up, down, padding, flip_filter, gain)
         ctx.x_shape = x.shape
         separable = f is not None and torch.as_tensor(f).ndim == 1
-        if separable and x.device.type != "cpu":
-            return _upfirdn2d_cuda(x, f, up=up, down=down, padding=padding,
+        if not separable:
+            return upfirdn2d_plain(x, f, up=up, down=down, padding=padding,
                                    flip_filter=flip_filter, gain=gain)
-        return upfirdn2d_plain(x, f, up=up, down=down, padding=padding,
-                               flip_filter=flip_filter, gain=gain)
+        if torch.compiler.is_exporting():
+            return torch.ops.viscoin.upfirdn2d(x, list(_taps(f)), list(_pair(up)),
+                                               list(_pair(down)), list(parse_padding(padding)),
+                                               bool(flip_filter), float(gain))
+        route = _upfirdn2d_cuda if x.device.type != "cpu" else _upfirdn2d_cpu
+        return route(x, f, up=up, down=down, padding=padding, flip_filter=flip_filter,
+                     gain=gain)
 
     @staticmethod
     def backward(ctx, dy):
@@ -171,6 +186,21 @@ def upfirdn2d_plain(x, f, *, up=1, down=1, padding=0, flip_filter=False, gain=1.
     weight = f[None, None].repeat(C, 1, 1, 1)
     x = F.conv2d(x, weight, groups=C)
     return x[:, :, ::downy, ::downx]
+
+
+def _upfirdn2d_cpu(x, f, up, down, padding, flip_filter, gain):
+    """The CPU implementation: the plain version, its output contiguous."""
+    return upfirdn2d_plain(x, f, up=up, down=down, padding=padding, flip_filter=flip_filter,
+                           gain=gain).contiguous()
+
+
+def output_size(h: int, w: int, k: int, up=1, down=1, padding=0) -> tuple[int, int]:
+    """(ho, wo) of upfirdn2d on an (h, w) plane with ``k`` separable taps."""
+    upy, upx = _pair(up)
+    downy, downx = _pair(down)
+    padx0, padx1, pady0, pady1 = parse_padding(padding)
+    return ((h * upy + pady0 + pady1 - k) // downy + 1,
+            (w * upx + padx0 + padx1 - k) // downx + 1)
 
 
 # --------------------------------------------------------------------------- #
@@ -314,8 +344,7 @@ def fir_plan(shape: tuple[int, int, int, int], taps: tuple[float, ...], *, up=1,
         raise ValueError(f"up and down must be >= 1, got up={up}, down={down}")
     padx0, padx1, pady0, pady1 = parse_padding(padding)
     B, C, H, W = shape
-    ho = (H * upy + pady0 + pady1 - k) // downy + 1
-    wo = (W * upx + padx0 + padx1 - k) // downx + 1
+    ho, wo = output_size(H, W, k, up, down, padding)
     if ho < 1 or wo < 1:
         raise ValueError(f"upfirdn2d output would be empty ({ho}x{wo})")
     planes = B * C
@@ -365,10 +394,14 @@ _plans: dict[tuple, FirPlan] = {}   # the wrapper's arguments -> plan
 
 
 def _taps(f) -> tuple[float, ...]:
-    """The taps of ``f`` as a tuple, read once per filter tensor (the
+    """The taps of ``f`` as a tuple: those :func:`setup_filter` read where
+    it made the filter, or read once per other filter tensor (the
     generator's filters are module constants)."""
     if not isinstance(f, torch.Tensor):
         return tuple(float(t) for t in np.asarray(f, np.float32).reshape(-1))
+    taps = getattr(f, "taps", None)
+    if taps is not None:
+        return taps
     hit = _taps_cache.get(id(f))
     if hit is not None and hit[0] is f and hit[1] == f._version:
         return hit[2]
@@ -379,7 +412,7 @@ def _taps(f) -> tuple[float, ...]:
     return taps
 
 
-def _upfirdn2d_cuda(x, f, *, up, down, padding, flip_filter, gain):
+def _upfirdn2d_cuda(x, f, up, down, padding, flip_filter, gain):
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):

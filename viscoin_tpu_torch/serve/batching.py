@@ -1,10 +1,16 @@
-"""Request micro-batching for serving (stdlib only).
+"""Request micro-batching for serving, and the fixed device batch.
 
-A copy of ``viscoin_tpu/serve/batching.py``. The batcher coalesces
+The batcher is a copy of ``viscoin_tpu/serve/batching.py``. It coalesces
 concurrent requests into one device batch: the worker blocks for the first
 request, then drains the queue for at most ``max_delay_ms`` (or until
 ``max_batch`` items), runs the batch function once, and resolves each
 request's future with its row.
+
+:func:`run_padded` and :func:`prepare_image` are what the live engine
+(``serve/engine.py``) and a sealed artifact (``serve/export.py``) share:
+the chunking of a request into padded fixed device batches, and the eval
+geometry of an image of any size, and the compute dtypes. They need no
+model code.
 """
 
 from __future__ import annotations
@@ -15,6 +21,41 @@ import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from viscoin_tpu_torch.data.transforms import host_test_transform
+from viscoin_tpu_torch.parallel.mesh import pad_to_multiple
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def prepare_image(img_u8: np.ndarray, resolution: int) -> np.ndarray:
+    """Arbitrary-size HWC u8 -> the model resolution with the eval geometry
+    (Resize(short = size / 0.875) + CenterCrop)."""
+    img_u8 = np.asarray(img_u8, np.uint8)
+    if img_u8.shape[:2] != (resolution, resolution):
+        img_u8 = host_test_transform(img_u8, size=resolution, resize_to=int(resolution / 0.875))
+    return img_u8
+
+
+def run_padded(call, images_u8: np.ndarray, batch_size: int) -> dict:
+    """Chunk a u8 batch to ``batch_size``, pad the last chunk, drop the
+    padding rows from each output and concatenate. ``call(chunk) -> dict``
+    runs one fixed-size device batch and returns numpy arrays."""
+    images_u8 = np.asarray(images_u8, np.uint8)
+    if images_u8.ndim == 3:
+        images_u8 = images_u8[None]
+    n = images_u8.shape[0]
+    if n == 0:
+        raise ValueError("empty image batch")
+    chunks: list[dict] = []
+    for start in range(0, n, batch_size):
+        chunk, rows = pad_to_multiple(images_u8[start: start + batch_size], batch_size)
+        out = call(chunk)
+        chunks.append({k: v[:rows] for k, v in out.items()})
+    return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
 
 
 @dataclass

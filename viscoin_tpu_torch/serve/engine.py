@@ -15,6 +15,9 @@ never carries on on the CPU unless asked for ``device="cpu"``. With
 ``devices`` (data parallelism, as the JAX engine's mesh) it keeps one
 replica per device, splits each padded device batch into equal parts, one
 per replica, and concatenates the outputs; ``amplify`` stays on the first.
+
+The batched endpoints are the tensor functions of :func:`build_endpoint_fns`,
+which ``serve/export.py`` seals into an artifact.
 """
 
 from __future__ import annotations
@@ -25,41 +28,67 @@ import copy
 import numpy as np
 import torch
 
-from viscoin_tpu_torch.data.transforms import denormalize, device_preprocess, host_test_transform
+from viscoin_tpu_torch.data.transforms import denormalize, device_preprocess
 from viscoin_tpu_torch.eval.viscoin import amplify_concepts, make_amplify_fns
 from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
-from viscoin_tpu_torch.parallel.mesh import pad_to_multiple
+from viscoin_tpu_torch.parallel.mesh import pad_to_multiple  # noqa: F401 - re-exported
+from viscoin_tpu_torch.serve.batching import COMPUTE_DTYPES, prepare_image, run_padded
 from viscoin_tpu_torch.utils.gradcam import psi_gradcams
 
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+def build_endpoint_fns(models: VisCoINModels, compute_dtype: str = "float32") -> dict:
+    """The pure tensor functions behind the engine, ``fn(images_u8) ->
+    {name: tensor}``: a (B, H, W, 3) uint8 batch on the models' device in,
+    device tensors out. ``models`` is cast to ``compute_dtype`` already.
+    :mod:`~viscoin_tpu_torch.serve.export` traces these very functions, so
+    the live engine and a sealed artifact compute the same graph. They set
+    no grad mode of their own: the engine runs classify and reconstruct
+    under ``torch.inference_mode`` and explain (a backward) outside it."""
+    dtype = COMPUTE_DTYPES[compute_dtype]
 
-def prepare_image(img_u8: np.ndarray, resolution: int) -> np.ndarray:
-    """Arbitrary-size HWC u8 -> the model resolution with the eval geometry
-    (Resize(short = size / 0.875) + CenterCrop)."""
-    img_u8 = np.asarray(img_u8, np.uint8)
-    if img_u8.shape[:2] != (resolution, resolution):
-        img_u8 = host_test_transform(img_u8, size=resolution, resize_to=int(resolution / 0.875))
-    return img_u8
+    def encode(images_u8):
+        x = device_preprocess(images_u8).to(dtype)
+        logits, hidden = models.classify(x)
+        phi, phi_prime = models.extract_concepts(hidden)
+        return logits.float(), phi, phi_prime, models.explain(phi).float()
 
+    def classify(images_u8):
+        """u8 batch -> classifier and explainer logits/probas, pooled concepts."""
+        logits, phi, _, expl_logits = encode(images_u8)
+        return {
+            "logits": logits,
+            "probas": torch.softmax(logits, dim=-1),
+            "expl_logits": expl_logits,
+            "expl_probas": torch.softmax(expl_logits, dim=-1),
+            "concepts": max_pool_concepts(phi).float(),
+        }
 
-def run_padded(call, images_u8: np.ndarray, batch_size: int) -> dict:
-    """Chunk a u8 batch to ``batch_size``, pad the last chunk, drop the
-    padding rows from each output and concatenate. ``call(chunk) -> dict``
-    runs one fixed-size device batch and returns numpy arrays."""
-    images_u8 = np.asarray(images_u8, np.uint8)
-    if images_u8.ndim == 3:
-        images_u8 = images_u8[None]
-    n = images_u8.shape[0]
-    if n == 0:
-        raise ValueError("empty image batch")
-    chunks: list[dict] = []
-    for start in range(0, n, batch_size):
-        chunk, rows = pad_to_multiple(images_u8[start: start + batch_size], batch_size)
-        out = call(chunk)
-        chunks.append({k: v[:rows] for k, v in out.items()})
-    return {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    def reconstruct(images_u8):
+        """u8 batch -> u8 reconstructions G(Psi(f(x))) and both predictions."""
+        logits, phi, phi_prime, expl_logits = encode(images_u8)
+        recon = models.reconstruct(phi, phi_prime, noise_mode="const")
+        # The generator reconstructs in ImageNet-normalized space; invert to
+        # display range and quantize on the device (3 bytes/px to the host).
+        img01 = denormalize(recon.float()).clamp(0.0, 1.0)
+        recon_u8 = torch.round(img01 * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
+        return {"reconstruction_u8": recon_u8, "preds": logits.argmax(dim=-1),
+                "expl_preds": expl_logits.argmax(dim=-1)}
+
+    def explain(images_u8):
+        """u8 batch -> GradCAM maps of Psi's convs (utils/gradcam.py). The
+        classifier runs without a graph; only the taps require a gradient."""
+        x = device_preprocess(images_u8).to(dtype)
+        with torch.no_grad():
+            logits, hidden = models.classify(x)
+        heatmaps, phi, expl_logits = psi_gradcams(models, hidden[-3:])
+        logits = logits.float()
+        return {"logits": logits, "expl_logits": expl_logits, "preds": logits.argmax(dim=-1),
+                "expl_preds": expl_logits.argmax(dim=-1),
+                "concepts": max_pool_concepts(phi).float(),
+                **{f"heatmap_{name}": m for name, m in heatmaps.items()}}
+
+    return {"classify": classify, "reconstruct": reconstruct, "explain": explain}
 
 
 class InferenceEngine:
@@ -99,6 +128,7 @@ class InferenceEngine:
             replica = copy.deepcopy(models).to(device=d, dtype=self.dtype)
             self.replicas.append((d, replica.eval().requires_grad_(False)))
         self.models = self.replicas[0][1]
+        self._fns = [build_endpoint_fns(m, compute_dtype) for _, m in self.replicas]
         self._amplify_fns = make_amplify_fns(self.models)
 
     def prepare_image(self, img_u8: np.ndarray) -> np.ndarray:
@@ -106,78 +136,36 @@ class InferenceEngine:
 
     # ------------------------------ device side ----------------------------- #
 
-    def _split(self, fn, chunk: np.ndarray) -> dict:
-        """``fn(models, device, part) -> {name: tensor}`` on every replica's
-        equal part of the device batch, each under its device (the kernels
-        launch on the current one); every part is issued before any is read
-        back, then the outputs are concatenated in order."""
+    def _split(self, name: str, chunk: np.ndarray) -> dict:
+        """Endpoint ``name`` on every replica's equal part of the device
+        batch, each under its device (the kernels launch on the current one);
+        every part is issued before any is read back, then the outputs are
+        concatenated in order. classify and reconstruct run under inference
+        mode; explain differentiates, so it does not."""
         parts = np.split(chunk, len(self.replicas))
+        grad_mode = contextlib.nullcontext if name == "explain" else torch.inference_mode
         outs = []
-        for (device, models), part in zip(self.replicas, parts):
+        for (device, _), fns, part in zip(self.replicas, self._fns, parts):
             ctx = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-            with ctx:
-                outs.append(fn(models, device, part))
+            with ctx, grad_mode():
+                outs.append(fns[name](torch.from_numpy(part).to(device)))
         return {k: np.concatenate([o[k].cpu().numpy() for o in outs]) for k in outs[0]}
-
-    def _encode(self, models, device, chunk: np.ndarray):
-        images = torch.from_numpy(chunk).to(device)
-        x = device_preprocess(images).to(self.dtype)
-        logits, hidden = models.classify(x)
-        phi, phi_prime = models.extract_concepts(hidden)
-        return logits.float(), phi, phi_prime, models.explain(phi).float()
-
-    @torch.inference_mode()
-    def _classify(self, models, device, chunk: np.ndarray) -> dict:
-        logits, phi, _, expl_logits = self._encode(models, device, chunk)
-        return {
-            "logits": logits,
-            "probas": torch.softmax(logits, dim=-1),
-            "expl_logits": expl_logits,
-            "expl_probas": torch.softmax(expl_logits, dim=-1),
-            "concepts": max_pool_concepts(phi).float(),
-        }
-
-    @torch.inference_mode()
-    def _reconstruct(self, models, device, chunk: np.ndarray) -> dict:
-        logits, phi, phi_prime, expl_logits = self._encode(models, device, chunk)
-        recon = models.reconstruct(phi, phi_prime, noise_mode="const")
-        # The generator reconstructs in ImageNet-normalized space; invert to
-        # display range and quantize on the device (3 bytes/px to the host).
-        img01 = denormalize(recon.float()).clamp(0.0, 1.0)
-        recon_u8 = torch.round(img01 * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
-        return {"reconstruction_u8": recon_u8, "preds": logits.argmax(dim=-1),
-                "expl_preds": expl_logits.argmax(dim=-1)}
-
-    def _explain(self, models, device, chunk: np.ndarray) -> dict:
-        # Not under inference mode: the backward needs autograd. The
-        # classifier runs without a graph; only the taps require a gradient.
-        images = torch.from_numpy(chunk).to(device)
-        x = device_preprocess(images).to(self.dtype)
-        with torch.no_grad():
-            logits, hidden = models.classify(x)
-        heatmaps, phi, expl_logits = psi_gradcams(models, hidden[-3:])
-        logits = logits.float()
-        return {"logits": logits, "expl_logits": expl_logits, "preds": logits.argmax(dim=-1),
-                "expl_preds": expl_logits.argmax(dim=-1),
-                "concepts": max_pool_concepts(phi).float(),
-                **{f"heatmap_{name}": m for name, m in heatmaps.items()}}
 
     # ------------------------------- endpoints ------------------------------ #
 
     def classify(self, images_u8: np.ndarray) -> dict:
         """u8 batch -> classifier and explainer logits/probas, pooled concepts."""
-        return run_padded(lambda c: self._split(self._classify, c), images_u8, self.batch_size)
+        return run_padded(lambda c: self._split("classify", c), images_u8, self.batch_size)
 
     def reconstruct(self, images_u8: np.ndarray) -> dict:
         """u8 batch -> u8 reconstructions G(Psi(f(x))) and both predictions."""
-        return run_padded(lambda c: self._split(self._reconstruct, c), images_u8,
-                          self.batch_size)
+        return run_padded(lambda c: self._split("reconstruct", c), images_u8, self.batch_size)
 
     def explain(self, images_u8: np.ndarray) -> dict:
         """u8 batch -> GradCAM heatmaps of Psi's conv1..conv5 (``heatmap_conv1``
         ... (B, h, w) fp32) for the explainer's cross-entropy at its own
         prediction, both predictions, the logits and pooled concepts."""
-        return run_padded(lambda c: self._split(self._explain, c), images_u8, self.batch_size)
+        return run_padded(lambda c: self._split("explain", c), images_u8, self.batch_size)
 
     def amplify(self, image_u8: np.ndarray, selection, multipliers, seed: int = 0):
         """One image's concept amplification: every variant (2 x len(multipliers)

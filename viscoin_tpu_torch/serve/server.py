@@ -20,7 +20,9 @@ out unless noted):
                                query: top_k
 
 Amplify is served directly (it already batches its variants on the device),
-one request at a time. Request bodies: ``.npz`` bytes with an ``images`` array ((H,W,3) or
+one request at a time. The engine is an ``InferenceEngine`` or a sealed
+artifact's ``ExportedEngine`` (``serve/export.py``), which has no amplify
+and may lack explain: both answer 400 there. Request bodies: ``.npz`` bytes with an ``images`` array ((H,W,3) or
 (N,H,W,3) uint8), a raw PNG/JPEG (content-type ``image/*``), or JSON
 ``{"images": nested-lists}``. Arbitrary sizes are resized on the host with
 the eval geometry (engine.prepare_image). Each request image goes through a
@@ -40,7 +42,6 @@ import numpy as np
 
 from viscoin_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from viscoin_tpu_torch.serve.batching import MicroBatcher
-from viscoin_tpu_torch.serve.engine import InferenceEngine
 
 
 class RequestError(ValueError):
@@ -96,7 +97,7 @@ def _npz_bytes(**arrays) -> bytes:
 class VisCoINServer:
     """Engine + per-endpoint micro-batchers + HTTP plumbing."""
 
-    def __init__(self, engine: InferenceEngine, max_delay_ms: float = 5.0, top_k: int = 5):
+    def __init__(self, engine, max_delay_ms: float = 5.0, top_k: int = 5):
         self.engine = engine
         self.top_k = top_k
         self._amplify_lock = threading.Lock()
@@ -153,7 +154,10 @@ class VisCoINServer:
             expl_preds=out["expl_preds"])
 
     def handle_explain(self, images: np.ndarray, params: dict) -> tuple[str, bytes]:
-        out = self._gather("explain", images)
+        try:
+            out = self._gather("explain", images)
+        except KeyError as e:  # a sealed artifact exported without `explain`
+            raise RequestError(str(e))
         k = min(int(params.get("top_k", self.top_k)), out["concepts"].shape[-1])
         order_c = np.argsort(out["concepts"], axis=-1)[:, ::-1][:, :k]
         heatmaps = {key: out[key] for key in out if key.startswith("heatmap_")}
@@ -163,6 +167,9 @@ class VisCoINServer:
             **heatmaps)
 
     def handle_amplify(self, images: np.ndarray, params: dict) -> tuple[str, bytes]:
+        if not hasattr(self.engine, "amplify"):
+            raise RequestError("amplify is unavailable on this server (a sealed artifact "
+                               "exports classify, reconstruct and explain only)")
         if images.shape[0] != 1:
             raise RequestError("amplify takes exactly one image per request")
         multipliers = [float(m) for m in str(params.get("multipliers", "0,1,2,4")).split(",")]
@@ -248,7 +255,7 @@ class VisCoINServer:
         return ThreadingHTTPServer((host, port), Handler)
 
 
-def run_server(engine: InferenceEngine, host: str = "127.0.0.1", port: int = 8751,
+def run_server(engine, host: str = "127.0.0.1", port: int = 8751,
                max_delay_ms: float = 5.0):
     """Blocking serve loop (the ``serve`` command's). Prints the bound
     address, so that a caller of port 0 can read it, and, once stopped, that

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from viscoin_tpu_torch.utils import cudnn
+
 CONVS = tuple(f"conv{i}" for i in range(1, 6))
 
 
@@ -40,11 +42,9 @@ def psi_gradcams(models, latents, labels: torch.Tensor | None = None):
     serving explains). ``latents``: the classifier's hidden_states[-3:].
 
     Returns ({conv name: (B, h, w) fp32 tensor}, Phi, explainer logits)."""
-    from viscoin_tpu_torch.cli.generate import deterministic_cudnn
-
     psi = models.concept_extractor
     latents = tuple(t.detach() for t in latents)
-    with torch.enable_grad(), deterministic_cudnn():
+    with torch.enable_grad(), cudnn.deterministic_cudnn():
         eps = [torch.zeros(s, device=latents[0].device, dtype=latents[0].dtype,
                            requires_grad=True) for s in psi.tap_shapes(latents)]
         phi, _, acts = psi.forward_taps(latents, eps)
