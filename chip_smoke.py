@@ -166,7 +166,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                level); amplify, concepts, concept-heatmaps and logs as
                commands where matplotlib is installed, else their
                ImportError and their computations in-process; to-pickle;
-20. dp        data parallelism (parallel/mesh.py), see phase_dp: (a) `train
+20. concept2clip beside the analysis phase's bundle, in a directory of its
+               own: (a) CLIP ViT-B/32 at full width from seeded weights, every
+               leaf perturbed: encode_image on 8 seeded 224² inputs and
+               encode_text on 8 captions (a merges file learnt here from the
+               captions) card (TF32 off) vs CPU within 1e-4 of the scale, the
+               EOT rows, encode_image at batch 32 timed (median of 10 after 3,
+               img/s, peak memory); (b) `port-weights clip` on seeded sources
+               in the OpenAI and HF layouts at the manifests' full shapes
+               (clean; --strict on the card; --check exits 1 on a mis-shaped
+               copy; the written CLIP's embeddings bit-equal to an in-process
+               conversion's); (c) `train concept2clip --dataset synthetic
+               --epochs 3` at 256² (64 images per split) with --latent-type
+               viscoin (no launch) and gan (the W+ pass: exactly the CPU's
+               narrow count of bias_act, no upfirdn2d): the jsonl, the
+               checkpoint and export-concept2clip bit-equal both ways, the
+               walls of the CLIP pass, the space passes and each epoch; one
+               epoch from the same caches card (TF32 off) vs CPU within 1e-5
+               and the same matching accuracy, and a planted fault (the test
+               loader unshuffled) that check must catch;
+21. dp        data parallelism (parallel/mesh.py), see phase_dp: (a) `train
                viscoin` at flagship width under `torchrun --nproc-per-node 1`
                (NCCL at world size 1) against --no-data-parallel: jsonl records,
                the training state and the launches bit-equal; (b) two
@@ -178,10 +197,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                all-reduce) must fail; (c) `serve --data-parallel` on the one
                card bit-equal to the engine; wall time and peak memory per
                rank;
-21. timings   per kernel (CUDA events at the path's shapes, summed over the
+22. timings   per kernel (CUDA events at the path's shapes, summed over the
                loop's run A, the GAN's 16-step cycle, one FID estimate, the
-               projection's 100 timed steps, one PPL batch and amplify-pca
-               --pca 2 as they made each call, and over one reconstruct
+               projection's 100 timed steps, one PPL batch, amplify-pca --pca
+               2 and train concept2clip's W+ pass as they made each call, and over one reconstruct
                batch or one train step) beside its plain version,
                a one-call PyTorch yardstick where one exists, and its
                memory/compute bound; for the largest shapes the profiler's
@@ -193,13 +212,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                operator (torch.ops.viscoin.*); the same for a probe chunk (N = 32) and
                an amplify call (N = 2M + 1 = 9); per endpoint latency, img/s
                and peak memory, and a torch.profiler breakdown of reconstruct;
-22. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
+23. the ``{"kernels": [...]}`` line: launches, ms, plain_ms, bound_ms and
                library_ms all over the loop's run A (``ms_over`` says so),
                the same over the GAN cycle (``gan_cycle_*``), one FID
                estimate (``fid_sampling_*``), the projection's timed steps
-               (``projection_*``), one PPL batch (``ppl_batch_*``) and
-               amplify-pca --pca 2's computation (``amplify_pca_*``); then
-               the device line, last.
+               (``projection_*``), one PPL batch (``ppl_batch_*``),
+               amplify-pca --pca 2's computation (``amplify_pca_*``) and train
+               concept2clip --latent-type gan's W+ pass (``concept2clip_w_*``);
+               then the device line, last.
 
 It imports torch and viscoin_tpu_torch only.
 """
@@ -3912,13 +3932,13 @@ def analysis_commands(models, bundle: str, loop_jsonl: str, device: dict) -> dic
     return out
 
 
-def phase_analysis(models, device: dict, loop_jsonl: str) -> tuple[dict, dict]:
+def phase_analysis(models, device: dict, loop_jsonl: str, tmp: str) -> tuple[dict, dict]:
     """serve's command, explain, test_concepts, the W+ pass, amplify-pca and
-    the analysis commands on the flagship bundle, saved to a temporary
-    directory. Returns (record, {label: amplify-pca's kernel calls})."""
+    the analysis commands on the flagship bundle, saved to ``tmp`` as
+    ``viscoin-flagship``. Returns (record, {label: amplify-pca's kernel
+    calls})."""
     out: dict = {}
     t_start = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="viscoin_analysis_")
     cwd = os.getcwd()
     try:
         bundle = os.path.join(tmp, "viscoin-flagship")
@@ -3935,12 +3955,418 @@ def phase_analysis(models, device: dict, loop_jsonl: str) -> tuple[dict, dict]:
         out["commands"] = analysis_commands(models, bundle, loop_jsonl, device)
     finally:
         os.chdir(cwd)
-        shutil.rmtree(tmp, ignore_errors=True)
         tf32_defaults(device)
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_start
     say("analysis", f"the phase took {out['seconds']:.1f} s; {device['nvidia_smi']}")
     return out, {"amplify-pca --pca 2": pca_calls}
+
+
+# ---------------------------- the concept2clip phase -------------------------- #
+
+C2C_N = PIPE_N  # synthetic images per split for `train concept2clip` (VISCOIN_SYNTH_N)
+C2C_EPOCHS = 3  # `--epochs` here; the command's default is 30
+CLIP_TOL = 1e-4  # CLIP card (TF32 off) vs CPU, of the embeddings' scale
+C2C_RTOL = 1e-5  # one epoch's losses card (TF32 off) vs CPU, relative
+C2C_CHECK_BATCH = 24  # the card-vs-CPU epoch's batch: ragged test batches (24, 24, 16)
+C2C_KEYS = {"train_loss", "test_loss", "matching_accuracy"}  # the JAX trainer's records
+
+
+def caption_merges(captions: list[str], n: int) -> list[str]:
+    """``n`` merges learnt from the captions' words by byte-pair counting,
+    in the format of CLIP's merges file (one "a b" pair per line)."""
+    import collections
+    import re
+
+    words = collections.Counter(tuple(w[:-1]) + (w[-1] + "</w>",) for c in captions
+                                for w in re.findall(r"[a-z]+", c.lower()))
+    merges = []
+    for _ in range(n):
+        pairs = collections.Counter()
+        for w, k in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += k
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append(f"{a} {b}")
+        merged = collections.Counter()
+        for w, k in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += k
+        words = merged
+    return merges
+
+
+def perturb_all(module, seed: int) -> None:
+    """Every leaf + 0.1 x its spread (or x 1 where it is constant) x N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            spread = float(p.std()) if p.numel() > 1 else 0.0
+            p.add_((0.1 * (spread or 1.0)) * torch.randn(p.shape, device=p.device,
+                                                         generator=gen))
+
+
+def clip_source(kind: str, seed: int) -> dict[str, np.ndarray]:
+    """A seeded state_dict of a CLIP checkpoint at its manifest's full
+    shapes: N(0, 0.02) floats, HF's position_ids as HF stores them."""
+    rng = np.random.default_rng(seed)
+    man = porting.load_manifest(kind)
+    sd = {}
+    for part in ("required", "optional"):
+        for k, shape in man[part].items():
+            if k.endswith("position_ids"):
+                sd[k] = np.arange(shape[-1], dtype=np.int64)[None]
+            elif k in ("context_length", "input_resolution", "vocab_size"):
+                sd[k] = np.asarray({"context_length": 77, "input_resolution": 224,
+                                    "vocab_size": 49408}[k])
+            else:
+                sd[k] = (0.02 * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+    return sd
+
+
+class FunctionWalls:
+    """Host (start, end) seconds of each call of the named module functions
+    while the context is open (each returns numpy or a Python float: its
+    device work has finished when it returns)."""
+
+    def __init__(self, targets: dict[str, tuple]):
+        self.targets = targets  # label -> (module, function name)
+        self.spans: dict[str, list[tuple[float, float]]] = {label: [] for label in targets}
+        self._orig = {label: getattr(mod, name) for label, (mod, name) in targets.items()}
+
+    def __enter__(self):
+        for label, (mod, name) in self.targets.items():
+            def timed(*args, _f=self._orig[label], _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _f(*args, **kw)
+                finally:
+                    self.spans[_label].append((t0, time.perf_counter()))
+            setattr(mod, name, timed)
+        return self
+
+    def walls(self, label: str) -> list[float]:
+        return [end - start for start, end in self.spans[label]]
+
+    def epochs(self) -> list[float]:
+        """Each epoch of the trainer: from its start, or the end of the
+        previous epoch's test pass, to the end of the epoch's test pass."""
+        (start, _), = self.spans["trainer"]
+        ends = [end for _, end in self.spans["test_pass"]]
+        return [b - a for a, b in zip([start, *ends], ends)]
+
+    def __exit__(self, *exc):
+        for label, (mod, name) in self.targets.items():
+            setattr(mod, name, self._orig[label])
+
+
+class UnshuffledTestLoader:
+    """A planted fault: the trainer's test loader in its stored order (the
+    reference shuffles it on purpose). The card-vs-CPU epoch must see it."""
+
+    def __enter__(self):
+        import viscoin_tpu_torch.train.concept2clip as TC
+
+        self._mod, self._orig = TC, TC.TensorLoader
+        TC.TensorLoader = lambda x, y, bs, shuffle=True, seed=0: self._orig(
+            x, y, bs, shuffle=False, seed=seed)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.TensorLoader = self._orig
+
+
+def c2c_epoch(spaces: tuple, embs: tuple, device: str, seed_model, log: str) -> dict:
+    """One epoch of train_concept2clip at C2C_CHECK_BATCH from the given
+    initial adapter on ``device``; its record."""
+    from viscoin_tpu_torch.models.concept2clip import Concept2CLIP
+    from viscoin_tpu_torch.train.concept2clip import Concept2ClipTrainingParams, train_concept2clip
+
+    model = Concept2CLIP(n_concepts=seed_model.config["n_concepts"], device=device)
+    model.load_state_dict(seed_model.state_dict())
+    configure_score_logging(log)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_concept2clip(model, spaces[0], embs[0], spaces[1], embs[1],
+                           Concept2ClipTrainingParams(epochs=1, batch_size=C2C_CHECK_BATCH))
+    (rec,) = read_jsonl(log)
+    return rec
+
+
+def c2c_deviation(got: dict, want: dict) -> tuple[float, bool]:
+    """(the largest relative loss deviation, whether the matching accuracies
+    are equal)."""
+    dev = max(abs(got[k] - want[k]) / abs(want[k]) for k in ("train_loss", "test_loss"))
+    return dev, got["matching_accuracy"] == want["matching_accuracy"]
+
+
+def c2c_clip(device: dict) -> dict:
+    """(a): CLIP ViT-B/32 at full width from seeded weights, every leaf
+    perturbed: encode_image on 8 seeded 224² inputs and encode_text on 8
+    captions (tokenized with merges learnt here), card (TF32 off) against
+    device="cpu"; the EOT rows; encode_image at batch 32 fp32 timed."""
+    from viscoin_tpu_torch.captions import cub
+    from viscoin_tpu_torch.models.clip import CLIP, SimpleTokenizer, clip_preprocess_u8
+
+    card = device["nvidia_smi"]
+    clip = init_models(CLIP(device="cuda"), SEED + 110)
+    perturb_all(clip, SEED + 111)
+    cpu = CLIP(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in clip.state_dict().items()})
+    n_params = sum(p.numel() for p in clip.parameters())
+    u8 = torch.from_numpy(np.random.default_rng(SEED + 112).integers(
+        0, 256, (8, 224, 224, 3), dtype=np.uint8))
+    captions = cub.load()
+    with open("merges.txt.gz", "wb") as raw:
+        import gzip
+
+        with gzip.open(raw, "wt", encoding="utf-8") as f:
+            f.write("\n".join(["#version: 0.2", *caption_merges(captions, 200)]))
+    tok = SimpleTokenizer("merges.txt.gz")
+    picked = [captions[i] for i in range(0, len(captions), len(captions) // 8)][:8]
+    tokens = torch.from_numpy(tok.tokenize(picked).astype(np.int64))
+    eot = tok.encoder["<|endoftext|>"]
+    lengths = [2 + len(tok.encode(c)) for c in picked]
+    assert all(tokens[i, n - 1] == eot and tokens[i, n:].eq(0).all()
+               for i, n in enumerate(lengths)), (tokens, lengths)
+    assert tokens.argmax(dim=1).tolist() == [n - 1 for n in lengths]
+    set_tf32(False)
+    with torch.no_grad():
+        img_card = clip.encode_image(clip_preprocess_u8(u8.cuda())).cpu()
+        img_cpu = cpu.encode_image(clip_preprocess_u8(u8))
+        txt_card = clip.encode_text(tokens.cuda()).cpu()
+        txt_cpu = cpu.encode_text(tokens)
+        # The row after the EOT token never reaches it (the causal mask).
+        noisy = tokens.clone()
+        for i, n in enumerate(lengths):
+            noisy[i, n:] = torch.randint(1, eot, (77 - n,), generator=torch.Generator()
+                                         .manual_seed(i))
+        txt_noisy = clip.encode_text(noisy.cuda()).cpu()
+    img_err, txt_err = _rel(img_card, img_cpu), _rel(txt_card, txt_cpu)
+    eot_err = _rel(txt_noisy, txt_card)
+    assert img_err <= CLIP_TOL and txt_err <= CLIP_TOL, (img_err, txt_err)
+    assert eot_err <= 1e-6, eot_err
+    assert float(img_cpu.abs().max()) > 0 and float(txt_cpu.abs().max()) > 0
+    del cpu
+    tf32_defaults(device)
+    x = clip_preprocess_u8(torch.from_numpy(np.random.default_rng(SEED + 113).integers(
+        0, 256, (32, 256, 256, 3), dtype=np.uint8)).cuda())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with torch.no_grad():
+        for i in range(13):
+            t0 = time.perf_counter()
+            clip.encode_image(x).cpu()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    say("concept2clip", f"(a) CLIP ViT-B/32 ({n_params / 1e6:.2f} M parameters, seeded, every "
+        f"leaf perturbed): encode_image on 8 seeded 224² inputs card (TF32 off) vs CPU "
+        f"{img_err:.3g} of the scale, encode_text on 8 captions {txt_err:.3g} (tolerance "
+        f"{CLIP_TOL:g}); the EOT rows at the tokens' argmax, unmoved by the ids after them "
+        f"({eot_err:.3g}); encode_image at batch 32 fp32 (TF32 at the defaults): median "
+        f"{med:.2f} ms of 10 after 3 (min {min(times):.2f}), {32 / med * 1e3:.1f} img/s, "
+        f"peak {peak:.0f} MiB; {card}")
+    return {"params_m": n_params / 1e6, "image_vs_cpu": img_err, "text_vs_cpu": txt_err,
+            "eot_rows": eot_err, "encode_image_b32_ms": med, "encode_image_b32_min_ms":
+            min(times), "img_per_s": 32 / med * 1e3, "peak_mib": peak}
+
+
+def c2c_port_weights(device: dict) -> dict:
+    """(b): `port-weights clip` on seeded sources in the OpenAI and HF
+    layouts at the manifests' full shapes: each clean against its manifest;
+    `--strict` loads it on the card and writes it (the OpenAI one to the
+    default checkpoints/clip/vit-b-32, which `train concept2clip` reads
+    below); `--check` exits 1 on a mis-shaped copy; the written CLIP's
+    image embeddings equal an in-process conversion's bit for bit."""
+    from viscoin_tpu_torch.cli.port_weights import clip_from_params
+    from viscoin_tpu_torch.models.clip import CLIP_CHECKPOINT, clip_preprocess_u8
+
+    card = device["nvidia_smi"]
+    out: dict = {}
+    x = clip_preprocess_u8(torch.from_numpy(np.random.default_rng(SEED + 114).integers(
+        0, 256, (4, 224, 224, 3), dtype=np.uint8)).cuda())
+    set_tf32(False)
+    for kind, convert, dst in (("clip_openai", porting.convert_torch_clip, CLIP_CHECKPOINT),
+                               ("clip_hf", porting.convert_hf_clip, "clip-hf")):
+        sd = clip_source(kind, SEED + 115)
+        assert porting.validate_state_dict(sd, kind) == [], kind
+        torch.save(_torch_sd(sd), f"{kind}.pt")
+        t0 = time.perf_counter()
+        log = _quiet_main(["port-weights", "clip", f"{kind}.pt", dst, "--strict"])
+        out[f"{kind}_s"] = time.perf_counter() - t0
+        assert f"manifest check [{kind}]: OK" in log, log
+        bad = dict(sd)
+        key = next(k for k in sd if k.endswith("proj.weight") or k.endswith("proj"))
+        bad[key] = sd[key][:, :-1]
+        torch.save(_torch_sd(bad), "bad.pt")
+        del bad
+        with contextlib.redirect_stdout(io.StringIO()):
+            code = _port_main(["port-weights", "clip", "bad.pt", "--check"])
+        assert code == 1, (kind, code)
+        with torch.no_grad():
+            written = clip_from_params(ckpt.restore_pytree(dst), "cuda").encode_image(x)
+            direct = clip_from_params(convert(sd), "cuda").encode_image(x)
+        assert torch.equal(written, direct), kind
+        del sd
+        os.remove(f"{kind}.pt")
+        os.remove("bad.pt")
+    tf32_defaults(device)
+    say("concept2clip", f"(b) port-weights clip: seeded OpenAI and HF sources at the manifests' "
+        "full shapes, each clean against its manifest; --strict loaded each on the card and "
+        f"wrote it ({out['clip_openai_s']:.1f} s, {out['clip_hf_s']:.1f} s; the OpenAI one to "
+        f"{CLIP_CHECKPOINT}); --check exited 1 on a mis-shaped copy; the written CLIP's image "
+        f"embeddings equal an in-process conversion's bit for bit; {card}")
+    return out
+
+
+def c2c_command(bundle: str, device: dict) -> tuple[dict, dict]:
+    """(c): `train concept2clip --dataset synthetic --epochs 3` at 256² with
+    C2C_N images per split, --latent-type viscoin then gan: launches (none
+    for viscoin; for gan exactly the W+ pass's count of the same pass on the
+    CPU at narrow widths, no upfirdn2d), the jsonl, the checkpoint reloaded
+    bit-equal, export-concept2clip and back bit-equal, the walls of the CLIP
+    pass, the space passes and an epoch; then one epoch from the same
+    cached spaces and embeddings card (TF32 off) against the CPU, and the
+    same under UnshuffledTestLoader, which that check must catch. Returns
+    (record, the gan run's kernel calls)."""
+    import viscoin_tpu_torch.eval.spaces as TS
+    import viscoin_tpu_torch.models.clip as TCL
+    import viscoin_tpu_torch.train.concept2clip as TC
+    from viscoin_tpu_torch.cli.port_weights import concept2clip_from_params
+    from viscoin_tpu_torch.data.utils import get_datasets
+    from viscoin_tpu_torch.eval.spaces import compute_w_space
+    from viscoin_tpu_torch.models.concept2clip import Concept2CLIP
+
+    card = device["nvidia_smi"]
+    out: dict = {}
+    os.makedirs("checkpoints/synthetic")
+    os.symlink(bundle, "checkpoints/synthetic/viscoin-synthetic")
+    env = {k: os.environ.get(k) for k in ("VISCOIN_SYNTH_N", "VISCOIN_SYNTH_SIZE")}
+    os.environ.update(VISCOIN_SYNTH_N=str(C2C_N), VISCOIN_SYNTH_SIZE=str(RES))
+    try:
+        narrow = _narrow_models()
+        datasets = get_datasets("synthetic", "test")  # the command's
+        want_w = count_plain_calls(lambda: compute_w_space(narrow, "synthetic", *datasets,
+                                                           cache_dir="narrow_w"))
+        del narrow
+        walls = {"clip_pass": (TCL, "compute_image_embeddings"),
+                 "concept_pass": (TS, "compute_concept_space"),
+                 "w_pass": (TS, "compute_w_space"),
+                 "trainer": (TC, "train_concept2clip"),
+                 "test_pass": (TC, "test_concept2clip")}
+        calls = {}
+        for latent in ("viscoin", "gan"):
+            tf32_defaults(device)
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with FunctionWalls(walls) as fw, PathRecorder() as rec:
+                log = _quiet_main(["train", "concept2clip", "--dataset", "synthetic",
+                                   "--epochs", str(C2C_EPOCHS), "--latent-type", latent,
+                                   "--output-weights", f"c2c-{latent}"])
+            torch.cuda.synchronize()
+            counts = _kernels.launch_counts()
+            run = {"s": time.perf_counter() - t0, "launches": counts, "epochs": fw.epochs(),
+                   "walls": {k: fw.walls(k) for k in walls if fw.spans[k]}}
+            if latent == "viscoin":
+                assert set(counts.values()) == {0}, counts
+            else:
+                assert counts == want_w and counts["upfirdn2d"] == 0, (counts, want_w)
+                calls = rec.unique()
+            assert "Best test loss" in log, log
+            recs = read_jsonl(f"concept2clip_{C2C_EPOCHS}.jsonl")
+            assert len(recs) == C2C_EPOCHS and all(set(r) == C2C_KEYS for r in recs), recs
+            assert all(np.isfinite(v) for r in recs for v in r.values()), recs
+            run["records"] = recs
+            params = ckpt.restore_pytree(f"c2c-{latent}")
+            held = module_to_jax_tree(concept2clip_from_params(params, "cuda"))["params"]
+            assert_trees_equal(held, params)
+            _quiet_main(["port-weights", "export-concept2clip", f"c2c-{latent}", f"{latent}.pth"])
+            sd = {k: v.numpy() for k, v in torch.load(f"{latent}.pth", weights_only=True).items()}
+            assert sorted(sd) == [f"model.{i}.{n}" for i in (0, 2, 4) for n in ("bias", "weight")]
+            assert_trees_equal(porting.convert_torch_concept2clip(sd), params)
+            out[latent] = run
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # One epoch card vs CPU from the cached spaces and embeddings.
+    with np.load(TS._cache_path("checkpoints/concepts", "synthetic", datasets[0])) as f:
+        spaces = (f["train"], f["test"])
+    embs = tuple(np.load(f"checkpoints/clip/ViT-B-32_synthetic_img_{s}.npz")["emb"]
+                 for s in ("train", "test"))
+    seed_model = init_models(Concept2CLIP(n_concepts=N_CONCEPTS, device="cpu"), SEED + 116)
+    set_tf32(False)
+    on_cpu = c2c_epoch(spaces, embs, "cpu", seed_model, "c2c_cpu.jsonl")
+    on_card = c2c_epoch(spaces, embs, "cuda", seed_model, "c2c_card.jsonl")
+    dev, same = c2c_deviation(on_card, on_cpu)
+    assert dev <= C2C_RTOL and same, (on_card, on_cpu)
+    with UnshuffledTestLoader():
+        faulty = c2c_epoch(spaces, embs, "cuda", seed_model, "c2c_fault.jsonl")
+    fault_dev, fault_same = c2c_deviation(faulty, on_cpu)
+    assert fault_dev > C2C_RTOL or not fault_same, (faulty, on_cpu)
+    tf32_defaults(device)
+    out["card_vs_cpu"] = {"deviation": dev, "card": on_card, "cpu": on_cpu,
+                          "fault_deviation": fault_dev, "fault_matching_equal": fault_same}
+    w = {k: out[lt]["walls"][k][0] for lt, k in (("viscoin", "clip_pass"),
+                                                 ("viscoin", "concept_pass"),
+                                                 ("gan", "w_pass"))}
+    epochs = {lt: out[lt]["epochs"] for lt in ("viscoin", "gan")}
+    out["walls"] = {**w, **{f"epochs_{lt}": e for lt, e in epochs.items()}}
+    ms = {lt: ", ".join(f"{1e3 * t:.1f}" for t in e) for lt, e in epochs.items()}
+    say("concept2clip", f"(c) train concept2clip --dataset synthetic --epochs {C2C_EPOCHS} "
+        f"({C2C_N} + {C2C_N} images at {RES}², the flagship bundle): --latent-type viscoin "
+        f"{out['viscoin']['s']:.1f} s, launches none; gan {out['gan']['s']:.1f} s, launches "
+        f"{out['gan']['launches']}, exactly the W+ pass's count on the CPU at narrow widths, no "
+        f"upfirdn2d; jsonl keys {sorted(C2C_KEYS)}, finite; checkpoints reloaded and "
+        "exported (model.0/2/4) and back bit-equal; walls: the CLIP pass over "
+        f"{2 * C2C_N} images {w['clip_pass']:.2f} s (host PIL preprocessing included), the "
+        f"concept pass {w['concept_pass']:.2f} s, the W+ pass {w['w_pass']:.2f} s, the "
+        f"epochs ({C2C_N // 32} steps of 32 and the test pass) {ms['viscoin']} ms "
+        f"(concepts), {ms['gan']} ms (W+); {card}")
+    say("concept2clip", f"(c) one epoch at batch {C2C_CHECK_BATCH} from the cached spaces, card "
+        f"(TF32 off) vs CPU: losses within {dev:.3g} relative (tolerance {C2C_RTOL:g}), "
+        f"matching accuracy equal ({on_card['matching_accuracy']:.4f}); the planted fault "
+        f"(the test loader unshuffled) {fault_dev:.3g}, matching "
+        f"{'equal' if fault_same else 'different'}: caught; {card}")
+    return out, calls
+
+
+def phase_concept2clip(bundle: str, device: dict) -> tuple[dict, dict]:
+    """(a)-(c) in a directory of their own beside the analysis phase's bundle
+    (the analysis phase's W+ cache there is of other images). Returns
+    (record, {label: the W+ pass's kernel calls})."""
+    out: dict = {}
+    t_start = time.perf_counter()
+    cwd = os.getcwd()
+    work = os.path.join(os.path.dirname(bundle), "concept2clip")
+    os.makedirs(work)
+    os.chdir(work)
+    try:
+        out["clip"] = c2c_clip(device)
+        torch.cuda.empty_cache()
+        out["port_weights"] = c2c_port_weights(device)
+        torch.cuda.empty_cache()
+        out["command"], calls = c2c_command(bundle, device)
+    finally:
+        os.chdir(cwd)
+        tf32_defaults(device)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    say("concept2clip", f"the phase took {out['seconds']:.1f} s; {device['nvidia_smi']}")
+    return out, {"train concept2clip --latent-type gan": calls}
 
 
 # ------------------------------- the dp phase --------------------------------- #
@@ -4744,6 +5170,12 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
          f"over {ANALYSIS_N} train and {ANALYSIS_N} test images (the adapted mapping at N = "
          "32, 4 batches) and one gen_from_w call of 5 images per component, no_grad, TF32 "
          "off; every kernel call as often as it made it (no bias_act_grad call)"),
+        ("concept2clip_w", "float32 train concept2clip --latent-type gan (summed)",
+         tool_calls["train concept2clip --latent-type gan"],
+         f"`train concept2clip --latent-type gan`: its W+ pass over {C2C_N} train and {C2C_N} "
+         f"test images at {RES}², full width (the adapted mapping at N = 32, "
+         f"{2 * C2C_N // 32} batches; CLIP and the adapter launch none), no_grad, TF32 at the "
+         "defaults; every kernel call as often as it made it (no bias_act_grad call)"),
     )
     for prefix, label, calls, over in paths:
         sums, rows, host = time_path(label, calls, gen, card)
@@ -4923,19 +5355,26 @@ def main() -> int:
         ckpt.wait_for_saves()
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    record["analysis"], analysis_calls = phase_analysis(models, record["device"],
-                                                        record["loop"]["jsonl_a"])
+    tmp = tempfile.mkdtemp(prefix="viscoin_analysis_")
+    try:
+        record["analysis"], analysis_calls = phase_analysis(models, record["device"],
+                                                            record["loop"]["jsonl_a"], tmp)
+        torch.cuda.empty_cache()
+        record["concept2clip"], c2c_calls = phase_concept2clip(
+            os.path.join(tmp, "viscoin-flagship"), record["device"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     record["dp"] = phase_dp(models, record["device"])
     set_tf32(False)
-    worst_fid = phase_kernels({"the FID sampling": fid_calls, **tool_calls, **analysis_calls},
-                              configurations=False)
+    worst_fid = phase_kernels({"the FID sampling": fid_calls, **tool_calls, **analysis_calls,
+                               **c2c_calls}, configurations=False)
     loop_calls = record["loop"].pop("calls_a")
     # Run A's calls against the plain versions too (the kernels line's path).
     worst_loop = phase_kernels({"the loop's run A": loop_calls}, configurations=False)
     worst = {k: max(v, worst_loop[k], worst_gan[k], worst_fid[k]) for k, v in worst.items()}
     timings = phase_timings(models, path_calls, loop_calls, train_calls, eval_calls,
-                            gan_cycle_calls, fid_calls, {**tool_calls, **analysis_calls},
-                            record["device"])
+                            gan_cycle_calls, fid_calls,
+                            {**tool_calls, **analysis_calls, **c2c_calls}, record["device"])
     for name, entry in timings["kernels"].items():
         assert entry["launches"] == record["loop"]["launches"][name], (name, entry)
         assert entry["gan_cycle_launches"] == record["gan"]["float32"]["cycle_launches"][name]
@@ -4945,6 +5384,8 @@ def main() -> int:
             record["gan_tools"]["ppl"]["launches_per_batch"][name], (name, entry)
         assert entry["amplify_pca_launches"] == \
             record["analysis"]["w_space"]["amplify_pca"]["launches"][name], (name, entry)
+        assert entry["concept2clip_w_launches"] == \
+            record["concept2clip"]["command"]["gan"]["launches"][name], (name, entry)
     record["timings"] = timings
     record["max_abs_err"] = worst
     record["profiler_misses"] = PROFILER_MISSES

@@ -172,9 +172,19 @@ def test_unported_options_raise(argv, error, match, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("model", ["concept2clip"])
-def test_unported_models_raise(model):
-    with pytest.raises(NotImplementedError, match=f"train {model}.*ROADMAP"):
-        main(["train", model, "--device", "cpu"])
+def test_unported_models_raise(model, tmp_path, monkeypatch):
+    """`train concept2clip` (ported) without a bundle raises the JAX
+    command's error; an unknown model name raises."""
+    from viscoin_tpu.cli.train import _train_concept2clip as jax_train_concept2clip
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError) as want:
+        jax_train_concept2clip("viscoin", "synthetic", 1, None, None, "out")
+    with pytest.raises(FileNotFoundError) as got:
+        main(["train", model, "--device", "cpu", "--dataset", "synthetic"])
+    assert str(got.value) == str(want.value)
+    assert "checkpoints/synthetic/viscoin-synthetic" in str(got.value)
+    assert not os.path.exists("out") and not os.path.exists("output-weights")
     with pytest.raises(ValueError, match="Unknown model"):
         main(["train", "resnet", "--device", "cpu"])
 

@@ -874,3 +874,56 @@ def test_two_process_gloo_steps_on_the_card(cuda, tmp_path):
                 off += int(((got[n] - t).abs() > 1e-5).sum())  # 1 % of Adam's lr, 1e-3
                 total += t.numel()
         assert off <= 1e-3 * total, (off, total)
+
+
+def test_toy_clip_and_adapter_on_the_card_match_the_cpu(cuda, tmp_path, monkeypatch):
+    """A toy CLIP (width 64, 2 layers; patch 8 at 32²) and a Concept2CLIP
+    adapter from the same weights on the card (TF32 off) and on the CPU:
+    both preprocessings, both encoders and the adapter within 1e-4 of the
+    scale; then the image embedding pass on the card, padded last batch
+    included, against the CPU's."""
+    from viscoin_tpu_torch.data.datasets import SyntheticDataset
+    from viscoin_tpu_torch.models.clip import CLIP, clip_preprocess_u8, compute_image_embeddings
+    from viscoin_tpu_torch.models.concept2clip import Concept2CLIP
+    from viscoin_tpu_torch.utils.weights import module_to_jax_tree
+
+    def toy(device, image_size=32):
+        return CLIP(image_width=64, image_layers=2, image_heads=4, patch_size=8,
+                    image_size=image_size, vocab_size=560, context_length=16, text_width=64,
+                    text_layers=2, text_heads=4, device=device)
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+
+    rng = np.random.default_rng(0)
+    cpu = init_models(toy("cpu"), 0)
+    card = toy(cuda)
+    card.load_state_dict(cpu.state_dict())
+    u8 = torch.from_numpy(rng.integers(0, 256, (3, 48, 40, 3), dtype=np.uint8))
+    tokens = torch.from_numpy(rng.integers(1, 550, (3, 16)))
+    tokens[:, 9:] = 0
+    tokens[:, 8] = 559
+    with torch.no_grad():
+        x = clip_preprocess_u8(u8, 32)
+        assert rel(clip_preprocess_u8(u8.to(cuda), 32), x) <= 1e-5
+        assert rel(card.encode_image(x.to(cuda)), cpu.encode_image(x)) <= 1e-4
+        assert rel(card.encode_text(tokens.to(cuda)), cpu.encode_text(tokens)) <= 1e-4
+        adapter = init_models(Concept2CLIP(n_concepts=16, device="cpu"), 1)
+        on_card = Concept2CLIP(n_concepts=16, device=cuda)
+        on_card.load_state_dict(adapter.state_dict())
+        phi = torch.from_numpy(rng.standard_normal((4, 3, 3, 16)).astype(np.float32))
+        assert rel(on_card(phi.to(cuda)), adapter(phi)) <= 1e-4
+    kw = dict(n_classes=3, image_size=40, transform="test")
+    train, test = SyntheticDataset(n=5, **kw), SyntheticDataset(n=3, mode="test", **kw)
+    cpu = init_models(toy("cpu", image_size=224), 3)
+    card = toy(cuda, image_size=224)
+    params = module_to_jax_tree(cpu)["params"]
+    embs = []
+    for clip, where in ((card, "card"), (cpu, "cpu")):
+        (tmp_path / where).mkdir()
+        monkeypatch.chdir(tmp_path / where)
+        embs.append(compute_image_embeddings(clip, "synthetic", train, test, params=params,
+                                             batch_size=4))
+    for got, want in zip(*embs):
+        assert got.shape == want.shape and rel(torch.from_numpy(got),
+                                               torch.from_numpy(want)) <= 1e-4

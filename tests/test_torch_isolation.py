@@ -52,7 +52,11 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.cli.logs", "viscoin_tpu_torch.cli.to_pickle",
             "viscoin_tpu_torch.parallel", "viscoin_tpu_torch.parallel.mesh",
             "viscoin_tpu_torch.ops.library", "viscoin_tpu_torch.serve.export",
-            "viscoin_tpu_torch.example", "viscoin_tpu_torch.utils.cudnn"} <= set(mods)
+            "viscoin_tpu_torch.example", "viscoin_tpu_torch.utils.cudnn",
+            "viscoin_tpu_torch.models.clip", "viscoin_tpu_torch.models.concept2clip",
+            "viscoin_tpu_torch.eval.concept2clip", "viscoin_tpu_torch.train.concept2clip",
+            "viscoin_tpu_torch.utils.metrics", "viscoin_tpu_torch.captions",
+            "viscoin_tpu_torch.captions.cub", "viscoin_tpu_torch.data"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -114,11 +118,13 @@ def test_train_gan_command_defaults_to_cuda_and_raises_without_a_card(monkeypatc
     ["port-weights", "export-classifier", "src", "dst"],
     ["train", "classifier", "--dataset", "synthetic"],
     ["test", "classifier", "--dataset", "synthetic"],
+    ["train", "concept2clip", "--dataset", "synthetic"],
+    ["port-weights", "clip", "src", "dst"],
 ], ids=lambda a: " ".join(a[:2]))
 def test_new_commands_default_to_cuda_and_raise_without_a_card(monkeypatch, argv):
-    """`port-weights` (its export kinds too), `train classifier` and `test`
-    run on the card unless given --device cpu; without a card they raise
-    before reading or building anything."""
+    """`port-weights` (its export kinds and `clip` too), `train classifier`,
+    `train concept2clip` and `test` run on the card unless given --device
+    cpu; without a card they raise before reading or building anything."""
     from viscoin_tpu_torch.__main__ import build_parser, main
 
     assert build_parser().parse_args(argv).device == "cuda"

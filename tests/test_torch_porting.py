@@ -14,6 +14,7 @@ and ``cli/port_weights.py``) against the JAX package's converters
     back to the source state_dict.
 """
 
+import os
 import pickle
 import sys
 import types
@@ -308,9 +309,13 @@ def test_port_weights_check_exit_codes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kind", ["clip", "export-concept2clip"])
-def test_port_weights_unported_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Concept2CLIP"):
+def test_port_weights_unported_kinds_raise(kind, tmp_path, monkeypatch):
+    """`clip` and `export-concept2clip` (ported) raise on a missing source
+    before anything is written."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises((FileNotFoundError, ValueError), match="src"):
         main(["port-weights", kind, "src", "dst", "--device", "cpu"])
+    assert os.listdir(".") == []
 
 
 def test_port_weights_raises_without_a_card(monkeypatch):

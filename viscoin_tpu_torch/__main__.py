@@ -6,6 +6,8 @@
     python -m viscoin_tpu_torch train gan --dataset synthetic --epochs 100 --fid-every 50
     python -m viscoin_tpu_torch train viscoin --dataset synthetic --epochs 100
     python -m viscoin_tpu_torch train viscoin --device cpu ...   # the plain versions
+    python -m viscoin_tpu_torch port-weights clip ViT-B-32.pt checkpoints/clip/vit-b-32
+    python -m viscoin_tpu_torch train concept2clip --dataset cub --latent-type gan
     python -m viscoin_tpu_torch dataset-tool --source images/ --dest birds.zip --resolution 256
     python -m viscoin_tpu_torch generate --gan gan --seeds 0-15
     python -m viscoin_tpu_torch style-mixing --gan gan
@@ -16,7 +18,7 @@
     python -m viscoin_tpu_torch logs --logs-path viscoin_100000.jsonl --outdir figures
 
 The commands: ``port-weights`` (``cli/port_weights.py``), ``train classifier
-| viscoin | gan`` (``cli/train.py``), ``test classifier`` (``cli/test.py``),
+| viscoin | gan | concept2clip`` (``cli/train.py``), ``test classifier`` (``cli/test.py``),
 ``serve`` and ``export-serving`` (``cli/serve.py``), ``dataset-tool``,
 ``generate``, ``style-mixing``, ``project``, ``fid``, ``amplify``,
 ``amplify-pca``, ``concepts``, ``concept-heatmaps``, ``logs`` and

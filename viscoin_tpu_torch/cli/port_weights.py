@@ -12,6 +12,7 @@ Counterpart of ``scripts/port_weights.py``; it writes the npz layout
     python -m viscoin_tpu_torch port-weights inception pt_inception.pth checkpoints/inception
     python -m viscoin_tpu_torch port-weights inception-nvlabs inception-2015-12-05.pt \\
         checkpoints/inception
+    python -m viscoin_tpu_torch port-weights clip ViT-B-32.pt checkpoints/clip/vit-b-32
     python -m viscoin_tpu_torch port-weights classifier model.pt --check   # validate only
 
 Each source is held against its manifest (``viscoin_tpu_torch/manifests``):
@@ -19,13 +20,16 @@ missing, unexpected and mis-shaped keys are printed; ``--strict`` stops on
 any, ``--check`` writes nothing and exits 1 if there is one. The converted
 variables are then loaded into the port's module on ``--device`` (the card
 by default), so a tree that does not fit the module stops the command before
-anything is written. ``stylegan`` reads an NVlabs network pickle without the
-NVlabs code (a shimmed ``torch_utils.persistence``) or a plain state_dict,
-and writes the discriminator, when the pickle has one, to
-``<dst>.discriminator``. ``inception-nvlabs`` converts the NVlabs
-TorchScript detector, checks the ported detector's features against the
-TorchScript module's on the device, and marks the output with
-``fid_convention.json``.
+anything is written. ``clip`` takes the OpenAI pip-``clip`` state_dict or
+a HuggingFace ``CLIPModel``'s (told apart by its ``vision_model`` keys,
+each held against its own manifest) and writes where ``train concept2clip``
+reads CLIP's weights, ``checkpoints/clip/vit-b-32``. ``stylegan`` reads an
+NVlabs network pickle without the NVlabs code (a shimmed
+``torch_utils.persistence``) or a plain state_dict, and writes the
+discriminator, when the pickle has one, to ``<dst>.discriminator``.
+``inception-nvlabs`` converts the NVlabs TorchScript detector, checks the
+ported detector's features against the TorchScript module's on the device,
+and marks the output with ``fid_convention.json``.
 
 The reverse direction, from the port's checkpoints to the reference's
 state_dicts (``torch.save``; ``utils/exporting.py``)::
@@ -33,14 +37,14 @@ state_dicts (``torch.save``; ``utils/exporting.py``)::
     python -m viscoin_tpu_torch port-weights export-viscoin checkpoints/cub/viscoin-cub viscoin.pth
     python -m viscoin_tpu_torch port-weights export-stylegan checkpoints/cub/gan-cub gan.pth
     python -m viscoin_tpu_torch port-weights export-classifier classifier-cub classifier.pth
-
-``clip`` and ``export-concept2clip`` wait for Concept2CLIP.
+    python -m viscoin_tpu_torch port-weights export-concept2clip concept2clip c2c.pth
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 
@@ -51,10 +55,9 @@ from viscoin_tpu_torch.utils import exporting, porting
 from viscoin_tpu_torch.utils import checkpoints as ckpt
 from viscoin_tpu_torch.utils.weights import load_jax_tree, module_to_jax_tree
 
-PORT_KINDS = ("classifier", "viscoin", "stylegan", "lpips", "inception", "inception-nvlabs")
-EXPORT_KINDS = ("export-viscoin", "export-stylegan", "export-classifier")
-NOT_PORTED = {"clip": "queue 1: Concept2CLIP (models/clip.py)",
-              "export-concept2clip": "queue 1: Concept2CLIP (models/concept2clip.py)"}
+PORT_KINDS = ("classifier", "viscoin", "stylegan", "lpips", "inception", "inception-nvlabs",
+              "clip")
+EXPORT_KINDS = ("export-viscoin", "export-stylegan", "export-classifier", "export-concept2clip")
 MANIFEST_OF = {"classifier": "classifier", "viscoin": "classifier", "lpips": "lpips",
                "inception": "inception", "stylegan": "stylegan_generator"}
 NVLABS_TOL = 1e-2  # the ported detector against the TorchScript one, relative to the features' max
@@ -64,7 +67,7 @@ FID_CONVENTION = "fid_convention.json"
 def add_parser(subparsers) -> argparse.ArgumentParser:
     p = subparsers.add_parser("port-weights", help="Port torch checkpoints into the npz layout, "
                                                    "or export the port's checkpoints to torch.")
-    p.add_argument("kind", choices=PORT_KINDS + EXPORT_KINDS + tuple(NOT_PORTED))
+    p.add_argument("kind", choices=PORT_KINDS + EXPORT_KINDS)
     p.add_argument("src")
     p.add_argument("dst", nargs="?", default=None)
     p.add_argument("--check", action="store_true",
@@ -203,7 +206,7 @@ def nvlabs_discriminator(nets: dict) -> dict:
 def check_source(kind: str, sd: dict, strict: bool) -> list[str]:
     """Print the manifest report of a source; returns the problems. With
     ``strict`` any problem stops the command."""
-    manifest = MANIFEST_OF.get(kind)
+    manifest = porting.clip_manifest_kind(sd) if kind == "clip" else MANIFEST_OF.get(kind)
     if manifest is None:
         print(f"# no manifest for kind {kind!r}: not validated")
         return []
@@ -318,6 +321,56 @@ def viscoin_from_tree(tree: dict, device="cuda"):
                                        "theta": theta, "gan": gan})
 
 
+def clip_depths(sd: dict) -> tuple[int, int]:
+    """(image tower blocks, text tower blocks) of an OpenAI or HF CLIP
+    state_dict."""
+    if porting.clip_manifest_kind(sd) == "clip_hf":
+        pats = (r"vision_model\.encoder\.layers\.(\d+)\.", r"text_model\.encoder\.layers\.(\d+)\.")
+    else:
+        pats = (r"visual\.transformer\.resblocks\.(\d+)\.", r"transformer\.resblocks\.(\d+)\.")
+    return tuple(1 + max((int(m.group(1)) for k in sd if (m := re.match(p, k))), default=-1)
+                 for p in pats)
+
+
+def clip_from_params(params: dict, device="cuda"):
+    """A ``CLIP`` shaped as its params say (CLIP's own rule for the heads:
+    width // 64), holding them."""
+    from viscoin_tpu_torch.models.clip import CLIP
+
+    shape = lambda x: np.asarray(x).shape  # noqa: E731
+    visual, text = params["visual"], params["text"]
+    patch = shape(visual["patch_embed"]["kernel"])[0]
+    grid = math.isqrt(shape(visual["positional_embedding"])[0] - 1)
+    vocab, text_width = shape(text["token_embedding"])
+    width = shape(visual["class_embedding"])[0]
+    model = CLIP(embedding_size=shape(visual["proj"])[1], image_width=width,
+                 image_layers=len(_blocks(visual)), image_heads=max(1, width // 64),
+                 patch_size=patch, image_size=grid * patch, vocab_size=vocab,
+                 context_length=shape(text["positional_embedding"])[0], text_width=text_width,
+                 text_layers=len(_blocks(text)), text_heads=max(1, text_width // 64),
+                 device=device)
+    return load_jax_tree(model, {"params": params})
+
+
+def _blocks(tree: dict) -> list[str]:
+    return [k for k in tree if re.fullmatch(r"block\d+", k)]
+
+
+def concept2clip_from_params(params: dict, device="cuda"):
+    """The Concept2CLIP MLP its params describe, holding them (both variants
+    are the same three layers; this one takes its input flat)."""
+    from viscoin_tpu_torch.models.concept2clip import Concept2CLIPStyleGAN
+
+    n_in, hidden = np.asarray(params["fc0"]["kernel"]).shape
+    n_out = np.asarray(params["fc2"]["kernel"]).shape[1]
+    if hidden != (n_in + n_out) // 2:
+        raise ValueError(f"fc0 maps {n_in} to {hidden} features: not the Concept2CLIP hidden "
+                         f"size (in + out) // 2 = {(n_in + n_out) // 2}")
+    model = Concept2CLIPStyleGAN(n_style_layers=1, layer_dim=n_in, clip_dim=n_out,
+                                 device=device)
+    return load_jax_tree(model, {"params": params})
+
+
 # -------------------------------- the command ------------------------------- #
 
 
@@ -365,9 +418,6 @@ def port_inception_nvlabs(src: str, dst: str, device="cuda") -> dict:
 
 def port_weights(args: argparse.Namespace) -> None:
     kind, src, dst = args.kind, args.src, args.dst
-    if kind in NOT_PORTED:
-        raise NotImplementedError(f"port-weights {kind} is not ported yet (ROADMAP.md, "
-                                  f"{NOT_PORTED[kind]})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("port-weights --device cuda: no CUDA device is available; pass "
@@ -421,6 +471,12 @@ def port_weights(args: argparse.Namespace) -> None:
         tree = porting.convert_torch_inception(sd)
         inception_from_tree(tree, device)
         ckpt.save_pytree(tree, dst)
+    elif kind == "clip":
+        convert = (porting.convert_hf_clip if porting.clip_manifest_kind(sd) == "clip_hf"
+                   else porting.convert_torch_clip)
+        params = convert(sd, *clip_depths(sd))
+        clip_from_params(params, device)
+        ckpt.save_pytree(params, dst)
     elif kind == "stylegan":
         tree = porting.convert_torch_generator(sd)
         generator_from_tree(tree, device)
@@ -454,6 +510,12 @@ def _export(kind: str, src: str, dst: str, device: torch.device) -> None:
         model = classifier_from_tree(ckpt.restore_pytree(src), device)
         torch.save(_to_torch(exporting.export_classifier_torch(module_to_jax_tree(model))), dst)
         print(f"exported the classifier state_dict (reference Classifier naming): {src} -> {dst}")
+    elif kind == "export-concept2clip":
+        model = concept2clip_from_params(ckpt.restore_pytree(src), device)
+        params = module_to_jax_tree(model)["params"]
+        torch.save(_to_torch(exporting.export_concept2clip_torch(params)), dst)
+        print(f"exported the concept2clip state_dict (reference nn.Sequential naming): {src} -> "
+              f"{dst}")
     else:
         g = generator_from_tree(ckpt.restore_pytree(src), device)
         torch.save(_to_torch(exporting.export_generator_torch(module_to_jax_tree(g))), dst)

@@ -1,7 +1,7 @@
-"""The ``train`` command: ``python -m viscoin_tpu_torch train classifier|viscoin|gan ...``.
+"""The ``train`` command: ``python -m viscoin_tpu_torch train
+classifier|viscoin|gan|concept2clip ...``.
 
-Counterpart of ``viscoin_tpu/cli/train.py`` for the ``classifier``,
-``viscoin`` and ``gan`` models, with their options and defaults.
+Counterpart of ``viscoin_tpu/cli/train.py``, with its options and defaults.
 
 ``classifier``: the ResNet-50 classifier (random weights from seed 0, or
 ``--checkpoints``) for ``--epochs`` epochs (default 90), Adam (or
@@ -45,7 +45,18 @@ process per card itself. ``--batch-size`` stays the global batch. With one
 card (or the CPU) and no ``torchrun``, there is no mesh. Rank 0 writes the
 logs and the checkpoints. ``--model-parallel`` > 1 is not ported.
 
-The ``concept2clip`` model is not ported yet.
+``concept2clip``: the MLP from the bundle at
+``checkpoints/<dataset>/viscoin-<dataset>``'s concept space (``--latent-type
+viscoin``, the default) or W+ space (``gan``) to CLIP ViT-B/32's image
+embeddings, over both splits of the dataset at the test geometry: 30 epochs
+(``--epochs``), Adam at 1e-5, batch 32, seeded from 0. The spaces and the
+embeddings are cached under ``checkpoints/`` in the JAX package's files
+(``eval/spaces.py``, ``models/clip.py``); CLIP's weights come from
+``checkpoints/clip/vit-b-32`` (``port-weights clip``), else from a seed, with
+a warning. Metrics go to ``concept2clip_<epochs>.jsonl``; the best test
+loss's parameters to ``--output-weights`` in the npz layout. It runs in one
+process on one device, as the JAX command runs in one process: no worker is
+spawned, and a ``torchrun`` group of several processes is refused.
 """
 
 from __future__ import annotations
@@ -60,7 +71,6 @@ from viscoin_tpu_torch.data.utils import default_checkpoints, get_dataloaders
 from viscoin_tpu_torch.parallel.mesh import destroy_mesh
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
-NOT_PORTED = {"concept2clip": "queue 1: Concept2CLIP (train/concept2clip.py)"}
 MODEL_PARALLEL = "queue 1: model parallelism, --model-parallel"
 DEFAULT_FID_DETECTOR = "checkpoints/inception"
 
@@ -68,12 +78,13 @@ DEFAULT_FID_DETECTOR = "checkpoints/inception"
 def add_parser(subparsers) -> argparse.ArgumentParser:
     p = subparsers.add_parser("train", help="Train a model on a dataset; metrics are logged "
                                             "to a jsonl file.")
-    p.add_argument("model_name", help="classifier, viscoin or gan (concept2clip is not "
-                                      "ported yet)")
+    p.add_argument("model_name", help="classifier, viscoin, gan or concept2clip")
     add_common_options(p)
     p.add_argument("--gradient-accumulation-steps", type=int, default=1,
                    help="The amount of steps to accumulate gradients before stepping the "
                         "optimizers")
+    p.add_argument("--latent-type", choices=["viscoin", "gan"], default="viscoin",
+                   help="The latent space to train concept2clip on")
     p.add_argument("--data-parallel", action=argparse.BooleanOptionalAction, default=True,
                    help="Shard the batch over all visible cards, one process per card (under "
                         "torchrun: over its processes)")
@@ -139,12 +150,17 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
 def train(args: argparse.Namespace) -> None:
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    if args.model_name in NOT_PORTED:
-        raise NotImplementedError(f"`train {args.model_name}` is not ported yet "
-                                  f"(ROADMAP.md, {NOT_PORTED[args.model_name]})")
-    if args.model_name not in ("classifier", "gan", "viscoin"):
+    if args.model_name not in ("classifier", "gan", "viscoin", "concept2clip"):
         raise ValueError(f"Unknown model name: {args.model_name}")
     ds_kwargs = _dataset_kwargs(args.dataset, args.image_size)
+    if args.model_name == "concept2clip":
+        from viscoin_tpu_torch.eval.concept2clip import check_one_process
+
+        check_one_process(int(os.environ.get("WORLD_SIZE", "1")))
+        _train_concept2clip(args.latent_type, args.dataset, args.epochs, args.learning_rate,
+                            args.batch_size, args.output_weights, ds_kwargs=ds_kwargs,
+                            device=args.device)
+        return
     if args.model_name == "gan":
         detector = args.fid_detector_path or DEFAULT_FID_DETECTOR
         if args.fid_every and not os.path.exists(detector):
@@ -399,6 +415,44 @@ def _train_viscoin(dataset: str, learning_rate, epochs, batch_size, gradient_acc
                   eval_every=eval_every,
                   checkpoint_every=checkpoint_every, faithfulness_every=faithfulness_every,
                   prefetch=prefetch, device=device)
+
+
+def _train_concept2clip(latent_type: str, dataset: str, epochs, learning_rate, batch_size,
+                        output_weights: str, ds_kwargs=None, device="cuda"):
+    """The MLP from the bundle's concept (``latent_type`` "viscoin") or W+
+    ("gan") space to CLIP's image embeddings; the best parameters to
+    ``output_weights`` (npz layout)."""
+    from viscoin_tpu_torch.data.utils import get_datasets
+    from viscoin_tpu_torch.eval.spaces import compute_concept_space, compute_w_space
+    from viscoin_tpu_torch.models.bundle import init_models
+    from viscoin_tpu_torch.models.clip import CLIP, compute_image_embeddings
+    from viscoin_tpu_torch.models.concept2clip import Concept2CLIP, Concept2CLIPStyleGAN
+    from viscoin_tpu_torch.train.concept2clip import (
+        Concept2ClipTrainingParams,
+        train_concept2clip,
+    )
+    from viscoin_tpu_torch.utils import checkpoints as ckpt
+
+    device = card_or_cpu("train concept2clip", device)
+    viscoin = ckpt.load_viscoin_bundle(default_checkpoints(dataset)["viscoin"], device=device)
+    params = Concept2ClipTrainingParams(epochs=epochs, learning_rate=learning_rate,
+                                        batch_size=batch_size)
+    configure_score_logging(f"concept2clip_{params.epochs}.jsonl")
+    train_ds, test_ds = get_datasets(dataset, "test", **(ds_kwargs or {}))
+    if latent_type == "viscoin":
+        train_spaces, test_spaces = compute_concept_space(viscoin, dataset, train_ds, test_ds)
+        model = Concept2CLIP(n_concepts=viscoin.concept_extractor.config["n_concepts"],
+                             device=device)
+    else:
+        train_spaces, test_spaces = compute_w_space(viscoin, dataset, train_ds, test_ds)
+        model = Concept2CLIPStyleGAN(n_style_layers=viscoin.gan.num_ws,
+                                     layer_dim=viscoin.gan.config["w_dim"], device=device)
+    del viscoin
+    train_emb, test_emb = compute_image_embeddings(CLIP(device=device), dataset, train_ds,
+                                                   test_ds)
+    best, _ = train_concept2clip(init_models(model, 0), train_spaces, train_emb, test_spaces,
+                                 test_emb, params)
+    ckpt.save_pytree(best, output_weights)
 
 
 def build_gan_modules(size: int, channel_base: int, channel_max: int, batch_size: int,

@@ -1,8 +1,8 @@
 """Datasets: CUB-200-2011, FunnyBirds, folder-per-class images, and synthetic
 images.
 
-Counterpart of ``viscoin_tpu/data/datasets.py`` (``LabeledCUB`` is not
-ported yet; the StyleGAN zip is ``data/stylegan_zip.py``). The dataset root
+Counterpart of ``viscoin_tpu/data/datasets.py`` (the StyleGAN zip is
+``data/stylegan_zip.py``). The dataset root
 comes from an explicit argument, then ``$VISCOIN_DATA_DIR``, then
 ``~/.cache/viscoin/datasets``; nothing is downloaded. Decoded uint8 images
 are cached, not transformed ones, so the training crop stays random across
@@ -148,6 +148,55 @@ class CUB_200_2011(ImageDataset):
                 x, y, w, h = self.bboxes[ai]
                 img = img.crop((x, y, min(x + w, img.width), min(y + h, img.height)))
             return np.asarray(img, np.uint8)
+
+
+class LabeledCUB(CUB_200_2011):
+    """CUB with a caption per image: its class name and up to
+    ``attributes_per_label`` of its present attributes, drawn at random.
+    Needs ``classes.txt`` and ``attributes/attributes.txt`` and
+    ``attributes/image_attribute_labels_clean.txt``."""
+
+    def __init__(self, attributes_per_label: int = 3, **kw):
+        super().__init__(**kw)
+        self.attributes_per_label = attributes_per_label
+        path = self.dataset_path
+
+        def names(*parts) -> dict[int, str]:
+            return {int(k): v for k, v in np.loadtxt(os.path.join(path, *parts), dtype=str,
+                                                     delimiter=" ")}
+
+        self.class_labels = {k: v.split(".")[1].replace("_", " ")
+                             for k, v in names("classes.txt").items()}
+        self.attributes_labels = names("attributes", "attributes.txt")
+        raw = np.loadtxt(os.path.join(path, "attributes", "image_attribute_labels_clean.txt"),
+                         dtype=float, delimiter=" ").astype(int)  # the last columns are floats
+        # The present attributes grouped by image in one sorted pass.
+        present = raw[raw[:, 2] == 1]
+        order = np.argsort(present[:, 0], kind="stable")
+        ids, attrs = present[order, 0], present[order, 1]
+        starts = np.searchsorted(ids, np.arange(1, len(self.labels) + 2))
+        self.attributes: list[np.ndarray] = [attrs[starts[i]:starts[i + 1]]
+                                             for i in range(len(self.labels))]
+
+    # Keeps the caption's draw apart from the crop's, both keyed by (seed, epoch, index).
+    _CAPTION_TAG = 0xCA7
+
+    def get_caption(self, index: int) -> str:
+        """A function of (seed, epoch, index), as the crop is: the same in
+        every thread of the loader and in a resumed run."""
+        ai = self._abs_index(index)
+        class_name = self.class_labels[int(self.labels[ai]) + 1]
+        labels = [self.attributes_labels[int(a)].split("::") for a in self.attributes[ai]]
+        n = min(self.attributes_per_label, len(labels))
+        rng = np.random.default_rng((self.seed, self._epoch, index, self._CAPTION_TAG))
+        chosen = rng.choice(len(labels), n, replace=False) if n else []
+        parts = [f"with {labels[i][1].replace('_', ' ')}"
+                 f"{labels[i][0].lstrip('has').replace('_', ' ')}" for i in chosen]
+        return f"A picture of a {class_name} {', '.join(parts)}."
+
+    def __getitem__(self, index: int):
+        img, label = super().__getitem__(index)
+        return img, label, self.get_caption(index)
 
 
 class FunnyBirds(ImageDataset):

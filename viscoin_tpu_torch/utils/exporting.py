@@ -15,8 +15,6 @@ of the port's modules, and gives numpy arrays:
     ``num_batches_tracked`` buffer torch registers (0);
   * NVlabs' constant ``resample_filter`` buffers (``setup_filter([1, 3, 3,
     1])``) are rebuilt, so a strict ``load_state_dict`` finds every key.
-
-The Concept2CLIP exporter waits for Concept2CLIP (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -96,6 +94,15 @@ def export_explainer_torch(params: dict) -> dict[str, np.ndarray]:
                 "linear.bias": np.asarray(params["bias"])}
     sd: dict[str, np.ndarray] = {}
     _dense_back(sd, "linear", params["linear"])
+    return sd
+
+
+def export_concept2clip_torch(params: dict) -> dict[str, np.ndarray]:
+    """Concept2CLIP(StyleGAN) params -> the reference's nn.Sequential
+    state_dict (Linear layers at model.0, model.2, model.4)."""
+    sd: dict[str, np.ndarray] = {}
+    for i, key in enumerate(["fc0", "fc1", "fc2"]):
+        _dense_back(sd, f"model.{2 * i}", params[key])
     return sd
 
 

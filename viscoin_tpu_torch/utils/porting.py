@@ -3,7 +3,8 @@
 Counterpart of ``viscoin_tpu/utils/porting.py``: each converter maps a torch
 ``state_dict`` (numpy values) of one of the networks the reference ships or
 loads (HF ResNet-50 classifier, the NVlabs StyleGAN2 generator and
-discriminator, LPIPS-VGG, the FID Inception, VisCoIN's own modules) onto
+discriminator, LPIPS-VGG, the FID Inception, CLIP ViT-B/32 in the OpenAI and
+the HF layouts, VisCoIN's own modules and Concept2CLIP) onto
 the variables tree the JAX package holds ({collection: nested dict}, flax
 layouts). ``utils/weights.py::load_jax_tree`` carries such a tree into the
 port's modules; each ``load_torch_*`` below does both steps.
@@ -18,8 +19,7 @@ Conventions (the JAX package's):
 The manifests (``viscoin_tpu_torch/manifests/*.json``, copies of the JAX
 package's) list the exact keys and shapes of each reference network;
 :func:`validate_state_dict` reports what a checkpoint lacks, adds or
-mis-shapes. The CLIP converters wait for Concept2CLIP (ROADMAP.md, queue 1:
-Concept2CLIP).
+mis-shapes.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ import numpy as np
 _MANIFEST_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                              "manifests")
 
-MANIFEST_KINDS = ("classifier", "lpips", "inception", "stylegan_generator")
+MANIFEST_KINDS = ("classifier", "lpips", "inception", "stylegan_generator", "clip_openai",
+                  "clip_hf")
 
 
 def load_manifest(kind: str) -> dict:
@@ -198,6 +199,13 @@ def convert_torch_explainer(sd: dict[str, np.ndarray]) -> dict:
     return {"linear": _dense(sd, "linear")}
 
 
+def convert_torch_concept2clip(sd: dict[str, np.ndarray]) -> dict:
+    """The reference Concept2CLIP / Concept2CLIPStyleGAN (three Linear layers
+    of an nn.Sequential, at indices 0, 2, 4) -> params."""
+    return {"fc0": _dense(sd, "model.0"), "fc1": _dense(sd, "model.2"),
+            "fc2": _dense(sd, "model.4")}
+
+
 # ----------------------------------- LPIPS ---------------------------------- #
 
 # torchvision vgg16.features conv indices, by LPIPS slice.
@@ -322,6 +330,107 @@ def convert_torchscript_inception(ts_module) -> dict:
                           "bias": bn.get("bias", np.zeros(n, np.float32))}},
                   {"bn": {"mean": bn["running_mean"], "var": bn["running_var"]}})
     return {"params": params, "batch_stats": stats}
+
+
+# ----------------------------------- CLIP ----------------------------------- #
+
+
+def _clip_block_openai(sd: dict, p: str) -> dict:
+    return {
+        "ln_1": {"scale": sd[f"{p}.ln_1.weight"], "bias": sd[f"{p}.ln_1.bias"]},
+        "ln_2": {"scale": sd[f"{p}.ln_2.weight"], "bias": sd[f"{p}.ln_2.bias"]},
+        "attn": {
+            "in_proj": {"kernel": np.transpose(sd[f"{p}.attn.in_proj_weight"]),
+                        "bias": sd[f"{p}.attn.in_proj_bias"]},
+            "out_proj": _dense(sd, f"{p}.attn.out_proj"),
+        },
+        "mlp_fc": _dense(sd, f"{p}.mlp.c_fc"),
+        "mlp_proj": _dense(sd, f"{p}.mlp.c_proj"),
+    }
+
+
+def convert_torch_clip(sd: dict[str, np.ndarray], vision_layers: int = 12,
+                       text_layers: int = 12, strict: bool = False) -> dict:
+    """An OpenAI pip-``clip`` ViT-B/32 state_dict -> params of ``CLIP``."""
+    if strict:
+        validate_state_dict(sd, "clip_openai")
+    visual: dict = {
+        "patch_embed": {"kernel": _conv(sd["visual.conv1.weight"])},
+        "class_embedding": sd["visual.class_embedding"],
+        "positional_embedding": sd["visual.positional_embedding"],
+        "ln_pre": {"scale": sd["visual.ln_pre.weight"], "bias": sd["visual.ln_pre.bias"]},
+        "ln_post": {"scale": sd["visual.ln_post.weight"], "bias": sd["visual.ln_post.bias"]},
+        "proj": sd["visual.proj"],
+    }
+    for i in range(vision_layers):
+        visual[f"block{i}"] = _clip_block_openai(sd, f"visual.transformer.resblocks.{i}")
+    text: dict = {
+        "token_embedding": sd["token_embedding.weight"],
+        "positional_embedding": sd["positional_embedding"],
+        "ln_final": {"scale": sd["ln_final.weight"], "bias": sd["ln_final.bias"]},
+        "text_projection": sd["text_projection"],
+    }
+    for i in range(text_layers):
+        text[f"block{i}"] = _clip_block_openai(sd, f"transformer.resblocks.{i}")
+    return {"visual": visual, "text": text}
+
+
+def convert_hf_clip(sd: dict[str, np.ndarray], vision_layers: int = 12,
+                    text_layers: int = 12, strict: bool = False) -> dict:
+    """A HuggingFace ``transformers.CLIPModel`` state_dict (ViT-B/32
+    config) -> params of ``CLIP``: the split q/k/v projections concatenated
+    into the fused ``in_proj``; the projections' (out, in) Linear weights
+    transposed to (in, out) matrices."""
+    if strict:
+        validate_state_dict(sd, "clip_hf")
+
+    def block(p: str) -> dict:
+        qkv = [f"{p}.self_attn.{n}_proj" for n in "qkv"]
+        return {
+            "ln_1": {"scale": sd[f"{p}.layer_norm1.weight"],
+                     "bias": sd[f"{p}.layer_norm1.bias"]},
+            "ln_2": {"scale": sd[f"{p}.layer_norm2.weight"],
+                     "bias": sd[f"{p}.layer_norm2.bias"]},
+            "attn": {
+                "in_proj": {
+                    "kernel": np.transpose(np.concatenate([sd[f"{q}.weight"] for q in qkv], 0)),
+                    "bias": np.concatenate([sd[f"{q}.bias"] for q in qkv])},
+                "out_proj": _dense(sd, f"{p}.self_attn.out_proj"),
+            },
+            "mlp_fc": _dense(sd, f"{p}.mlp.fc1"),
+            "mlp_proj": _dense(sd, f"{p}.mlp.fc2"),
+        }
+
+    v = "vision_model"
+    visual: dict = {
+        "patch_embed": {"kernel": _conv(sd[f"{v}.embeddings.patch_embedding.weight"])},
+        "class_embedding": sd[f"{v}.embeddings.class_embedding"],
+        "positional_embedding": sd[f"{v}.embeddings.position_embedding.weight"],
+        "ln_pre": {"scale": sd[f"{v}.pre_layrnorm.weight"],
+                   "bias": sd[f"{v}.pre_layrnorm.bias"]},
+        "ln_post": {"scale": sd[f"{v}.post_layernorm.weight"],
+                    "bias": sd[f"{v}.post_layernorm.bias"]},
+        "proj": np.transpose(sd["visual_projection.weight"]),
+    }
+    for i in range(vision_layers):
+        visual[f"block{i}"] = block(f"{v}.encoder.layers.{i}")
+    t = "text_model"
+    text: dict = {
+        "token_embedding": sd[f"{t}.embeddings.token_embedding.weight"],
+        "positional_embedding": sd[f"{t}.embeddings.position_embedding.weight"],
+        "ln_final": {"scale": sd[f"{t}.final_layer_norm.weight"],
+                     "bias": sd[f"{t}.final_layer_norm.bias"]},
+        "text_projection": np.transpose(sd["text_projection.weight"]),
+    }
+    for i in range(text_layers):
+        text[f"block{i}"] = block(f"{t}.encoder.layers.{i}")
+    return {"visual": visual, "text": text}
+
+
+def clip_manifest_kind(sd: dict) -> str:
+    """The manifest of a CLIP state_dict: the HF layout has ``vision_model``
+    keys, the OpenAI one has none."""
+    return "clip_hf" if any(k.startswith("vision_model") for k in sd) else "clip_openai"
 
 
 # --------------------------------- StyleGAN2 -------------------------------- #

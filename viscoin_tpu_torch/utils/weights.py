@@ -19,13 +19,14 @@ changes (the same conventions as the JAX package's torch exporters):
 
 Both raise on any key missing or left over on either side.
 
-:func:`module_to_jax_tree` and :func:`bundle_to_jax_tree` are the inverse:
-a module's parameters and buffers back to the JAX collections, names and
+:func:`module_to_jax_tree` and :func:`bundle_to_jax_tree` are the inverse: a
+module's parameters and buffers back to the JAX collections, names and
 layouts, decided by the module that owns each leaf (``nn.Conv2d`` and
 ``nn.Linear`` hold flax ``kernel``s, ``nn.BatchNorm2d`` its ``scale`` and
-``batch_stats``; the StyleGAN modules keep ``weight``; ``noise_const``
-buffers form the ``noise`` collection and ``w_avg`` the ``moving_stats``).
-``num_batches_tracked`` has no JAX leaf and is dropped.
+``batch_stats``, ``nn.LayerNorm`` its ``scale``; the StyleGAN modules keep
+``weight``; ``noise_const`` buffers form the ``noise`` collection and
+``w_avg`` the ``moving_stats``). ``num_batches_tracked`` has no JAX leaf and
+is dropped.
 """
 
 from __future__ import annotations
@@ -117,6 +118,8 @@ def _jax_leaf(owner: nn.Module, name: str, t: torch.Tensor):
         return {"weight": ("params", "scale", t), "bias": ("params", "bias", t),
                 "running_mean": ("batch_stats", "mean", t),
                 "running_var": ("batch_stats", "var", t)}.get(name)
+    if isinstance(owner, nn.LayerNorm):
+        return "params", "scale" if name == "weight" else name, t
     if isinstance(owner, (nn.Conv2d, nn.Linear)) and name == "weight":
         return "params", "kernel", t.permute(2, 3, 1, 0) if t.ndim == 4 else t.T
     if name == "noise_const":
