@@ -51,6 +51,7 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
             "viscoin_tpu_torch.cli.concepts", "viscoin_tpu_torch.cli.concept_heatmaps",
             "viscoin_tpu_torch.cli.logs", "viscoin_tpu_torch.cli.to_pickle",
             "viscoin_tpu_torch.parallel", "viscoin_tpu_torch.parallel.mesh",
+            "viscoin_tpu_torch.parallel.spatial",
             "viscoin_tpu_torch.ops.library", "viscoin_tpu_torch.serve.export",
             "viscoin_tpu_torch.example", "viscoin_tpu_torch.utils.cudnn",
             "viscoin_tpu_torch.models.clip", "viscoin_tpu_torch.models.concept2clip",
@@ -97,9 +98,15 @@ def test_train_command_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     from viscoin_tpu_torch.__main__ import build_parser, main
 
     assert build_parser().parse_args(["train", "viscoin"]).device == "cuda"
+    assert build_parser().parse_args(["train", "viscoin", "--model-parallel", "2"]).device \
+        == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["train", "viscoin", "--dataset", "synthetic"])
+    # Model parallelism too is refused without a card, not run on the CPU.
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "viscoin", "--dataset", "synthetic", "--model-parallel", "2"])
 
 
 def test_train_gan_command_defaults_to_cuda_and_raises_without_a_card(monkeypatch):

@@ -40,6 +40,7 @@ from viscoin_tpu_torch.ops.upfirdn2d import (
     _taps,
     adjoint_padding,
     fir_plan,
+    output_size,
     setup_filter,
 )
 
@@ -549,3 +550,38 @@ def test_bias_act_alignment_check_refuses_misaligned_view(dtype):
     b = torch.zeros(65, dtype=dtype)[1:]
     assert not vector_aligned(feats, b, torch.empty_like(feats))
     assert vector_aligned(x0, b[:4], y)  # a per-plane bias is read as a scalar
+
+
+# ---------------------- upfirdn2d on H-sharded rows ------------------------- #
+
+# The FIR calls of model parallelism (ops/conv2d_resample.py and upfirdn2d's
+# ``sp``): G's up-conv FIR on a rank's rows, its halo of 3 rows included
+# (window(6, 2, 1, 3): the transposed conv's output cropped by 3 rows at the
+# top and 1 at the bottom, as negative padding), and the skip upsample (one
+# halo row each side, the last output row cropped); with their adjoints.
+SHARD_CONV_FIR = dict(up=1, down=1, padding=(1, 1, -3, -1), gain=4.0)
+SHARD_SKIP_UP = dict(up=2, down=1, padding=(2, 1, 0, -1), gain=4.0)
+
+
+@pytest.mark.parametrize("case,x_hw,adjoint", [
+    (SHARD_CONV_FIR, (2 * (4 + 3) + 1, 9), False), (SHARD_CONV_FIR, (2 * (4 + 3) + 1, 9), True),
+    (SHARD_SKIP_UP, (4 + 2, 4), False), (SHARD_SKIP_UP, (4 + 2, 4), True)],
+    ids=["conv-fir", "conv-fir-adjoint", "skip-up", "skip-up-adjoint"])
+def test_fir_plan_walk_shard_plans(case, x_hw, adjoint):
+    """A rank's 4 rows of a sharded plane: the plan of each call (negative
+    padding crops) and of its adjoint walked against the JAX oracle; each
+    forward gives the rank's 8 output rows."""
+    f = setup_filter(F1D)
+    h, w = x_hw
+    ho, wo = output_size(h, w, 4, case["up"], case["down"], case["padding"])
+    assert ho == 8
+    if adjoint:
+        p = adjoint_padding((2, 3, h, w), (2, 3, ho, wo), f, up=case["up"], down=case["down"],
+                            padding=case["padding"])
+        case = dict(up=case["down"], down=case["up"], padding=p, gain=case["gain"],
+                    flip_filter=True)
+        h, w = ho, wo
+    x = np.random.default_rng(11).standard_normal((2, h, w, 3)).astype(np.float32)
+    plans = check_fir(x, F1D, pallas=False, **case)
+    if adjoint:
+        assert all(pl.ho == x_hw[0] and pl.wo == x_hw[1] for pl in plans)

@@ -210,7 +210,8 @@ def test_serving_engine_over_two_devices_equals_one():
 def test_mesh_helpers_and_refusals(monkeypatch):
     """Without a mesh every collective is the identity and is_main holds;
     make_mesh refuses an environment that names no group (no silent
-    one-process fallback); a 2-D mesh names its ROADMAP item; a batch that
+    one-process fallback); a 2-D mesh of more ranks than the group has is
+    refused with the JAX package's words; a batch that
     does not divide over the ranks is refused."""
     x = torch.ones(3)
     assert M.all_mean(x, None) is x and M.all_gather_batch(x, None) is x
@@ -220,8 +221,11 @@ def test_mesh_helpers_and_refusals(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(RuntimeError, match="WORLD_SIZE is not set"):
         M.make_mesh("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*model-parallel"):
-        M.make_mesh_2d(2, 2)
+    with pytest.raises(RuntimeError, match="WORLD_SIZE is not set"):
+        M.make_mesh_2d(2, 2, "cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")  # JAX's refusal, in its words
+    with pytest.raises(ValueError, match="need 4 devices for a 2x2 mesh, have 2"):
+        M.make_mesh_2d(2, 2, "cpu")
     mesh = M.Mesh(rank=1, world=2, device=torch.device("cpu"))
     assert not M.is_main(mesh) and mesh.local(8) == 4 and mesh.rows(4) == slice(4, 8)
     with pytest.raises(ValueError, match="does not divide"):

@@ -1,8 +1,11 @@
-"""One rank of the port's data-parallel CPU tests (tests/test_torch_parallel.py,
-tests/test_torch_dp_train.py): joins a gloo group of WORLD processes on
+"""One rank of the port's data-parallel and model-parallel CPU tests
+(tests/test_torch_parallel.py, tests/test_torch_dp_train.py,
+tests/test_torch_spatial.py, tests/test_torch_mp_train.py,
+tests/test_torch_mp_cli.py): joins a gloo group of WORLD processes on
 127.0.0.1 and runs the named scenarios, each reading its inputs from
 ``<dir>/<scenario>.in.pt`` (written by the test) and writing what it computed
-to ``<dir>/<scenario>.rank<r>.pt``.
+to ``<dir>/<scenario>.rank<r>.pt``. A scenario whose inputs hold ``mesh2d``
+= (data, model) runs on that 2-D mesh (``make_mesh_2d``).
 
     python tests/torch_dp_worker.py RANK WORLD PORT DIR DEVICE SCENARIO [SCENARIO ...]
 
@@ -30,6 +33,7 @@ from viscoin_tpu_torch.parallel.mesh import (
     barrier,
     broadcast_tree,
     make_mesh,
+    make_mesh_2d,
 )
 
 def _rows(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
@@ -150,6 +154,151 @@ def run_viscoin_step(inp: dict, mesh: Mesh | None) -> dict:
                     moments[f"{g}.{n}"] = opt.state[p]["exp_avg"].clone()
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "params": params,
             "exp_avg": moments}
+
+
+# ----------------------------- model parallelism ----------------------------- #
+
+
+def _image_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global NCHW batch on a 2-D mesh: its data
+    shard's samples, its model rank's rows of H."""
+    x = _rows(x, mesh)
+    axis = mesh.model_axis
+    return x[:, :, axis.rows(axis.local(x.shape[2]))]
+
+
+def run_spatial_ops(inp: dict, mesh) -> dict:
+    """``parallel/spatial.py`` on this rank's rows of global tensors (one
+    model group of ``model`` ranks): the halo exchange for several halos and
+    fills; <y, A x> and <A^T y, x>; the gradient of a cubic loss through the
+    exchange and the gradient of its squared norm (second order);
+    scatter_rows / gather_rows and their backwards; and each sharded op
+    (convs, the max pool, the up-conv, the FIRs) with the gradients of a
+    weighted sum of its output (this rank's rows of the weights)."""
+    from viscoin_tpu_torch.ops import conv2d_resample, upfirdn2d
+    from viscoin_tpu_torch.parallel import spatial as S
+
+    sp = S.Spatial(axis=mesh.model_axis)
+    rows = sp.rows(inp["x"].shape[2])
+    x = inp["x"][:, :, rows]
+    out: dict = {"halo": {}, "ops": {}}
+    for top, bottom, fill in inp["halos"]:
+        out["halo"][(top, bottom, fill)] = S.halo_exchange(x, top, bottom, sp, fill)
+    top, bottom = inp["adjoint_halo"]
+    y = inp["y"][mesh.rank]
+    out["inner"] = (float((y * S.halo_exchange(x, top, bottom, sp)).sum()),
+                    float((S._HaloAdjoint.apply(y, top, bottom, sp.axis) * x).sum()))
+    xg = x.clone().requires_grad_(True)
+    loss = (inp["w"][sp.axis.rank] * S.halo_exchange(xg, top, bottom, sp) ** 3).sum()
+    (g,) = torch.autograd.grad(loss, xg, create_graph=True)
+    (h,) = torch.autograd.grad((g ** 2 * inp["v"][:, :, rows]).sum(), xg)
+    out.update(g=g.detach(), h=h)
+    xg = x.clone().requires_grad_(True)
+    gathered = S.gather_rows(xg, sp)
+    (gg,) = torch.autograd.grad((gathered * inp["u"][mesh.rank]).sum(), xg)
+    whole = inp["x"].clone().requires_grad_(True)
+    scattered = S.scatter_rows(whole, sp)
+    (gs,) = torch.autograd.grad((scattered * inp["v"][:, :, rows]).sum(), whole)
+    out.update(gathered=gathered.detach(), gather_grad=gg, scattered=scattered.detach(),
+               scatter_grad=gs)
+    for name, case in inp["ops"].items():
+        xg = x.clone().requires_grad_(True)
+        w = case.get("w")
+        w = None if w is None else w.clone().requires_grad_(True)
+        kind = case["kind"]
+        if kind == "conv":
+            y = S.conv2d(xg, w, None, case["stride"], case["padding"], sp)
+        elif kind == "maxpool":
+            y = S.max_pool2d(xg, case["k"], case["stride"], case["padding"], sp)
+        elif kind == "upconv":
+            y = conv2d_resample(xg, w, f=case["f"], up=2, padding=case["padding"],
+                                flip_weight=False, sp=sp)
+        else:
+            y = upfirdn2d(xg, case["f"], up=case["up"], down=case["down"],
+                          padding=case["fir_padding"], gain=case.get("gain", 1.0), sp=sp)
+        weight = case["u"][:, :, sp.rows(case["u"].shape[2])]
+        grads = torch.autograd.grad((y * weight).sum(), [t for t in (xg, w) if t is not None])
+        out["ops"][name] = {"y": y.detach(), "gx": grads[0],
+                            "gw": grads[1] if w is not None else None}
+    out["counts"] = S.counts()
+    return out
+
+
+def run_mp_reconstruct(inp: dict, mesh) -> dict:
+    """``GeneratorAdapted`` (constant noise) on this rank's samples of Phi and
+    Phi': this rank's rows of the images."""
+    from viscoin_tpu_torch.parallel.spatial import bundle_spatial
+
+    gan = inp["models"].gan
+    sp = bundle_spatial(inp["models"], mesh, gan.img_resolution)
+    with torch.no_grad():
+        img = gan(_rows(inp["phi"], mesh), _rows(inp["phi_prime"], mesh), noise_mode="const",
+                  spatial=sp)
+    return {"img": img, "rows": sp.rows(gan.img_resolution)}
+
+
+def run_mp_step(inp: dict, mesh, fault: str | None = None) -> dict:
+    """One fp32 VisCoIN step (float inputs, external fakes, the global
+    dropout mask's rows of this rank's samples) on this rank's samples and H
+    rows: the metrics, the gradients (from the Adams' first moments) and the
+    updated parameters. ``fault``, a planted one: "halo" (every halo filled
+    with zeros) or "grads" (the gradients averaged over the data axis
+    only)."""
+    import torch.nn.functional as F
+
+    from viscoin_tpu_torch.parallel import spatial as S
+    from viscoin_tpu_torch.train import viscoin as T
+
+    models, lpips = inp["models"], inp["lpips"]
+    cfg = T.VisCoINTrainingParams(**inp["cfg"])
+    frozen = T.make_frozen(models, None, lpips, cfg.compute_dtype)
+    state = T.create_train_state(models, cfg)
+    step = T.make_train_step(models, None, lpips, cfg, preprocess=False, external_fakes=True,
+                             mesh=mesh)
+    halo, reduce = S.halo_exchange, T.all_reduce_grads
+    if fault == "halo":
+        S.halo_exchange = lambda x, top, bottom, sp, fill=0.0: F.pad(x, (0, 0, top, bottom))
+    elif fault == "grads":
+        T.all_reduce_grads = lambda grads, mesh: reduce(grads, mesh.data_axis)
+    B = inp["real"].shape[0]
+    mask = torch.cat([_rows(inp["mask"][:B], mesh), _rows(inp["mask"][B:], mesh)])
+    S.reset_counts()
+    try:
+        state, metrics = step(state, frozen, _image_rows(inp["real"], mesh),
+                              _rows(inp["labels"], mesh), torch.Generator().manual_seed(0),
+                              _image_rows(inp["fake"], mesh), dropout_mask=mask)
+    finally:
+        S.halo_exchange, T.all_reduce_grads = halo, reduce
+    grads = {f"{g}.{n}": opt.state[p]["exp_avg"] / 0.1 for opt in (state.opt, state.gan_opt)
+             for g, grp in state.params.items() for n, p in grp.items() if p in opt.state}
+    params = {f"{g}.{n}": p.detach().clone() for g, grp in state.params.items()
+              for n, p in grp.items()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "params": params, "counts": S.counts()}
+
+
+def run_mp_eval(inp: dict, mesh) -> dict:
+    """``test_viscoin`` with FID (the tiny detector of tests/test_eval.py)
+    over the synthetic test set, each data shard its loader shard, each
+    model rank its H rows; and the faithfulness probe on ``probe_images``."""
+    from viscoin_tpu_torch.data.datasets import SyntheticDataset
+    from viscoin_tpu_torch.data.loader import DataLoader
+    from viscoin_tpu_torch.eval import viscoin as TE
+
+    data = mesh.data_axis
+    loader = DataLoader(SyntheticDataset(n=inp["n"], n_classes=inp["n_classes"],
+                                         image_size=inp["size"], mode="test"),
+                        inp["batch"], shuffle=False, num_threads=0,
+                        shard=(data.rank, data.world), pad_final=True)
+
+    def detector(x):
+        return torch.cat([x.mean(dim=(2, 3)), x.std(dim=(1, 2, 3), unbiased=False)[:, None]],
+                         dim=1)
+
+    res = TE.test_viscoin(inp["models"], inp["lpips"], loader, compute_fid=True,
+                          fid_detector=detector, mesh=mesh)
+    probe = TE.make_faithfulness_fn(inp["models"], mesh)(inp["probe_images"])
+    return {"results": res.__dict__, "probe": probe}
 
 
 # -------------------------------- the GAN step -------------------------------- #
@@ -343,7 +492,8 @@ def run_gan_fid(inp: dict, mesh: Mesh | None) -> dict:
 def run_command(inp: dict, mesh: Mesh | None) -> dict:
     """``python -m viscoin_tpu_torch train viscoin`` (its ``main``) at toy
     widths in this rank's own working directory, then its resume from rank
-    0's training state; the group is the command's own (WORLD_SIZE set)."""
+    0's training state; the group is the command's own (WORLD_SIZE set).
+    ``inp``: "argv" more options, "epochs" (first run, resume), else (3, 4)."""
     from viscoin_tpu_torch.__main__ import main
     from viscoin_tpu_torch.cli import train as cli_train
     from viscoin_tpu_torch.models import bundle as tb
@@ -374,12 +524,13 @@ def run_command(inp: dict, mesh: Mesh | None) -> dict:
     os.environ.update(VISCOIN_SYNTH_N="8", VISCOIN_SYNTH_SIZE="32")
     base = ["train", "viscoin", "--device", "cpu", "--dataset", "synthetic", "--batch-size", "4",
             "--eval-every", "1", "--checkpoint-every", "2", "--faithfulness-every", "2",
-            "--prefetch", "0"]
+            "--prefetch", "0", *inp.get("argv", [])]
+    first_epochs, resume_epochs = inp.get("epochs", (3, 4))
     os.environ["MASTER_PORT"] = str(inp["ports"][0])
-    rcs = [main([*base, "--epochs", "3"])]
+    rcs = [main([*base, "--epochs", str(first_epochs)])]
     first = sorted(os.listdir(work))
     os.environ["MASTER_PORT"] = str(inp["ports"][1])  # a new group for the resume
-    rcs.append(main([*base, "--epochs", "4", "--resume",
+    rcs.append(main([*base, "--epochs", str(resume_epochs), "--resume",
                      os.path.join(inp["dir"], "rank0", "train_state")]))
     return {"rcs": rcs, "first": first, "files": sorted(os.listdir(work))}
 
@@ -403,39 +554,57 @@ def to_device(obj, device):
     return obj
 
 
+class Ranks:
+    """``world`` worker processes over gloo (each with a one-thread torch) on
+    ``device``, running the scenarios of ``inputs`` (written first); started
+    at once, so that the caller can work while they run. :meth:`join`
+    returns, per rank, {scenario: its output}, on the CPU. Every wait is
+    bounded: a hang kills the workers and fails."""
+
+    def __init__(self, work_dir, inputs: dict[str, dict], world: int = 2,
+                 device: str = "cpu"):
+        import subprocess
+        from pathlib import Path
+
+        self.work_dir, self.names, self.world = Path(work_dir), list(inputs), world
+        for name, inp in inputs.items():
+            torch.save(inp, self.work_dir / f"{name}.in.pt")
+        repo = str(Path(__file__).resolve().parent.parent)
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        port = str(free_port())
+        self.procs = [subprocess.Popen([sys.executable, __file__, str(r), str(world), port,
+                                        str(self.work_dir), device, *inputs], env=env,
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True) for r in range(world)]
+
+    def join(self, timeout: float = 120.0) -> list[dict]:
+        import time
+
+        logs, t0 = [], time.monotonic()
+        try:
+            for p in self.procs:
+                left = max(1.0, timeout - (time.monotonic() - t0))
+                logs.append(p.communicate(timeout=left)[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate(timeout=30)
+        for r, (p, log) in enumerate(zip(self.procs, logs)):
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+        return [{name: torch.load(self.work_dir / f"{name}.rank{r}.pt", weights_only=False,
+                                  map_location="cpu")
+                 for name in self.names} for r in range(self.world)]
+
+
 def run_ranks(work_dir, inputs: dict[str, dict], world: int = 2, timeout: float = 120.0,
               device: str = "cpu") -> list[dict]:
     """Write each scenario's inputs, run ``world`` worker processes over
     gloo (each with a one-thread torch) on ``device`` and return, per rank,
     {scenario: its output}, on the CPU. Every wait is bounded by
     ``timeout`` seconds: a hang kills the workers and fails."""
-    import subprocess
-    from pathlib import Path
-
-    work_dir = Path(work_dir)
-    for name, inp in inputs.items():
-        torch.save(inp, work_dir / f"{name}.in.pt")
-    repo = str(Path(__file__).resolve().parent.parent)
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    port = str(free_port())
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(world), port,
-                               str(work_dir), device, *inputs], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate(timeout=30)
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
-    return [{name: torch.load(work_dir / f"{name}.rank{r}.pt", weights_only=False,
-                              map_location="cpu")
-             for name in inputs} for r in range(world)]
+    return Ranks(work_dir, inputs, world, device).join(timeout)
 
 
 def main(argv: list[str]) -> int:
@@ -453,7 +622,8 @@ def main(argv: list[str]) -> int:
         if name == "command":  # the command joins and leaves the group itself
             out = run_command(inp, None)
         else:
-            mesh = make_mesh(device, backend="gloo")
+            mesh = (make_mesh_2d(*inp["mesh2d"], device, backend="gloo") if "mesh2d" in inp
+                    else make_mesh(device, backend="gloo"))
             fn = globals()[f"run_{inp.get('fn', name)}"]
             out = fn(inp, mesh, **inp.get("kw", {}))
         torch.save(out, os.path.join(out_dir, f"{name}.rank{rank}.pt"))

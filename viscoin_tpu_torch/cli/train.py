@@ -43,7 +43,13 @@ JAX command does over every device, one process per card
 even 1); otherwise, with several visible cards, it starts one worker
 process per card itself. ``--batch-size`` stays the global batch. With one
 card (or the CPU) and no ``torchrun``, there is no mesh. Rank 0 writes the
-logs and the checkpoints. ``--model-parallel`` > 1 is not ported.
+logs and the checkpoints. ``train viscoin --model-parallel M`` arranges the
+processes as a 2-D ``(data, model)`` mesh (``parallel/spatial.py``): each
+group of M consecutive ranks splits its data shard's images along H, so there
+must be a multiple of M of them (``torchrun --nproc-per-node D*M``, or D*M
+visible cards, one spawned worker each). ``train gan --model-parallel`` > 1
+is not ported; ``classifier`` and ``concept2clip`` ignore it, as the JAX
+command does.
 
 ``concept2clip``: the MLP from the bundle at
 ``checkpoints/<dataset>/viscoin-<dataset>``'s concept space (``--latent-type
@@ -71,7 +77,8 @@ from viscoin_tpu_torch.data.utils import default_checkpoints, get_dataloaders
 from viscoin_tpu_torch.parallel.mesh import destroy_mesh
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
-MODEL_PARALLEL = "queue 1: model parallelism, --model-parallel"
+GAN_MODEL_PARALLEL = ("queue 1: model parallelism of the GAN trainer, "
+                      "train gan --model-parallel")
 DEFAULT_FID_DETECTOR = "checkpoints/inception"
 
 
@@ -89,7 +96,10 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
                    help="Shard the batch over all visible cards, one process per card (under "
                         "torchrun: over its processes)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="Devices per model-parallel group (not ported yet beyond 1)")
+                   help="[viscoin] Devices per model-parallel group: a 2-D (data, model) mesh "
+                        "whose 'model' axis splits the images' H axis through the train step "
+                        "(explicit halo exchanges), for scaling past the per-card batch "
+                        "minimum")
     p.add_argument("--optimizer", choices=["adam", "sgd"], default=None,
                    help="[classifier] Optimizer (default adam; sgd for the reference README's "
                         "SGD recipe)")
@@ -167,12 +177,16 @@ def train(args: argparse.Namespace) -> None:
             args.parser.error(f"--fid-every needs a FID detector; none at {detector} (port one "
                               "with `python -m viscoin_tpu_torch port-weights inception`, or "
                               "pass --fid-detector)")
+    if args.model_name == "gan" and args.model_parallel > 1:
+        raise NotImplementedError(f"--model-parallel {args.model_parallel} is not ported for "
+                                  f"train gan (ROADMAP.md, {GAN_MODEL_PARALLEL})")
+    model_parallel = args.model_parallel if args.model_name == "viscoin" else 1
     device = card_or_cpu(f"train {args.model_name}", args.device)
-    workers = _spawned_workers(device, args.data_parallel, args.model_parallel)
+    workers = _spawned_workers(device, args.data_parallel, model_parallel)
     if workers > 1:
         _spawn(args, workers)
         return
-    mesh = _build_mesh(device, args.data_parallel)
+    mesh = _build_mesh(device, args.data_parallel, model_parallel)
     try:
         _train(args, ds_kwargs, mesh, device if mesh is None else mesh.device)
     finally:
@@ -223,26 +237,41 @@ def _dataset_kwargs(dataset: str, image_size) -> dict:
 def _spawned_workers(device: torch.device, data_parallel: bool, model_parallel: int) -> int:
     """How many worker processes the command starts itself: one per visible
     card with --data-parallel over several cards outside torchrun, else 0
-    (this process trains)."""
-    if model_parallel > 1:
-        raise NotImplementedError(f"--model-parallel {model_parallel} is not ported yet "
-                                  f"(ROADMAP.md, {MODEL_PARALLEL})")
+    (this process trains). Refuses a --model-parallel that the JAX command
+    refuses, in its words: without --data-parallel, or one that does not
+    divide the processes (torchrun's) or the visible cards."""
     visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    if model_parallel > 1:
+        if not data_parallel:
+            raise ValueError("--model-parallel requires --data-parallel (the mesh is 2-D "
+                             "(data, model))")
+        n = int(os.environ.get("WORLD_SIZE", visible))
+        if n % model_parallel:
+            raise ValueError(f"--model-parallel={model_parallel} does not divide the {n} "
+                             "available devices")
     if data_parallel and visible > 1 and "WORLD_SIZE" not in os.environ:
         return visible
     return 0
 
 
-def _build_mesh(device: torch.device, data_parallel: bool):
-    """The data-parallel mesh of this process: the torchrun group it was
-    started in (``WORLD_SIZE`` set, whatever the size), else None."""
-    from viscoin_tpu_torch.parallel.mesh import make_mesh
+def _build_mesh(device: torch.device, data_parallel: bool, model_parallel: int = 1):
+    """The mesh of this process: the torchrun group it was started in
+    (``WORLD_SIZE`` set, whatever the size), 1-D, or 2-D with
+    ``model_parallel`` > 1; else None."""
+    from viscoin_tpu_torch.parallel.mesh import is_main, make_mesh, make_mesh_2d
 
     if "WORLD_SIZE" not in os.environ:
         return None
     if not data_parallel:
         raise ValueError(f"--no-data-parallel in a group of {os.environ['WORLD_SIZE']} "
                          "processes (WORLD_SIZE is set): run one process, or drop the flag")
+    if model_parallel > 1:
+        data = int(os.environ["WORLD_SIZE"]) // model_parallel
+        mesh = make_mesh_2d(data, model_parallel, device)
+        if is_main(mesh):
+            print(f"mesh: ({data} data, {model_parallel} model) — images' H axis spatially "
+                  "sharded over 'model'", flush=True)
+        return mesh
     return make_mesh(device)
 
 
@@ -305,7 +334,8 @@ def _sharded(ds_kwargs: dict | None, mesh) -> dict:
     global batch, the test loader's ragged tail padded (and masked)."""
     if mesh is None:
         return dict(ds_kwargs or {})
-    return {**(ds_kwargs or {}), "shard": (mesh.rank, mesh.world)}
+    data = mesh.data_axis
+    return {**(ds_kwargs or {}), "shard": (data.rank, data.world)}
 
 
 def build_classifier(n_classes: int, device="cuda"):

@@ -23,7 +23,11 @@ return numpy; images come back in the JAX package's HWC layout.
 With a data-parallel ``mesh`` (``parallel/mesh.py``) every rank runs its
 shard of each global batch: the metric sums are all-reduced and the FID
 features gathered, padding rows masked, so every rank returns the numbers
-of one process over the whole loader.
+of one process over the whole loader. On a 2-D mesh each data shard's
+images are also split along H over its model ranks (``parallel/spatial.py``):
+the metrics are whole within a model group and summed over the data axis
+only, and for FID each model rank gathers the batch's rows and runs the
+detector on its 1 / model of the batch, so every image counts once.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from viscoin_tpu_torch.data.transforms import device_preprocess
 from viscoin_tpu_torch.eval.fid import FeatureStats, fid_from_stats
 from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
+from viscoin_tpu_torch.parallel import spatial as S
 from viscoin_tpu_torch.parallel.mesh import all_gather_batch, all_sum
 from viscoin_tpu_torch.utils.types import TestingResults
 
@@ -79,10 +84,11 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _encode(models: VisCoINModels, x: torch.Tensor):
-    """f -> Psi -> Theta on a preprocessed batch: (phi, phi', explainer logits)."""
-    _, hidden = models.classifier(x)
-    phi, phi_prime = models.concept_extractor(tuple(hidden[-3:]))
+def _encode(models: VisCoINModels, x: torch.Tensor, spatial=None):
+    """f -> Psi -> Theta on a preprocessed batch: (phi, phi', explainer
+    logits); ``spatial``: ``x`` is this rank's rows of an H-sharded batch."""
+    _, hidden = models.classifier(x, spatial=spatial)
+    phi, phi_prime = models.concept_extractor(tuple(hidden[-3:]), spatial=spatial)
     return phi, phi_prime, models.explainer(phi)
 
 
@@ -94,20 +100,23 @@ def make_test_step(models: VisCoINModels, lpips_module, mesh=None):
     maps :data:`METRIC_KEYS` to 0-d fp32 tensors (per-sample values times
     ``valid``, summed), ``rebuilt`` the reconstruction and ``x`` the
     preprocessed batch (fp32 NCHW). With a ``mesh`` the batch is this rank's
-    shard and the sums are the global batch's (one all-reduce)."""
+    shard and the sums are the global batch's (one all-reduce); on a 2-D
+    mesh the images, ``rebuilt`` and ``x`` are this rank's rows along H."""
+    data = None if mesh is None else mesh.data_axis
 
     @torch.no_grad()
     def step(images_u8, labels, valid):
         _, dtype = _placement(models)
         x = device_preprocess(images_u8)
         xc = x.to(dtype)
-        classes, hidden = models.classifier(xc)
-        phi, phi_prime = models.concept_extractor(tuple(hidden[-3:]))
+        sp = S.bundle_spatial(models, mesh, x.shape[3])
+        classes, hidden = models.classifier(xc, spatial=sp)
+        phi, phi_prime = models.concept_extractor(tuple(hidden[-3:]), spatial=sp)
         expl = models.explainer(phi).float()
-        rebuilt = models.gan(phi, phi_prime, noise_mode="const")
+        rebuilt = models.gan(phi, phi_prime, noise_mode="const", spatial=sp)
         classes, phi = classes.float(), phi.float()
         lp_dtype = next(lpips_module.parameters()).dtype
-        lpips_d = lpips_module(rebuilt.to(lp_dtype), x.to(lp_dtype)).float()
+        lpips_d = lpips_module(rebuilt.to(lp_dtype), x.to(lp_dtype), spatial=sp).float()
         rebuilt = rebuilt.float()
 
         preds, preds_expl = classes.argmax(1), expl.argmax(1)
@@ -117,21 +126,27 @@ def make_test_step(models: VisCoINModels, lpips_module, mesh=None):
         cr = normed.abs().mean(1) + phi.abs().mean(dim=(1, 2, 3))
         of = (-F.softmax(classes, dim=1) * F.log_softmax(expl, dim=1)).sum(1)
         diff = rebuilt - x
+        if sp is None:
+            l1, l2 = diff.abs().mean(dim=(1, 2, 3)), diff.square().mean(dim=(1, 2, 3))
+        else:  # the means over whole images
+            l1, l2 = S.model_sum(torch.stack([diff.abs().sum(dim=(1, 2, 3)),
+                                              diff.square().sum(dim=(1, 2, 3))]),
+                                 sp) / (diff[0].numel() * sp.model)
         valid = valid.float()
         out = {
             "acc_loss": (ce * valid).sum(),
             "cr_loss": (cr * valid).sum(),
             "of_loss": (of * valid).sum(),
             "lp_loss": (lpips_d * valid).sum(),
-            "rec_loss_l1": (diff.abs().mean(dim=(1, 2, 3)) * valid).sum(),
-            "rec_loss_l2": (diff.square().mean(dim=(1, 2, 3)) * valid).sum(),
+            "rec_loss_l1": (l1 * valid).sum(),
+            "rec_loss_l2": (l2 * valid).sum(),
             "preds_overlap": ((preds == preds_expl) * valid).sum(),
             "correct_preds": ((preds == labels) * valid).sum(),
             "correct_expl_preds": ((preds_expl == labels) * valid).sum(),
             "n_valid": valid.sum(),
         }
         if mesh is not None:
-            out = dict(zip(out, all_sum(torch.stack([v.float() for v in out.values()]), mesh)))
+            out = dict(zip(out, all_sum(torch.stack([v.float() for v in out.values()]), data)))
         return out, rebuilt, x
 
     return step
@@ -149,6 +164,22 @@ def _gathered(rows, mesh) -> np.ndarray:
     return _host(all_gather_batch(torch.as_tensor(rows, device=mesh.device).float(), mesh))
 
 
+def _model_share(images: torch.Tensor, valid: torch.Tensor, mesh):
+    """On a 2-D mesh: the whole images of this rank's 1 / model of its data
+    shard's batch (the H rows gathered over the model group; the batch
+    padded to a multiple of the model ranks, the padding not valid), in
+    the order in which gathering over the whole mesh puts them."""
+    axis = mesh.model_axis
+    sp = S.Spatial(axis=axis)
+    images = S.gather_rows(images, sp)
+    pad = -images.shape[0] % axis.world
+    if pad:
+        images = torch.cat([images, images[:1].expand(pad, -1, -1, -1)])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    rows = axis.rows(axis.local(images.shape[0]))
+    return images[rows], valid[rows]
+
+
 def test_viscoin(models: VisCoINModels, lpips_module, dataloader, compute_fid: bool = False,
                  fid_detector=None, verbose: bool = True, mesh=None,
                  step=None) -> TestingResults:
@@ -161,9 +192,12 @@ def test_viscoin(models: VisCoINModels, lpips_module, dataloader, compute_fid: b
     world))``, with ``pad_final`` when the last global batch is ragged);
     the sums are reduced over the ranks and the FID features of each global
     batch gathered in rank order (B x D floats, where the JAX package
-    reduces D x D moments), so every rank holds the one-process statistics."""
+    reduces D x D moments), so every rank holds the one-process statistics.
+    On a 2-D mesh the loaders are sharded over its data axis
+    (``mesh.data_axis``); each rank places its H rows of every batch."""
     del verbose
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.data_axis.world
+    model_axis = None if mesh is None else mesh.model_axis
     if getattr(dataloader, "shard", (0, 1))[1] != world:
         raise ValueError(f"test loader shard world {getattr(dataloader, 'shard', (0, 1))[1]} "
                          f"!= {world}: over a mesh every rank passes its DataLoader(shard=(rank, "
@@ -183,12 +217,17 @@ def test_viscoin(models: VisCoINModels, lpips_module, dataloader, compute_fid: b
     stats_real, stats_fake = FeatureStats(), FeatureStats()
     for images, labels in dataloader:
         images, labels, valid = pad_batch(local_bs, images, labels)
+        if model_axis is not None:  # this rank's rows of the (B, H, W, 3) batch
+            images = images[:, model_axis.rows(model_axis.local(images.shape[1]))]
         valid_t = to_device(valid, device)
         metrics, rebuilt, x = step(to_device(images, device),
                                    to_device(labels.astype(np.int64), device), valid_t)
         # One device-to-host transfer for all the sums of the batch.
         sums += torch.stack([metrics[k] for k in METRIC_KEYS]).double().cpu().numpy()
         if use_fid:
+            if model_axis is not None:
+                x, _ = _model_share(x, valid_t, mesh)
+                rebuilt, valid_t = _model_share(rebuilt, valid_t, mesh)
             keep = _gathered(valid_t, mesh) > 0
             stats_fake.append(_gathered(fid_detector(rebuilt), mesh)[keep])
             stats_real.append(_gathered(fid_detector(x), mesh)[keep])
@@ -329,20 +368,26 @@ def make_faithfulness_fn(models: VisCoINModels, mesh=None):
     Returns ``probe(images_u8 (B, H, W, 3) uint8 on the device) -> (B,)``,
     the probability of concept_pred on the reconstruction. With a ``mesh``
     every rank passes the same B images, scores its B / world of them and
-    returns all B, gathered in order."""
+    returns all B, gathered in order; on a 2-D mesh B / data of them, on its
+    H rows, the model group's ranks together."""
+    data = None if mesh is None else mesh.data_axis
+    model_axis = None if mesh is None else mesh.model_axis
 
     @torch.no_grad()
     def probe(images_u8: torch.Tensor) -> torch.Tensor:
         _, dtype = _placement(models)
         if mesh is not None:
             images_u8 = images_u8[mesh.rows(mesh.local(images_u8.shape[0]))]
+        if model_axis is not None:
+            images_u8 = images_u8[:, model_axis.rows(model_axis.local(images_u8.shape[1]))]
         x = device_preprocess(images_u8).to(dtype)
-        phi, phi_prime, logits = _encode(models, x)
+        sp = S.bundle_spatial(models, mesh, x.shape[3])
+        phi, phi_prime, logits = _encode(models, x, spatial=sp)
         concept_pred = logits.float().argmax(1)
-        rebuilt = models.gan(phi, phi_prime, noise_mode="const")
-        _, _, logits2 = _encode(models, rebuilt)
+        rebuilt = models.gan(phi, phi_prime, noise_mode="const", spatial=sp)
+        _, _, logits2 = _encode(models, rebuilt, spatial=sp)
         probas = F.softmax(logits2.float(), dim=1)
-        return all_gather_batch(probas.gather(1, concept_pred[:, None])[:, 0], mesh)
+        return all_gather_batch(probas.gather(1, concept_pred[:, None])[:, 0], data)
 
     return probe
 

@@ -17,6 +17,12 @@ matrices, whose backward is a matrix product too. ``F.adaptive_avg_pool2d``
 would give the same values, but its CUDA backward adds overlapping windows
 with atomics, in no fixed order, so a resumed run would not be bit-equal to
 the unbroken one.
+
+With ``spatial`` (``parallel/spatial.py``) the three latent layers are in
+their planes' layouts of the shard plan; conv1-conv3 run in their inputs'
+layouts, their outputs take the "psi.latent" plane's, and on a sharded plane
+the pooling contracts this rank's rows of the averaging matrix, then sums
+over the model group, so Phi and Phi' are whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from torch import nn
 
 from viscoin_tpu_torch.models.resnet import lecun_normal_
+from viscoin_tpu_torch.parallel import spatial as S
 
 
 def _adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -60,13 +67,20 @@ def _pool_matrix(in_size: int, out_size: int, like: torch.Tensor) -> torch.Tenso
     return m
 
 
-def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
+def adaptive_avg_pool(x: torch.Tensor, out_size: int, sp: S.Spatial | None = None
+                      ) -> torch.Tensor:
     """Adaptive average pooling of an NCHW tensor to (out_size, out_size):
-    a contraction over H, then one over W."""
-    mh = _pool_matrix(x.shape[2], out_size, x)
+    a contraction over H, then one over W. ``sp``: ``x`` is this rank's rows
+    of an H-sharded plane; the result is whole on every rank."""
+    if sp is None:
+        mh = _pool_matrix(x.shape[2], out_size, x)
+    else:
+        height = x.shape[2] * sp.model
+        mh = _pool_matrix(height, out_size, x)[sp.rows(height)]
     mw = _pool_matrix(x.shape[3], out_size, x)
     x = torch.einsum("bchw,hy->bcyw", x, mh)
-    return torch.einsum("bcyw,wx->bcyx", x, mw)
+    x = torch.einsum("bcyw,wx->bcyx", x, mw)
+    return x if sp is None else S.model_sum(x, sp)
 
 
 class ConceptExtractor(nn.Module):
@@ -105,40 +119,49 @@ class ConceptExtractor(nn.Module):
         return shapes + [(b, conv.out_channels, *shapes[0][2:]) for conv in (self.conv4,
                                                                               self.conv5)]
 
-    def forward_taps(self, latent_layers, perturbations=None):
+    def forward_taps(self, latent_layers, perturbations=None,
+                     spatial: S.Spatial | None = None):
         """``forward``, and conv1..conv5's outputs before their ReLU (the
         JAX module's ``perturb`` taps). ``perturbations``: None, or five
         tensors of :meth:`tap_shapes` added to those outputs; GradCAM
-        differentiates with respect to zero perturbations.
+        differentiates with respect to zero perturbations. ``spatial``: see
+        :meth:`forward`; the taps and the perturbations are in the
+        "psi.latent" plane's layout.
 
         Returns (Phi (B, K, 3, 3), Phi' (B, 9K), [five NCHW conv outputs])."""
         if len(latent_layers) != 3:
             raise ValueError(f"expected 3 latent layers, got {len(latent_layers)}")
+        sp, latent = spatial, "psi.latent"
         taps = []
 
-        def tap(conv, x):
-            a = conv(x)
+        def tap(conv, x, plane):
+            a = S.conv2d(x, conv.weight, conv.bias, conv.stride[0], conv.padding[0],
+                         S.at(sp, plane))
+            a = S.convert(a, sp, plane, latent)
             taps.append(a)
             return torch.relu(a if perturbations is None else a + perturbations[len(taps) - 1])
 
-        x1 = tap(self.conv1, latent_layers[0])
-        x2 = tap(self.conv2, latent_layers[1])
-        x3 = tap(self.conv3, latent_layers[2])
-        x = tap(self.conv4, torch.cat([x1, x2, x3], dim=1))
+        x1 = tap(self.conv1, latent_layers[0], "f.stage1")
+        x2 = tap(self.conv2, latent_layers[1], "f.stage2")
+        x3 = tap(self.conv3, latent_layers[2], "f.stage3")
+        x = tap(self.conv4, torch.cat([x1, x2, x3], dim=1), latent)
 
-        phi = adaptive_avg_pool(tap(self.conv5, x), 3)
+        at = S.at(sp, latent)
+        phi = adaptive_avg_pool(tap(self.conv5, x, latent), 3, at)
 
-        y = adaptive_avg_pool(x, 3).reshape(x.shape[0], -1)
+        y = adaptive_avg_pool(x, 3, at).reshape(x.shape[0], -1)
         y = torch.relu(self.linear1(y))
         y = torch.relu(self.linear2(y))
         return phi, y, taps
 
-    def forward(self, latent_layers, perturbations=None) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, latent_layers, perturbations=None,
+                spatial: S.Spatial | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """latent_layers: the classifier's hidden_states[-3:] (NCHW);
-        ``perturbations``: see :meth:`forward_taps`.
+        ``perturbations``: see :meth:`forward_taps`. ``spatial``: the layers
+        are in the layouts of the shard plan's "f.stage1".."f.stage3".
 
         Returns (Phi (B, K, 3, 3), Phi' (B, 9K))."""
-        phi, y, _ = self.forward_taps(latent_layers, perturbations)
+        phi, y, _ = self.forward_taps(latent_layers, perturbations, spatial)
         return phi, y
 
 

@@ -14,15 +14,20 @@ with the channel sums in fp32. The two towers run separately, so the target
 branch (no gradient) records no graph. Weights start random from a seed
 (``init_weights``) or come from the JAX package's params through
 ``utils/weights.py::load_jax_tree``.
+
+With ``spatial`` (``parallel/spatial.py``) the images are this rank's rows
+of an H-sharded batch: each slice runs in its plane's layout of the shard
+plan ("lpips.0".."lpips.4"), and the spatial means of the sharded slices are
+one model-group sum, so the distances are whole on every rank.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from viscoin_tpu_torch.models.resnet import lecun_normal_
+from viscoin_tpu_torch.parallel import spatial as S
 
 SHIFT = (-0.030, -0.088, -0.188)
 SCALE = (0.458, 0.448, 0.450)
@@ -48,13 +53,20 @@ class VGG16Features(nn.Module):
             lecun_normal_(conv.weight, generator)
             conv.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, spatial: S.Spatial | None = None
+                ) -> tuple[torch.Tensor, ...]:
+        """``spatial``: ``x`` is this rank's rows; each slice output comes
+        in its plane's layout."""
         outs, idx = [], 0
         for slice_idx, channels in enumerate(SLICES):
-            if slice_idx > 0:
-                x = F.max_pool2d(x, 2, stride=2)
+            plane = f"lpips.{slice_idx}"
+            if slice_idx > 0:  # on the previous slice's layout, then on this one's
+                prev = f"lpips.{slice_idx - 1}"
+                x = S.convert(S.max_pool2d(x, 2, 2, 0, S.at(spatial, prev)), spatial, prev,
+                              plane)
             for _ in channels:
-                x = torch.relu(getattr(self, f"conv{idx}")(x))
+                conv = getattr(self, f"conv{idx}")
+                x = torch.relu(S.conv2d(x, conv.weight, conv.bias, 1, 1, S.at(spatial, plane)))
                 idx += 1
             outs.append(x)
         return tuple(outs)
@@ -73,12 +85,16 @@ class LPIPS(nn.Module):
         for i in range(len(LPIPS_CHANNELS)):
             getattr(self, f"lin{i}").uniform_(0.0, 1.0, generator=generator)  # non-negative
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                spatial: S.Spatial | None = None) -> torch.Tensor:
+        """``spatial``: ``x`` and ``y`` are this rank's rows of H-sharded
+        batches; the (B,) distances are whole on every rank."""
         shift = torch.tensor(SHIFT, dtype=x.dtype, device=x.device)[:, None, None]
         scale = torch.tensor(SCALE, dtype=x.dtype, device=x.device)[:, None, None]
-        fx = self.vgg((x - shift) / scale)
-        fy = self.vgg((y - shift) / scale)
+        fx = self.vgg((x - shift) / scale, spatial)
+        fy = self.vgg((y - shift) / scale, spatial)
         total = 0.0
+        sharded = 0.0  # the sharded slices' local sums over the global count
         f32 = torch.float32
         for i, (a, b) in enumerate(zip(fx, fy)):
             lin = getattr(self, f"lin{i}").to(a.dtype)[:, None, None]
@@ -90,7 +106,13 @@ class LPIPS(nn.Module):
             na = sa.sqrt() + 1e-10
             nb = sb.sqrt() + 1e-10
             dist = la / na.square() + lb / nb.square() - 2.0 * lab / (na * nb)
-            total = total + dist.mean(dim=(1, 2))
+            if S.sharded(spatial, f"lpips.{i}"):
+                sharded = sharded + dist.sum(dim=(1, 2)) / (dist.shape[1] * spatial.model
+                                                            * dist.shape[2])
+            else:
+                total = total + dist.mean(dim=(1, 2))
+        if spatial is not None:
+            total = total + S.model_sum(sharded, spatial)
         return total
 
     def normalized_difference(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,12 @@ statistics; with ``train=True`` it normalizes with the batch's biased
 variance, computed in fp32, and moves the running statistics towards the
 batch's mean and *biased* variance, r <- 0.9 r + 0.1 v (``nn.BatchNorm2d``
 would move them towards the unbiased variance).
+
+With ``spatial`` (``parallel/spatial.py``) the image is this rank's rows of
+an H-sharded batch: each plane of the shard plan ("f.stem" .. "f.stage3") is
+computed on its rows (halo exchanges in the convs and the max pool, whose
+halo is -inf past the edges) or whole, and the global mean is a model-group
+sum. BatchNorm is then in eval mode only (elementwise).
 """
 
 from __future__ import annotations
@@ -23,9 +29,9 @@ import math
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from viscoin_tpu_torch.parallel import spatial as S
 from viscoin_tpu_torch.parallel.mesh import all_mean
 
 
@@ -52,8 +58,11 @@ class ConvBN(nn.Module):
         lecun_normal_(self.conv.weight, generator)
         self.bn.reset_parameters()
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None,
+                sp: S.Spatial | None = None) -> torch.Tensor:
+        """``sp``: ``x`` is this rank's rows of an H-sharded plane."""
+        conv = self.conv
+        x = S.conv2d(x, conv.weight, None, conv.stride[0], conv.padding[0], sp)
         bn = self.bn
         if train:
             x = self._batch_norm_train(x, mesh)
@@ -98,10 +107,12 @@ class Bottleneck(nn.Module):
         self.shortcut = (ConvBN(in_channels, out_channels, 1, stride, act=False, device=device)
                          if in_channels != out_channels or stride != 1 else None)
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
-        y = self.conv3(self.conv2(self.conv1(x, train, mesh), train, mesh), train, mesh)
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None,
+                sp: S.Spatial | None = None) -> torch.Tensor:
+        y = self.conv3(self.conv2(self.conv1(x, train, mesh, sp), train, mesh, sp), train,
+                       mesh, sp)
         if self.shortcut is not None:
-            x = self.shortcut(x, train, mesh)
+            x = self.shortcut(x, train, mesh, sp)
         return torch.relu(y + x)
 
 
@@ -125,15 +136,23 @@ class ResNetBackbone(nn.Module):
                 ch = out
             self.stages.append(names)
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None):
-        x = self.embedder(x, train, mesh)
-        x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
-        hidden = [x]
-        for names in self.stages:
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None,
+                spatial: S.Spatial | None = None):
+        """``spatial``: each op on its input plane's layout, its output
+        moved to its own plane's (``spatial.shard_plan``); the hidden
+        states in theirs."""
+        sp = spatial
+        x = S.convert(self.embedder(x, train, mesh, S.at(sp, "image")), sp, "image", "f.stem")
+        x = S.max_pool2d(x, 3, 2, 1, S.at(sp, "f.stem"))  # pads with -inf
+        x = S.convert(x, sp, "f.stem", "f.pool")
+        hidden, where = [x], "f.pool"
+        for i, names in enumerate(self.stages):
             for name in names:
-                x = getattr(self, name)(x, train, mesh)
+                x = getattr(self, name)(x, train, mesh, S.at(sp, where))
+                x = S.convert(x, sp, where, f"f.stage{i}")
+                where = f"f.stage{i}"
             hidden.append(x)
-        return x.mean(dim=(2, 3)), tuple(hidden)
+        return S.mean_hw(x, S.at(sp, where)), tuple(hidden)
 
 
 class Classifier(nn.Module):
@@ -156,9 +175,15 @@ class Classifier(nn.Module):
                                    generator=generator)
         self.linear.bias.zero_()
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None):
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None,
+                spatial: S.Spatial | None = None):
         """``train``: BatchNorm on the batch's statistics, which it folds into
         the running ones (the JAX module's ``train=True``); with a
-        data-parallel ``mesh``, on the global batch's."""
-        pooled, hidden = self.resnet(x, train, mesh)
+        data-parallel ``mesh``, on the global batch's. ``spatial``: ``x`` is
+        this rank's rows of an H-sharded batch (eval-mode BatchNorm only);
+        the logits are whole on every rank, each hidden state in its plane's
+        layout (``spatial.plan["f.stage<i>"]``)."""
+        if spatial is not None and train:
+            raise NotImplementedError("train-mode BatchNorm on H-sharded rows is not ported")
+        pooled, hidden = self.resnet(x, train, mesh, spatial)
         return self.linear(pooled), hidden

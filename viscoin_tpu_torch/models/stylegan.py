@@ -18,6 +18,13 @@ features in JAX's (h, w, c) order, so the ``fc`` weight is JAX's as it is.
 ``noise_mode`` is "random" (drawn from the ``generator`` argument, a
 ``torch.Generator`` on the activations' device), "const" (the ``noise_const``
 buffers) or "none".
+
+The synthesis takes ``spatial`` (``parallel/spatial.py``): each plane "g.<res>"
+of the shard plan is computed on this rank's rows (halo exchanges in the
+convs and the skip upsample) or whole, and scattered where the plan starts
+sharding; a layer's random noise is drawn for the whole plane and its rows
+kept, so the ranks draw what one process draws. The image comes back as this
+rank's rows.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from viscoin_tpu_torch.ops import (
     upsample2d,
 )
 from viscoin_tpu_torch.ops.bias_act import activation_funcs
+from viscoin_tpu_torch.parallel import spatial as S
 from viscoin_tpu_torch.parallel.mesh import all_gather_batch
 
 RESAMPLE_FILTER = (1.0, 3.0, 3.0, 1.0)
@@ -150,19 +158,26 @@ class SynthesisLayer(nn.Module):
             self.noise_const.normal_(generator=generator)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, noise_mode: str = "random",
-                gain: float = 1.0, generator: torch.Generator | None = None) -> torch.Tensor:
+                gain: float = 1.0, generator: torch.Generator | None = None,
+                sp: S.Spatial | None = None) -> torch.Tensor:
+        """``sp``: ``x`` is this rank's rows of an H-sharded plane (the noise
+        plane is drawn whole and its rows kept)."""
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode must be random, const or none: {noise_mode!r}")
         styles = self.affine(w.float())
         noise = None
         if self.use_noise and noise_mode == "random":
             noise = torch.randn((x.shape[0], 1, self.resolution, self.resolution),
-                                generator=generator, device=x.device) * self.noise_strength
+                                generator=generator, device=x.device)
+            if sp is not None:
+                noise = noise[:, :, sp.rows(self.resolution)]
+            noise = noise * self.noise_strength
         elif self.use_noise and noise_mode == "const":
-            noise = self.noise_const[None, None] * self.noise_strength
+            const = self.noise_const if sp is None else self.noise_const[sp.rows(self.resolution)]
+            noise = const[None, None] * self.noise_strength
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
                              padding=self.padding, resample_filter=self.resample_filter,
-                             flip_weight=(self.up == 1))
+                             flip_weight=(self.up == 1), sp=sp)
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
@@ -186,10 +201,11 @@ class ToRGBLayer(nn.Module):
         self.weight.normal_(generator=generator)
         self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w: torch.Tensor,
+                sp: S.Spatial | None = None) -> torch.Tensor:
         styles = self.affine(w.float())
         x = modulated_conv2d(x, self.weight, styles * self.weight_gain, demodulate=False,
-                             padding=self.padding)
+                             padding=self.padding, sp=sp)
         return bias_act(x, self.bias, act="linear", clamp=self.conv_clamp)
 
 
@@ -202,6 +218,7 @@ class SynthesisBlock(nn.Module):
                  conv_clamp: float | None = None, device="cuda"):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
+        self.resolution = resolution
         self.resample_filter = setup_filter(list(resample_filter))
         if in_channels == 0:
             self.const = nn.Parameter(torch.empty(out_channels, 4, 4, device=device))
@@ -224,17 +241,25 @@ class SynthesisBlock(nn.Module):
             self.const.normal_(generator=generator)
 
     def forward(self, x, img, ws_block, noise_mode: str = "random",
-                generator: torch.Generator | None = None):
-        """ws_block: (B, num_conv + 1, w_dim)."""
+                generator: torch.Generator | None = None, sp: S.Spatial | None = None):
+        """ws_block: (B, num_conv + 1, w_dim). ``sp``: ``x`` and ``img`` come
+        in the layout of the plan's plane "g.<res / 2>" and this block's
+        planes are in that of "g.<res>" (a whole input is scattered after
+        the layer that reads it)."""
+        src, dst = f"g.{self.resolution // 2}", f"g.{self.resolution}"
         if self.in_channels == 0:
             x = self.const[None].expand(ws_block.shape[0], -1, -1, -1)
+            x = S.convert(x, sp, None, dst)
         else:
-            x = self.conv0(x, ws_block[:, 0], noise_mode=noise_mode, generator=generator)
+            x = self.conv0(x, ws_block[:, 0], noise_mode=noise_mode, generator=generator,
+                           sp=S.at(sp, src))
+            x = S.convert(x, sp, src, dst)
         x = self.conv1(x, ws_block[:, self.num_conv - 1], noise_mode=noise_mode,
-                       generator=generator)
+                       generator=generator, sp=S.at(sp, dst))
         if img is not None:
-            img = upsample2d(img, self.resample_filter, up=2)
-        y = self.torgb(x, ws_block[:, self.num_conv])
+            img = S.convert(upsample2d(img, self.resample_filter, up=2, sp=S.at(sp, src)), sp,
+                            src, dst)
+        y = self.torgb(x, ws_block[:, self.num_conv], sp=S.at(sp, dst))
         img = img + y if img is not None else y
         return x, img
 
@@ -264,17 +289,24 @@ class SynthesisNetwork(nn.Module):
         return num_ws_for_resolution(self.img_resolution)
 
     def forward(self, ws: torch.Tensor, noise_mode: str = "random",
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """ws: (B, num_ws, w_dim) -> (B, img_channels, H, W)."""
+                generator: torch.Generator | None = None,
+                spatial: S.Spatial | None = None) -> torch.Tensor:
+        """ws: (B, num_ws, w_dim) -> (B, img_channels, H, W); with
+        ``spatial``, this rank's rows of the image (the last plane of the
+        plan must be sharded)."""
         if ws.shape[1] != self.num_ws:
             raise ValueError(f"expected {self.num_ws} ws, got {ws.shape[1]}")
+        if spatial is not None and not S.sharded(spatial, f"g.{self.img_resolution}"):
+            raise ValueError(f"the {self.img_resolution}² image cannot be H-sharded over "
+                             f"{spatial.model} model ranks")
         x = img = None
         w_idx = 0
         for res in self.block_resolutions:
             block = getattr(self, f"b{res}")
             # toRGB uses the w of the next block's first conv (peeks one ahead).
             ws_block = ws[:, w_idx: w_idx + block.num_conv + 1]
-            x, img = block(x, img, ws_block, noise_mode=noise_mode, generator=generator)
+            x, img = block(x, img, ws_block, noise_mode=noise_mode, generator=generator,
+                           sp=spatial)
             w_idx += block.num_conv
         return img
 
@@ -386,9 +418,12 @@ class Generator(nn.Module):
                                       num_layers=mapping_layers, device=device)
 
     def forward(self, z, truncation_psi: float = 1.0, truncation_cutoff: int | None = None,
-                noise_mode: str = "random", generator: torch.Generator | None = None):
+                noise_mode: str = "random", generator: torch.Generator | None = None,
+                spatial: S.Spatial | None = None):
+        """``spatial``: the mapping runs whole, the synthesis H-sharded; the
+        image comes back as this rank's rows."""
         ws = self.mapping(z, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
-        return self.synthesis(ws, noise_mode=noise_mode, generator=generator)
+        return self.synthesis(ws, noise_mode=noise_mode, generator=generator, spatial=spatial)
 
 
 def synthesis_config_from_params(syn: dict) -> dict:
@@ -581,7 +616,11 @@ class GeneratorAdapted(nn.Module):
     def num_ws(self) -> int:
         return num_ws_for_resolution(self.img_resolution)
 
-    def _post(self, img: torch.Tensor) -> torch.Tensor:
+    def _post(self, img: torch.Tensor, spatial: S.Spatial | None = None) -> torch.Tensor:
+        """The ``low_res256`` crop and resize; ``spatial``: ``img`` is this
+        rank's rows, gathered for the resize and scattered after it."""
+        if self.low_res256 and spatial is not None:
+            return S.scatter_rows(self._post(S.gather_rows(img, spatial)), spatial)
         if self.low_res256:
             # Center-crop to (384, 512), then an antialiased bilinear resize
             # to 256², as jax.image.resize(..., "bilinear") does.
@@ -593,12 +632,15 @@ class GeneratorAdapted(nn.Module):
         return img
 
     def forward(self, z1, z2, return_latents: bool = False, noise_mode: str = "random",
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, spatial: S.Spatial | None = None):
+        """``spatial``: the mapping runs whole, the synthesis H-sharded; the
+        image comes back as this rank's rows."""
         ws = self.mapping(z1, z2)
-        img = self._post(self.synthesis(ws, noise_mode=noise_mode, generator=generator))
+        img = self.gen_from_w(ws, noise_mode=noise_mode, generator=generator, spatial=spatial)
         return (img, ws) if return_latents else img
 
     def gen_from_w(self, w, noise_mode: str = "random",
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None, spatial: S.Spatial | None = None):
         """Generate directly from W+ latents."""
-        return self._post(self.synthesis(w, noise_mode=noise_mode, generator=generator))
+        return self._post(self.synthesis(w, noise_mode=noise_mode, generator=generator,
+                                         spatial=spatial), spatial)

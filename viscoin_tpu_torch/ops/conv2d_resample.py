@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from viscoin_tpu_torch.ops.upfirdn2d import _filter_size, parse_padding, upfirdn2d
+from viscoin_tpu_torch.parallel import spatial
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding=0,
@@ -57,7 +58,8 @@ def _transpose_weight(w: torch.Tensor, groups: int) -> torch.Tensor:
 
 def conv2d_resample(x: torch.Tensor, w: torch.Tensor, *, f=None, up: int = 1,
                     down: int = 1, padding=0, groups: int = 1,
-                    flip_weight: bool = True, flip_filter: bool = False) -> torch.Tensor:
+                    flip_weight: bool = True, flip_filter: bool = False,
+                    sp=None) -> torch.Tensor:
     """Conv2d with optional up/downsampling through a FIR filter.
 
     Args:
@@ -69,6 +71,11 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor, *, f=None, up: int = 1,
         padding: base conv padding (int or (x0, x1, y0, y1)).
         flip_weight: True = correlation (torch conv2d), False = convolution.
         flip_filter: passed through to upfirdn2d.
+        sp: a ``parallel.spatial.Spatial`` when ``x`` is this rank's rows of
+            an H-sharded plane: the rows the window reads from the
+            neighbours are exchanged first and the padding along H becomes
+            the rank's own (``spatial.window``; the up path's transposed
+            conv and FIR read as one window of kh + fh - 1 rows).
     """
     fh, fw = _filter_size(f)
     px0, px1, py0, py1 = parse_padding(padding)
@@ -84,6 +91,21 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor, *, f=None, up: int = 1,
             px1 += (fw - down) // 2
             py0 += (fh - down + 1) // 2
             py1 += (fh - down) // 2
+    elif down > 1:
+        px0 += (fw - down + 1) // 2
+        px1 += (fw - down) // 2
+        py0 += (fh - down + 1) // 2
+        py1 += (fh - down) // 2
+
+    if sp is not None:
+        if down > 1:
+            raise NotImplementedError("a downsampling conv on H-sharded rows is not ported "
+                                      "(ROADMAP.md, queue 1: model parallelism of the GAN "
+                                      "trainer)")
+        top, bottom, py0, py1 = spatial.window(kh + fh - 1 if up > 1 else kh, up, 1, py0)
+        x = spatial.halo_exchange(x, top, bottom, sp)
+
+    if up > 1:
         wt = w if not flip_weight else w.flip([2, 3])  # conv_transpose2d convolves
         x = F.conv_transpose2d(x, _transpose_weight(wt, groups).to(x.dtype),
                                stride=up, groups=groups)
@@ -95,10 +117,6 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor, *, f=None, up: int = 1,
         return x
 
     if down > 1:
-        px0 += (fw - down + 1) // 2
-        px1 += (fw - down) // 2
-        py0 += (fh - down + 1) // 2
-        py1 += (fh - down) // 2
         x = upfirdn2d(x, f, padding=(px0, px1, py0, py1), flip_filter=flip_filter)
         return conv2d(x, w, stride=down, groups=groups, flip_weight=flip_weight)
 

@@ -21,7 +21,7 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, styles: torch.Tensor, *,
                      noise: torch.Tensor | None = None, up: int = 1, down: int = 1,
                      padding: int = 0, resample_filter=None, demodulate: bool = True,
                      flip_weight: bool = True,
-                     input_gain: torch.Tensor | None = None) -> torch.Tensor:
+                     input_gain: torch.Tensor | None = None, sp=None) -> torch.Tensor:
     """Modulated conv over NCHW activations with OIHW weights.
 
     Args:
@@ -33,6 +33,8 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, styles: torch.Tensor, *,
             :func:`conv2d_resample`.
         demodulate: apply weight demodulation (False for ToRGB).
         input_gain: optional extra per-channel input scale.
+        sp: ``x`` is this rank's rows of an H-sharded plane (see
+            :func:`conv2d_resample`); ``noise`` then holds the same rows.
     """
     compute_dtype = x.dtype
     if demodulate and compute_dtype != torch.float32:
@@ -49,7 +51,7 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, styles: torch.Tensor, *,
 
     x = x * styles[:, :, None, None].to(compute_dtype)
     x = conv2d_resample(x, w.to(compute_dtype), f=resample_filter, up=up, down=down,
-                        padding=padding, flip_weight=flip_weight)
+                        padding=padding, flip_weight=flip_weight, sp=sp)
     if dcoefs is not None:
         x = x * dcoefs[:, :, None, None].to(x.dtype)
     if noise is not None:

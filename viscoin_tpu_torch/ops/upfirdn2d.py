@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from viscoin_tpu_torch.ops import _kernels
+from viscoin_tpu_torch.parallel import spatial
 
 MAX_KERNEL_TAPS = 16  # VISCOIN_UPFIRDN_MAX_TAPS in csrc/upfirdn2d.cu
 
@@ -106,7 +107,7 @@ def _filter_2d(f) -> torch.Tensor:
 
 
 def upfirdn2d(x: torch.Tensor, f, *, up=1, down=1, padding=0,
-              flip_filter: bool = False, gain: float = 1.0) -> torch.Tensor:
+              flip_filter: bool = False, gain: float = 1.0, sp=None) -> torch.Tensor:
     """Upsample, FIR filter and downsample a batch of NCHW images.
 
     Args:
@@ -116,9 +117,25 @@ def upfirdn2d(x: torch.Tensor, f, *, up=1, down=1, padding=0,
         padding: int, (x, y) or (x0, x1, y0, y1), applied after upsampling.
         flip_filter: False = convolution (reference default), True = correlation.
         gain: output scaling.
+        sp: a ``parallel.spatial.Spatial`` when ``x`` is this rank's rows of
+            an H-sharded plane whose output has H * up / down rows: the
+            halo the filter reads is exchanged and the same kernel runs on
+            the rank's rows with its own padding along H (crops inside).
     """
     if x.ndim != 4:
         raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
+    if sp is not None:
+        upy, downy = _pair(up)[0], _pair(down)[0]
+        px0, px1, py0, py1 = parse_padding(padding)
+        fh, _ = _filter_size(f)
+        height = x.shape[2] * sp.model
+        if (height * upy + py0 + py1 - fh) // downy + 1 != height * upy // downy \
+                or (x.shape[2] * upy) % downy:
+            raise ValueError(f"upfirdn2d on H-sharded rows needs H * up / down output rows; "
+                             f"H {height}, up {upy}, down {downy}, padding {padding}")
+        top, bottom, py0, py1 = spatial.window(fh, upy, downy, py0)
+        x = spatial.halo_exchange(x, top, bottom, sp)
+        padding = (px0, px1, py0, py1)
     return _Upfirdn2d.apply(x, f, up, down, padding, flip_filter, gain)
 
 
@@ -437,16 +454,17 @@ def _upfirdn2d_cuda(x, f, up, down, padding, flip_filter, gain):
     return y
 
 
-def upsample2d(x, f, *, up=2, padding=0, flip_filter=False, gain=1.0):
+def upsample2d(x, f, *, up=2, padding=0, flip_filter=False, gain=1.0, sp=None):
     """Upsample with the reference's padding convention; the gain is
-    multiplied by ``up**2`` so a normalized filter keeps brightness."""
+    multiplied by ``up**2`` so a normalized filter keeps brightness.
+    ``sp``: as in :func:`upfirdn2d`."""
     upy, upx = _pair(up)
     fh, fw = _filter_size(f)
     px0, px1, py0, py1 = parse_padding(padding)
     p = (px0 + (fw + upx - 1) // 2, px1 + (fw - upx) // 2,
          py0 + (fh + upy - 1) // 2, py1 + (fh - upy) // 2)
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
-                     gain=gain * upx * upy)
+                     gain=gain * upx * upy, sp=sp)
 
 
 def downsample2d(x, f, *, down=2, padding=0, flip_filter=False, gain=1.0):

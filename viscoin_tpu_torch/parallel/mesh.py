@@ -16,6 +16,10 @@ global semantics explicitly:
     minibatch stddev, the path-length mean;
   * :func:`broadcast_tree`, :func:`barrier`, :func:`is_main`.
 
+The model-group collectives of ``parallel/spatial.py`` are these same
+functions on a :class:`Mesh2D`'s :attr:`~Mesh2D.model_axis`, counted
+(``count=True``; :func:`collective_counts`).
+
 ``DistributedDataParallel`` is not used: the trainers take gradients with
 ``torch.autograd.grad`` against parameter dicts through
 ``torch.func.functional_call``, where its reducer hooks never fire, and
@@ -26,12 +30,21 @@ collective raises; nothing here falls back to one process.
 A process joins a group as ``torchrun`` describes it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), with a
 60 s timeout so that a broken rendezvous or a rank that never arrives fails
-instead of hanging. A model-parallel (2-D) mesh is not ported.
+instead of hanging.
+
+:func:`make_mesh_2d` arranges the same group as a 2-D ``(data, model)`` mesh
+(:class:`Mesh2D`), as the JAX package's ``make_mesh_2d`` does: the ``model``
+ranks of a data shard are consecutive and split the images' H axis between
+them (``parallel/spatial.py``). Its ``rank``, ``world`` and ``group`` are the
+whole group's, so :func:`all_reduce_grads`, :func:`all_mean`,
+:func:`broadcast_tree` and :func:`barrier` act on every rank; its ``local``
+and ``rows`` and its :attr:`~Mesh2D.data_axis` are the data axis's.
 """
 
 from __future__ import annotations
 
 import os
+from collections import Counter
 from dataclasses import dataclass
 from datetime import timedelta
 
@@ -40,8 +53,6 @@ import torch
 import torch.distributed as dist
 
 TIMEOUT = timedelta(seconds=60)
-MODEL_PARALLEL_NOT_PORTED = ("a 2-D (data, model) mesh is not ported yet (ROADMAP.md, "
-                             "queue 1: model parallelism, --model-parallel)")
 
 
 @dataclass(frozen=True)
@@ -65,6 +76,45 @@ class Mesh:
     def rows(self, n_local: int) -> slice:
         """This rank's rows of a global batch of ``n_local`` rows per rank."""
         return slice(self.rank * n_local, (self.rank + 1) * n_local)
+
+    @property
+    def data_axis(self) -> "Mesh":
+        """The mesh the batch is split over: this one."""
+        return self
+
+    @property
+    def model_axis(self) -> "Mesh | None":
+        """The mesh the images' H axis is split over: none."""
+        return None
+
+
+@dataclass(frozen=True)
+class Mesh2D(Mesh):
+    """This process's place in a ``data x model`` mesh of ``world`` processes
+    (``rank`` = data index * model + model index). ``local`` and ``rows``
+    split a global batch over the data axis; :attr:`data_axis` and
+    :attr:`model_axis` are the 1-D meshes of this rank's row and column."""
+
+    data: int = 1
+    model: int = 1
+    data_group: object = None
+    model_group: object = None
+
+    def local(self, global_batch: int) -> int:
+        return self.data_axis.local(global_batch)
+
+    def rows(self, n_local: int) -> slice:
+        return self.data_axis.rows(n_local)
+
+    @property
+    def data_axis(self) -> Mesh:
+        return Mesh(rank=self.rank // self.model, world=self.data, device=self.device,
+                    group=self.data_group)
+
+    @property
+    def model_axis(self) -> Mesh:
+        return Mesh(rank=self.rank % self.model, world=self.model, device=self.device,
+                    group=self.model_group)
 
 
 def make_mesh(device="cuda", backend: str | None = None) -> Mesh:
@@ -97,8 +147,24 @@ def destroy_mesh(mesh: Mesh | None) -> None:
         dist.destroy_process_group()
 
 
-def make_mesh_2d(data: int, model: int):
-    raise NotImplementedError(MODEL_PARALLEL_NOT_PORTED)
+def make_mesh_2d(data: int, model: int, device="cuda", backend: str | None = None) -> Mesh2D:
+    """Join the group the environment describes (as :func:`make_mesh`) as a
+    ``data x model`` mesh: ranks ``d * model .. d * model + model - 1`` are
+    data shard d's model group, as JAX's ``reshape(data, model)`` lays the
+    devices. Every rank creates every axis group (``dist.new_group`` is
+    collective). Refuses a group of another size than ``data * model``."""
+    if data < 1 or model < 1:
+        raise ValueError(f"a {data}x{model} mesh has no ranks")
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if "WORLD_SIZE" in os.environ and world != data * model:
+        raise ValueError(f"need {data * model} devices for a {data}x{model} mesh, have {world}")
+    flat = make_mesh(device, backend)
+    data_groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+    model_groups = [dist.new_group(list(range(d * model, (d + 1) * model)))
+                    for d in range(data)]
+    return Mesh2D(rank=flat.rank, world=flat.world, device=flat.device, data=data, model=model,
+                  data_group=data_groups[flat.rank % model],
+                  model_group=model_groups[flat.rank // model])
 
 
 def is_main(mesh: Mesh | None) -> bool:
@@ -116,11 +182,41 @@ def barrier(mesh: Mesh | None) -> None:
         dist.barrier(group=mesh.group)
 
 
-def _all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+_COUNTS: Counter = Counter()
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
+
+
+def collective_counts() -> Counter:
+    """The counted collectives since :func:`reset_collective_counts`, by
+    this process: calls and bytes reduced per kind (``<kind>`` and
+    ``<kind>_bytes``)."""
+    return Counter(_COUNTS)
+
+
+def count_collective(kind: str, nbytes: int = 0) -> None:
+    _COUNTS[kind] += 1
+    _COUNTS[f"{kind}_bytes"] += nbytes
+
+
+def all_reduce_(buf: torch.Tensor, mesh: Mesh, kind: str | None = None) -> torch.Tensor:
+    """Sum ``buf`` over the ranks in place (gloo sums bfloat16 in float32,
+    rounding once). ``kind``: count the call and its bytes under that name."""
+    wide = buf.dtype == torch.bfloat16 and dist.get_backend(mesh.group) == "gloo"
+    work = buf.float() if wide else buf
+    dist.all_reduce(work, group=mesh.group)
+    if kind is not None:
+        count_collective(kind, work.numel() * work.element_size())
+    if wide:
+        buf.copy_(work)
+    return buf
+
+
+def _all_reduce(x: torch.Tensor, mesh: Mesh, kind: str | None = None) -> torch.Tensor:
     """The sum over the ranks, into a fresh contiguous tensor."""
-    y = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=mesh.group)
-    return y
+    return all_reduce_(x.detach().clone(memory_format=torch.contiguous_format), mesh, kind)
 
 
 def _flat_by_dtype(tensors: list[torch.Tensor]):
@@ -171,13 +267,13 @@ class _AllReduceSum(torch.autograd.Function):
     """y = sum over ranks of x, on every rank; self-adjoint."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _all_reduce(x, mesh)
+    def forward(ctx, x, mesh, count):
+        ctx.mesh, ctx.count = mesh, count
+        return _all_reduce(x, mesh, "sum" if count else None)
 
     @staticmethod
     def backward(ctx, g):
-        return _AllReduceSum.apply(g, ctx.mesh), None
+        return _AllReduceSum.apply(g, ctx.mesh, ctx.count), None, None
 
 
 class _AllMean(torch.autograd.Function):
@@ -194,21 +290,25 @@ class _AllMean(torch.autograd.Function):
 
 
 class _AllGatherBatch(torch.autograd.Function):
-    """The ranks' equal slices concatenated along dim 0, on every rank: this
-    rank's slice placed into zeros, then summed over the ranks. The adjoint
-    sums the gradient over the ranks and keeps this rank's rows."""
+    """The ranks' equal slices concatenated along ``dim`` in the group's rank
+    order (on a :class:`Mesh2D`, the whole mesh's, not ``rows``' data axis),
+    on every rank: this rank's slice placed into zeros, then summed over the
+    ranks. The adjoint sums the gradient over the ranks and keeps this
+    rank's slice."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.n = mesh, x.shape[0]
-        full = x.new_zeros((mesh.world * x.shape[0], *x.shape[1:]))
-        full[mesh.rows(x.shape[0])] = x.detach()
-        dist.all_reduce(full, group=mesh.group)
-        return full
+    def forward(ctx, x, mesh, dim, count):
+        ctx.mesh, ctx.dim, ctx.n, ctx.count = mesh, dim, x.shape[dim], count
+        shape = list(x.shape)
+        shape[dim] *= mesh.world
+        full = x.new_zeros(shape)
+        full.narrow(dim, mesh.rank * ctx.n, ctx.n).copy_(x.detach())
+        return all_reduce_(full, mesh, "gather" if count else None)
 
     @staticmethod
     def backward(ctx, g):
-        return _AllReduceSum.apply(g, ctx.mesh)[ctx.mesh.rows(ctx.n)], None
+        whole = _AllReduceSum.apply(g, ctx.mesh, ctx.count)
+        return whole.narrow(ctx.dim, ctx.mesh.rank * ctx.n, ctx.n), None, None, None
 
 
 def all_mean(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
@@ -217,16 +317,19 @@ def all_mean(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     return x if mesh is None else _AllMean.apply(x, mesh)
 
 
-def all_sum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+def all_sum(x: torch.Tensor, mesh: Mesh | None, count: bool = False) -> torch.Tensor:
     """The sum of ``x`` over the ranks, differentiably (``x`` itself without
-    a mesh)."""
-    return x if mesh is None else _AllReduceSum.apply(x, mesh)
+    a mesh). ``count``: counted as "sum" (:func:`collective_counts`)."""
+    return x if mesh is None else _AllReduceSum.apply(x, mesh, count)
 
 
-def all_gather_batch(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+def all_gather_batch(x: torch.Tensor, mesh: Mesh | None, dim: int = 0,
+                     count: bool = False) -> torch.Tensor:
     """The global batch from every rank's equal slice ``x`` (rank order
-    along dim 0), differentiably (``x`` itself without a mesh)."""
-    return x if mesh is None else _AllGatherBatch.apply(x, mesh)
+    along ``dim``; on a 2-D mesh, over all its ranks), differentiably (``x``
+    itself without a mesh). ``count``: counted as "gather", its backward as
+    "sum"."""
+    return x if mesh is None else _AllGatherBatch.apply(x, mesh, dim, count)
 
 
 def pad_to_multiple(batch: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from viscoin_tpu_torch.models.concept_extractor import max_pool_concepts
+from viscoin_tpu_torch.parallel.spatial import model_sum
 
 
 def _unit_rows(x: torch.Tensor) -> torch.Tensor:
@@ -59,11 +60,18 @@ def concept_orthogonality_loss(conv5_weight: torch.Tensor) -> torch.Tensor:
 
 def reconstruction_loss(reconstructed, original, reconstructed_classes, original_classes,
                         lpips_fn, lambda_classes: float = 0.1,
-                        lambda_lpips: float = 3.0) -> torch.Tensor:
+                        lambda_lpips: float = 3.0, spatial=None) -> torch.Tensor:
     """L1 + MSE + lambda_lpips * LPIPS + lambda_classes * cross-CE(f(x^),
-    detached f(x)). ``lpips_fn(x, y)`` -> (B,) or scalar distances."""
+    detached f(x)). ``lpips_fn(x, y)`` -> (B,) or scalar distances.
+    ``spatial`` (``parallel/spatial.py``): the images are this rank's rows
+    of H-sharded batches, and the pixel means those of the whole images (the
+    classes and the distances are whole already)."""
     diff = reconstructed - original
-    loss = torch.mean(torch.abs(diff)) + torch.mean(torch.square(diff))
+    if spatial is None:
+        loss = torch.mean(torch.abs(diff)) + torch.mean(torch.square(diff))
+    else:
+        sums = model_sum(torch.stack([diff.abs().sum(), diff.square().sum()]), spatial)
+        loss = (sums[0] + sums[1]) / (diff.numel() * spatial.model)
     loss = loss + lambda_classes * cross_cross_entropy_loss(reconstructed_classes,
                                                             original_classes.detach())
     return loss + lambda_lpips * torch.mean(lpips_fn(reconstructed, original))

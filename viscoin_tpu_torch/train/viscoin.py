@@ -35,7 +35,15 @@ What differs from JAX, by design:
     means, so the update is the global batch's, as under the JAX package's
     GSPMD (every loss is a mean over equal local batches). Each rank draws
     its own flips, noise, dropout and synthetic batch (its seeds fold the
-    rank in; at world size 1 they are the one-process seeds).
+    rank in; at world size 1 they are the one-process seeds);
+  * model parallelism (a 2-D ``(data, model)`` mesh, ``parallel/spatial.py``)
+    splits each data shard's images along H over its model ranks: every
+    sharded plane of f, Psi, G and LPIPS holds this rank's rows, the
+    exchanges and reductions are explicit, every loss term is whole on every
+    rank of a model group, and the gradients are averaged over all the
+    ranks (the gradient rule of ``parallel/spatial.py``). The ranks of a
+    model group fold only their data index into their seeds, so they draw
+    the same flips, noise planes, dropout mask and latents.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from viscoin_tpu_torch.data.transforms import device_preprocess
 from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.parallel.mesh import Mesh, all_mean, all_reduce_grads, broadcast_tree
+from viscoin_tpu_torch.parallel.spatial import bundle_spatial, spatial_for
 from viscoin_tpu_torch.train import losses as L
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -159,7 +168,8 @@ def create_train_state(models: VisCoINModels, cfg: VisCoINTrainingParams) -> Tra
 
 def _average_grads(params: list, mesh: Mesh | None) -> None:
     """Replace the ``.grad`` of each parameter that has one by its mean over
-    the ranks (one collective per dtype)."""
+    the ranks (one collective per dtype); on a 2-D mesh over all of them,
+    which is the gradient rule of ``parallel/spatial.py``."""
     if mesh is None:
         return
     with_grad = [p for p in params if p.grad is not None]
@@ -249,10 +259,13 @@ def fold_seed(seed: int, *data: int) -> int:
 
 def rank_seed(seed: int, mesh: Mesh | None) -> int:
     """A rank's own seed under data parallelism (``seed`` itself without a
-    mesh or at world size 1, so one process draws the one-process numbers)."""
-    if mesh is None or mesh.world == 1:
+    mesh or with one data shard, so one process draws the one-process
+    numbers): its data index folded in, which the ranks of a model group
+    share."""
+    data = None if mesh is None else mesh.data_axis
+    if data is None or data.world == 1:
         return seed
-    return fold_seed(seed, _RANK_TAG, mesh.rank)
+    return fold_seed(seed, _RANK_TAG, data.rank)
 
 
 def step_generator(seed: int, step: int, device="cuda", mesh: Mesh | None = None):
@@ -277,9 +290,11 @@ def make_sample_fakes(generator_gan, cfg: VisCoINTrainingParams, mesh: Mesh | No
     of ``cfg.batch_size`` (all of them without a ``mesh``). Row k's latents
     are a function of seeds[k] alone; the synthesis runs once on the K * b
     latents, with its noise drawn from a generator keyed by the group's
-    first seed."""
+    first seed. On a 2-D mesh the synthesis is H-sharded and H is this
+    rank's rows of the image, as the step takes them."""
     dt = _dtype(cfg.compute_dtype)
     rows = cfg.batch_size if mesh is None else mesh.local(cfg.batch_size)
+    sp = spatial_for(mesh, generator_gan.img_resolution)
 
     @torch.no_grad()
     def sample(frozen: dict, seeds: list[int]) -> torch.Tensor:
@@ -289,14 +304,14 @@ def make_sample_fakes(generator_gan, cfg: VisCoINTrainingParams, mesh: Mesh | No
                                    generator=torch.Generator(device=device).manual_seed(s))
                        for s in seeds]).to(dt)
         noise = torch.Generator(device=device).manual_seed(fold_seed(seeds[0], 1))
-        fakes = gen_module(z, noise_mode="random", generator=noise)
+        fakes = gen_module(z, noise_mode="random", generator=noise, spatial=sp)
         return fakes.to(dt).reshape(len(seeds), rows, *fakes.shape[1:])
 
     return sample
 
 
 def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
-                 cfg: VisCoINTrainingParams):
+                 cfg: VisCoINTrainingParams, mesh=None):
     """The step's total-loss function (the five forwards and the six-term
     objective), factored out so that tests can differentiate exactly what
     the step differentiates.
@@ -306,7 +321,8 @@ def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
     :class:`TrainState`, ``real`` the preprocessed float batch, ``rng`` the
     step's ``torch.Generator``, ``fake`` a synthetic batch (None: sample the
     frozen original generator here), ``dropout_mask`` the explainer's keep
-    mask (None: drawn from ``rng``)."""
+    mask (None: drawn from ``rng``). On a 2-D ``mesh`` the images (``real``,
+    ``fake``) are this rank's rows; the total and the metrics are whole."""
     del lpips_module  # frozen["lpips"] is the module the step runs
     dt = _dtype(cfg.compute_dtype)
     cast = make_cast(cfg.compute_dtype)
@@ -318,16 +334,19 @@ def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
         params_c = cast(params)
         real = real.to(dt)
         B = real.shape[0]
+        sp = bundle_spatial(models, mesh, real.shape[3])
         if fake is None:
             with torch.no_grad():
                 z = torch.randn((B, generator_gan.z_dim), device=real.device, generator=rng)
-                fake = frozen["generator"](z.to(dt), noise_mode="random", generator=rng)
+                fake = frozen["generator"](z.to(dt), noise_mode="random", generator=rng,
+                                           spatial=sp)
         all_images = torch.cat([real, fake.to(dt)])
 
-        classes, hidden = frozen["classifier"](all_images)
+        classes, hidden = frozen["classifier"](all_images, spatial=sp)
         classes = classes.float()
         phi, phi_prime = functional_call(modules["concept_extractor"],
-                                         params_c["concept_extractor"], (tuple(hidden[-3:]),))
+                                         params_c["concept_extractor"], (tuple(hidden[-3:]),),
+                                         {"spatial": sp})
         explainer_classes = functional_call(
             modules["explainer"], params_c["explainer"], (phi,),
             dict(train=True, generator=rng, dropout_mask=dropout_mask)).float()
@@ -348,18 +367,18 @@ def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
             def synth(ws):
                 if state is not None:  # the recompute draws the forward's noise again
                     rng.set_state(state)
-                return synthesis(ws, noise_mode="random", generator=rng)
+                return synthesis(ws, noise_mode="random", generator=rng, spatial=sp)
 
             rebuilt = checkpoint(synth, ws, use_reentrant=False)
         else:
-            rebuilt = synthesis(ws, noise_mode="random", generator=rng)
-        rebuilt = post(rebuilt).to(dt)
+            rebuilt = synthesis(ws, noise_mode="random", generator=rng, spatial=sp)
+        rebuilt = post(rebuilt, sp).to(dt)
 
         def f_rebuilt(x):
-            return frozen["classifier"](x)[0]
+            return frozen["classifier"](x, spatial=sp)[0]
 
         def lpips_fn(a, b):
-            return frozen["lpips"](a.to(dt), b.to(dt)).float()
+            return frozen["lpips"](a.to(dt), b.to(dt), spatial=sp).float()
 
         if "classifier" in remat:
             rebuilt_classes = checkpoint(f_rebuilt, rebuilt, use_reentrant=False)
@@ -372,7 +391,7 @@ def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
 
         rec_loss = L.reconstruction_loss(
             rebuilt.float(), all_images.float(), rebuilt_classes.float(), classes, lpips_call,
-            lambda_classes=cfg.gamma, lambda_lpips=cfg.beta)
+            lambda_classes=cfg.gamma, lambda_lpips=cfg.beta, spatial=sp)
         gan_loss = L.gan_regularization_loss(ws.float(), params["mapping"]["fixed_w_avg"])
 
         total = acc_loss + cr_loss + of_loss + ortho_loss + rec_loss + gan_loss
@@ -400,9 +419,10 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
 
     With a data-parallel ``mesh`` the inputs are this rank's slice of the
     global batch, the update takes the gradients' mean over the ranks and
-    the metrics are the global means (one more collective)."""
+    the metrics are the global means (one more collective). On a 2-D mesh
+    the images are also this rank's rows along H (``fake`` too)."""
     schedule = make_lr_schedule(cfg.learning_rate, cfg.iterations)
-    loss_fn = make_loss_fn(models, generator_gan, lpips_module, cfg)
+    loss_fn = make_loss_fn(models, generator_gan, lpips_module, cfg, mesh)
 
     def train_step(state: TrainState, frozen, images_u8, labels, rng, fake=None,
                    dropout_mask=None):
@@ -474,7 +494,10 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
     and the profile are rank 0's; every rank returns once rank 0's writes
     are on disk. A resume replays the unbroken run exactly over the same
     number of ranks; over another it continues with other random draws
-    (each rank's seeds fold its rank in)."""
+    (each rank's seeds fold its rank in). On a 2-D mesh the loaders are
+    sharded over its data axis (``DataLoader(shard=(data index, data
+    shards))``), each rank places its H rows of every batch, and global
+    rank 0 writes."""
     import json
     import os
     import time
@@ -498,13 +521,14 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
         raise ValueError(f"train_loader.batch_size={loader_bs} != "
                          f"cfg.batch_size={cfg.batch_size}")
     # A sharded loader yields this rank's slice of every global batch: one
-    # loader per rank of the mesh, exactly.
-    world = 1 if mesh is None else mesh.world
+    # loader per data shard of the mesh, exactly.
+    data = None if mesh is None else mesh.data_axis
+    world = 1 if data is None else data.world
     shard = getattr(train_loader, "shard", (0, 1))
-    if shard != (0 if mesh is None else mesh.rank, world):
-        raise ValueError(f"train_loader.shard={shard}: a run over {world} process(es) needs "
-                         f"DataLoader(shard=(rank, {world})) on each (a sharded loader needs "
-                         "a mesh)")
+    if shard != (0 if data is None else data.rank, world):
+        raise ValueError(f"train_loader.shard={shard}: a run over {world} data shard(s) needs "
+                         f"DataLoader(shard=(data index, {world})) on each (a sharded loader "
+                         "needs a mesh)")
     if mesh is not None and getattr(test_loader, "shard", (0, 1))[1] != world:
         raise ValueError(f"test_loader.shard world {getattr(test_loader, 'shard', (0, 1))[1]} "
                          f"!= the mesh's {world}: the in-loop eval feeds every rank its shard "
@@ -541,10 +565,14 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
         train_loader.skip_batches(epochs_done * len(train_loader) + rem)
     train_iter = loop_iter(train_loader)
 
+    model_axis = None if mesh is None else mesh.model_axis
+
     def pull_and_place():
         images, labels = next(train_iter)
         while images.shape[0] != local_rows:  # skip ragged final batches
             images, labels = next(train_iter)
+        if model_axis is not None:  # this rank's rows of the (B, H, W, 3) batch
+            images = images[:, model_axis.rows(model_axis.local(images.shape[1]))]
         return to_device(images, device), to_device(labels.astype(np.int64), device)
 
     prefetcher = DevicePrefetcher(pull_and_place, prefetch) if prefetch > 0 else None
