@@ -218,7 +218,17 @@ after mp, and runs phase 23 alone:
                0.8 of one process's (with TF32 off reported: missed, cuDNN's
                LPIPS workspace), the halo exchanges, gathers,
                scatters and model-group sums per step, 4 loop steps with a
-               resume bit-equal; every kernel call of the 2-D steps at its
+               resume bit-equal; then the GAN trainer over the same mesh at
+               the JAX command's width (256², z = w = 512, 2 mapping layers,
+               batch 16, mbstd 4, ADA at p = 0.2): an R1 + path-length
+               step and a plain one against one process (fp32, TF32 off:
+               metrics, each network's gradient), the planted fault (the
+               path-length gradient left un-reduced over the model group)
+               caught, bf16, each rank's peak memory (taken before the
+               lanes too), collectives and launches per step, and `train
+               gan --model-parallel 2`'s training (the command's `_train`
+               on the mesh) with a resume bit-equal to an unbroken run;
+               every kernel call of the 2-D steps at its
                shard shape against its plain version (phase 3's tolerances);
 23. timings   per kernel (CUDA events at the path's shapes, summed over the
                loop's run A, the GAN's 16-step cycle, one FID estimate, the
@@ -242,7 +252,9 @@ after mp, and runs phase 23 alone:
                (``projection_*``), one PPL batch (``ppl_batch_*``),
                amplify-pca --pca 2's computation (``amplify_pca_*``) and train
                concept2clip --latent-type gan's W+ pass (``concept2clip_w_*``),
-               and each kernel's launches per mp step (``mp_step_launches``);
+               and each kernel's launches per mp step (``mp_step_launches``)
+               and per mp GAN step (``mp_gan_step_launches``: the R1 +
+               path-length step; ``mp_gan_plain_step_launches``);
                then the device line, last.
 
 It imports torch and viscoin_tpu_torch only.
@@ -5002,9 +5014,21 @@ MP_PEAK_RATIO = 0.8  # each rank's peak memory against one process's at the same
 # GiB, as large on a rank's rows as on the whole plane, which it passes over
 # when other processes leave the card short of memory, so beside them the
 # peaks would follow the run's concurrency.
-MP_MEMORY_WAIT_S = 300
+MP_MEMORY_WAIT_S = 420
 MP_PAUSE_S = 1200
 MP_LOOP_N = 16  # synthetic train images of the mp loop (two global batches); 8 test images
+# The GAN step over the (1, 2) mesh against one process (fp32, TF32 off, cuDNN's
+# deterministic algorithms, under which one process is bit-equal to itself): the
+# metrics (relative) and each network's gradient (of its norm) held at the dp
+# phase's bounds for the same comparison and reported against the targets
+# beside the card's floor (one process against itself under cuDNN's default
+# algorithms); the planted fault must move some metric by more than
+# MP_GAN_FAULT_MIN.
+MP_GAN_LOSS_TOL, MP_GAN_GRAD_TOL, MP_GAN_FAULT_MIN, MP_GAN_BF16_TOL = (DP_LOSS_TOL, DP_GRAD_TOL,
+                                                                        1e-2, 1e-2)
+MP_GAN_LOSS_TARGET, MP_GAN_GRAD_TARGET = 1e-5, 1e-4
+MP_GAN_STEPS = (("r1+ppl", 0), ("plain", 1))  # (label, step): R1 and the path length at 0
+MP_GAN_N = 32  # synthetic images of `train gan --model-parallel 2` (two global batches)
 
 
 def mp_step(models, lpips, inp: dict, mesh, dtype: str, fault: bool = False) -> dict:
@@ -5097,15 +5121,186 @@ def mp_loop(models, gen, lpips, mesh, work: str) -> dict:
     return out
 
 
+def mp_gan_steps(g, d, mesh, dtype: str, fault: bool = False, steps=MP_GAN_STEPS,
+                 deterministic: bool = True) -> dict:
+    """GAN steps ``steps`` ((label, step counter) each) at the JAX command's
+    width, each from a fresh state on copies of ``g`` and ``d``, over the
+    (1, 2) ``mesh`` (this rank's H rows of every image) or, without one, in
+    one process: random synthesis noise and the draws from (GAN_SEED, step),
+    which the two ranks of a model group share; ADA at GAN_ADA_P. G holds
+    still (its Adam at lr 0, its moments still taken), as in dp_gan_steps:
+    an element of G that steps the other way in one run would move the D
+    phase's fakes, and so D's gradients, more than rounding does. Per step
+    the metrics, G's and D's gradients (the Adams' first moments, beta1 =
+    0), the kernel launches and the spatial collectives, counted from 0 just
+    before the step. ``fault``: a planted fault, the path-length gradient
+    left un-reduced over the model group. ``deterministic``: under cuDNN's
+    deterministic algorithms (else its defaults, as a user trains)."""
+    from viscoin_tpu_torch.parallel import spatial as S
+
+    torch.backends.cudnn.deterministic = deterministic
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    images = torch.from_numpy(seeded_images(len(steps) * GAN_BATCH, GAN_SEED + 6)).cuda()
+    rows = slice(None) if mesh is None else mesh.model_axis.rows(RES // mesh.model)
+    whole = TG.whole_ws_grads
+    if fault:
+        TG.whole_ws_grads = lambda partial, sp: partial
+    out: dict = {}
+    try:
+        for j, (label, i) in enumerate(steps):
+            gc, dc = copy.deepcopy(g), copy.deepcopy(d)
+            cfg = TG.GANTrainingParams(compute_dtype=dtype, augment_p=GAN_ADA_P,
+                                       batch_size=GAN_BATCH)
+            state = TG.create_gan_train_state(gc, dc, cfg)
+            for group in state.g_opt.param_groups:
+                group["lr"] = 0.0
+            step = TG.make_gan_train_step(gc, dc, cfg, mesh)
+            state.step = i
+            draws = TG.draw_step(cfg, gc, GAN_SEED, i, "cuda", mesh)
+            x = images[j * GAN_BATCH: (j + 1) * GAN_BATCH, rows]
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            S.reset_counts()
+            _, metrics = step(state, x, draws)
+            torch.cuda.synchronize()
+            out[label] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                          "launches": _kernels.launch_counts(), "counts": S.counts(),
+                          "grads": {f"{who}.{n}": opt.state[p]["exp_avg"].cpu()
+                                    for who, module, opt in (("G", gc, state.g_opt),
+                                                             ("D", dc, state.d_opt))
+                                    for n, p in module.named_parameters()}}
+            del gc, dc, state, step
+    finally:
+        TG.whole_ws_grads = whole
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def phase_peaks(fn) -> tuple[list[float], float]:
+    """Run ``fn`` with the peak memory taken after each gradient of a GAN
+    step (G's, the path length's, D's: each over its forward and backward)
+    and reset; returns those peaks (MiB) and the peak over the whole run."""
+    peaks, grads = [], TG._grads
+
+    def measured(loss, params):
+        out = grads(loss, params)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    TG._grads = measured
+    try:
+        fn()
+    finally:
+        TG._grads = grads
+    torch.cuda.synchronize()
+    return peaks, max(peaks + [torch.cuda.max_memory_allocated() / 2**20])
+
+
+def mp_gan_peaks(mesh, defaults: tuple[bool, bool]) -> dict:
+    """The GAN part of an mp process's work before the lanes start: the
+    full-width G and D from their seeds; the R1 + path-length step at
+    PyTorch's TF32 defaults and cuDNN's default algorithms, as a user trains,
+    and its peak memory, overall and by phase (G's gradient, the path
+    length's, D's with R1); then the two steps in fp32 with TF32 off (their
+    kernel calls recorded) and their peak. Each starts with the caching
+    allocator emptied: cuDNN's algorithm for a convolution, and so its
+    workspace, follows the memory the process holds cached, so a peak taken
+    after other work follows that work. ``defaults``: PyTorch's
+    TF32 flags (cuDNN's, matmul's). The modules are freed after."""
+    g, d = gan_modules()
+    out: dict = {}
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    fresh()
+    out["resident_mib"] = torch.cuda.memory_allocated() / 2**20
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    out["phase_peaks_mib"], out["peak_mib"] = phase_peaks(lambda: mp_gan_steps(
+        g, d, mesh, "float32", steps=MP_GAN_STEPS[:1], deterministic=False))
+    set_tf32(False)
+    fresh()
+    with PathRecorder() as calls:
+        out["float32"] = mp_gan_steps(g, d, mesh, "float32")
+    out["calls"] = calls.unique()
+    out["peak_tf32_off_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    del g, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_gan_command(mesh, work: str) -> dict:
+    """`python -m viscoin_tpu_torch train gan --data-parallel --model-parallel
+    2` on MP_GAN_N synthetic 256² images (batch 16, its defaults otherwise),
+    its options parsed by the command's parser and run by the command's
+    `_train` on this process's (1, 2) mesh (the command would build the same
+    mesh over NCCL, which takes one card per rank), under cuDNN's
+    deterministic algorithms: run A, 2 iterations; run B, resumed from A's
+    training state (what rank 0 wrote) to 4; run C, unbroken to 4. Each rank
+    runs in directories of its own. Returns each run's seconds and launches,
+    the files of each directory, and rank 0's training states of B and C."""
+    from viscoin_tpu_torch.__main__ import build_parser
+    from viscoin_tpu_torch.cli import train as cli_train
+    from viscoin_tpu_torch.parallel import mesh as M
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    env = os.environ.get("VISCOIN_SYNTH_N")
+    os.environ["VISCOIN_SYNTH_N"] = str(MP_GAN_N)
+    base = ["train", "gan", "--dataset", "synthetic", "--batch-size", str(GAN_BATCH),
+            "--output-weights", "gan", "--data-parallel", "--model-parallel", "2"]
+    resume = os.path.join(work, "rank0", "A", "gan.train_state")
+    out: dict = {}
+    cwd = os.getcwd()
+    try:
+        for label, args in (("A", ["--epochs", "2"]), ("B", ["--epochs", "4", "--resume", resume]),
+                            ("C", ["--epochs", "4"])):
+            d = os.path.join(work, f"rank{mesh.rank}", "C" if label == "C" else "A")
+            os.makedirs(d, exist_ok=True)
+            os.chdir(d)
+            parsed = build_parser().parse_args([*base, *args])
+            M.barrier(mesh)
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_train._train(parsed, {}, mesh, mesh.device)
+            torch.cuda.synchronize()
+            out[label] = {"seconds": time.perf_counter() - t0,
+                          "launches": _kernels.launch_counts(), "files": sorted(os.listdir(d))}
+        if M.is_main(mesh):
+            out["states"] = [torch.load(os.path.join(work, "rank0", x, "gan.train_state",
+                                                     "train_state.pt"), weights_only=True)
+                             for x in ("A", "C")]
+            out["records"] = read_jsonl(os.path.join(work, "rank0", "A", "gan_2.jsonl"))
+    finally:
+        os.chdir(cwd)
+        if env is None:
+            os.environ.pop("VISCOIN_SYNTH_N", None)
+        else:
+            os.environ["VISCOIN_SYNTH_N"] = env
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
 def mp_worker_main(out_dir: str) -> int:
     """`torchrun --nproc-per-node N chip_smoke.py --mp-worker DIR`: with N = 2
     one of two ranks of a (1 data, 2 model) mesh on the one card over gloo
     with CUDA tensors; with N = 1 the one-process reference (world size 1,
-    no mesh). Each builds the flagship bundle, the frozen original generator
+    no mesh). Each takes the GAN steps' peaks first (mp_gan_peaks), then
+    builds the flagship bundle, the frozen original generator
     and LPIPS from the seeds and runs the fp32 step with TF32 off, then at
     PyTorch's TF32 defaults (the peak memory of each step alone), marks
     DIR/<name>.memory and waits for DIR/go (go_mp), then runs the bf16
-    step; the ranks also the fp32 step with the planted fault and the loop.
+    steps (VisCoIN's, then the GAN's); the ranks also the fp32 steps with
+    the planted faults, the loop and the GAN command.
     Writes rank<r>.pt (one.pt) to DIR."""
     from viscoin_tpu_torch.parallel import mesh as M
 
@@ -5114,6 +5309,7 @@ def mp_worker_main(out_dir: str) -> int:
     defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     set_tf32(False)
     t0 = time.perf_counter()
+    gan = mp_gan_peaks(mesh, defaults)
     models = default_models(N_CLASSES, N_CONCEPTS, RES, CHANNEL_BASE, CHANNEL_MAX, device="cuda",
                             seed=SEED)
     perturb_constants(models, SEED + 10)
@@ -5150,6 +5346,21 @@ def mp_worker_main(out_dir: str) -> int:
     if mesh is not None:
         rec["fault"] = mp_step(models, lpips, inp, mesh, "float32", fault=True)
         rec["loop"] = mp_loop(models, gen, lpips, mesh, os.path.join(out_dir, "loop"))
+    del models, gen, lpips
+    torch.cuda.empty_cache()
+    g, d = gan_modules()
+    with PathRecorder() as gan16:
+        gan["bfloat16"] = mp_gan_steps(g, d, mesh, "bfloat16")
+    gan["calls"] = {"float32": gan["calls"], "bfloat16": gan16.unique()}
+    if mesh is None:  # the floor: one process under cuDNN's default algorithms
+        gan["float32_default_algorithms"] = mp_gan_steps(g, d, None, "float32",
+                                                         deterministic=False)
+    else:
+        gan["fault"] = mp_gan_steps(g, d, mesh, "float32", fault=True, steps=MP_GAN_STEPS[:1])
+        del g, d
+        torch.cuda.empty_cache()
+        gan["command"] = mp_gan_command(mesh, os.path.join(out_dir, "gan_command"))
+    rec["gan"] = gan
     rec["seconds"] = time.perf_counter() - t0 - rec["paused_s"]
     torch.save(rec, os.path.join(out_dir, f"{name}.pt"))
     M.destroy_mesh(mesh)
@@ -5188,10 +5399,12 @@ def wait_mp_memory(group: Groups, work: str) -> float:
     return time.perf_counter() - t0
 
 
-def _net_dev(got: dict, want: dict) -> dict[str, float]:
-    """||got - want|| / ||want|| of each network's gradient."""
+def _net_dev(got: dict, want: dict,
+             nets=("concept_extractor", "explainer", "mapping")) -> dict[str, float]:
+    """||got - want|| / ||want|| of each network's gradient (its leaves'
+    names start with "<net>.")."""
     out = {}
-    for net in ("concept_extractor", "explainer", "mapping"):
+    for net in nets:
         keys = [k for k in want if k.startswith(net + ".")]
         diff = sum(float((got[k].double() - want[k].double()).square().sum()) for k in keys)
         norm = sum(float(want[k].double().square().sum()) for k in keys)
@@ -5213,8 +5426,9 @@ def phase_mp(group: Groups, work: str, card: str) -> tuple[dict, dict]:
     (both with the three processes alone on the card);
     the halo exchanges, gathers, scatters and model-group sums per step;
     4 loop steps of train_viscoin (checkpoints by rank 0) and a resume to 4
-    bit-equal. Returns (the record, the kernel calls of the 2-D steps at
-    their shard shapes, for phase_kernels)."""
+    bit-equal; then the GAN trainer over the same mesh (mp_gan_record).
+    Returns (the record, the kernel calls of the 2-D steps at their shard
+    shapes, the VisCoIN step's and the GAN steps', for phase_kernels)."""
     try:
         wall = max(w for w, _ in group.collect(timeout=MP_PAUSE_S).values())
         ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
@@ -5302,9 +5516,134 @@ def phase_mp(group: Groups, work: str, card: str) -> tuple[dict, dict]:
     check_records(a["records"], 2, "mp")
     assert {"viscoin0-2", "viscoin1-2", "train_state"} <= set(a["files"]), a["files"]
     assert loop[1]["A"]["files"] == [], loop[1]["A"]["files"]
+    out["gan"] = mp_gan_record([r["gan"] for r in ranks], one["gan"], card)
     calls = {f"the mp step's shard shapes ({d})": ranks[0]["calls"][d]
              for d in ("float32", "bfloat16")}
+    calls.update({f"the mp GAN steps' shard shapes ({d})": ranks[0]["gan"]["calls"][d]
+                  for d in ("float32", "bfloat16")})
     return out, calls
+
+
+def _gan_dev(got: dict, want: dict) -> tuple[dict[str, float], dict[str, float]]:
+    """Of one GAN step: each metric's deviation (relative, at least 1e-6
+    absolute) and each network's gradient's (``_net_dev``, G and D)."""
+    return ({k: abs(v - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-6)
+             for k, v in got["metrics"].items()}, _net_dev(got["grads"], want["grads"], "GD"))
+
+
+def mp_gan_record(ranks: list[dict], one: dict, card: str) -> dict:
+    """The GAN part of phase_mp: the (1, 2) mesh's two steps against one
+    process's (fp32, TF32 off, cuDNN's deterministic algorithms: metrics
+    within MP_GAN_LOSS_TOL, each network's gradient within MP_GAN_GRAD_TOL of
+    its norm, reported against MP_GAN_LOSS_TARGET and MP_GAN_GRAD_TARGET
+    beside the floor, one process against itself under cuDNN's default
+    algorithms; bf16 metrics
+    within MP_GAN_BF16_TOL), the planted fault beyond MP_GAN_FAULT_MIN, the
+    ranks' metrics and launches those of one process, each rank's peak at
+    PyTorch's TF32 defaults at most MP_PEAK_RATIO of one process's (TF32
+    off reported), the collectives per step and rank, and the command's
+    resume bit-equal with rank 1 writing nothing."""
+    out: dict = {"metrics": {}, "grads": {}, "bf16_metrics": {}, "counts": {}, "launches": {},
+                 "floor": {}}
+    for label, _ in MP_GAN_STEPS:
+        out["metrics"][label], out["grads"][label] = _gan_dev(ranks[0]["float32"][label],
+                                                              one["float32"][label])
+        out["floor"][label] = _gan_dev(one["float32_default_algorithms"][label],
+                                       one["float32"][label])[1]
+        b16, ref16 = ranks[0]["bfloat16"][label]["metrics"], one["bfloat16"][label]["metrics"]
+        out["bf16_metrics"][label] = max(abs(v - ref16[k]) / max(abs(ref16[k]), 1e-6)
+                                         for k, v in b16.items())
+        out["counts"][label] = [r["float32"][label]["counts"] for r in ranks]
+        out["launches"][label] = ranks[0]["float32"][label]["launches"]
+        for r in ranks:
+            for dt in ("float32", "bfloat16"):
+                assert r[dt][label]["metrics"] == ranks[0][dt][label]["metrics"], (dt, label)
+                assert r[dt][label]["launches"] == one[dt][label]["launches"], (dt, label)
+    fault = ranks[0]["fault"]["r1+ppl"]["metrics"]
+    ref = one["float32"]["r1+ppl"]["metrics"]
+    out["fault_metrics"] = max(abs(v - ref[k]) / max(abs(ref[k]), 1e-6) for k, v in fault.items())
+    out["peak_mib"] = [r["peak_mib"] for r in ranks]
+    out["one_peak_mib"] = one["peak_mib"]
+    out["peak_ratio"] = max(out["peak_mib"]) / one["peak_mib"]
+    out["peak_tf32_off_mib"] = [r["peak_tf32_off_mib"] for r in ranks]
+    out["one_peak_tf32_off_mib"] = one["peak_tf32_off_mib"]
+    out["peak_ratio_tf32_off"] = max(out["peak_tf32_off_mib"]) / one["peak_tf32_off_mib"]
+    out["resident_mib"] = [r["resident_mib"] for r in ranks] + [one["resident_mib"]]
+    out["phase_peaks_mib"] = [r["phase_peaks_mib"] for r in ranks] + [one["phase_peaks_mib"]]
+    cmd = [r["command"] for r in ranks]
+    dev = tree_deviation(*cmd[0]["states"])
+    out["command"] = {k: {"seconds": cmd[0][k]["seconds"], "launches": cmd[0][k]["launches"],
+                          "files": cmd[0][k]["files"], "files_rank1": cmd[1][k]["files"]}
+                      for k in ("A", "B", "C")}
+    out["command"]["resume_max_dev"] = max(dev.values())
+    out["command"]["state_tensors"] = len(dev)
+    worst = {label: max(v.values()) for label, v in out["metrics"].items()}
+    met = {"metrics": max(worst.values()) <= MP_GAN_LOSS_TARGET,
+           "gradients": max(v for g in out["grads"].values() for v in g.values())
+           <= MP_GAN_GRAD_TARGET}
+    say("mp", f"GAN trainer over the (1 data, 2 model) mesh at the JAX command's width ({RES}², "
+        f"z = w = 512, 2 mapping layers, batch {GAN_BATCH}, mbstd 4, ADA at p = {GAN_ADA_P}), "
+        "random synthesis noise, each step from a fresh state with G held still, against one "
+        "process, fp32, TF32 off, cuDNN's deterministic algorithms: "
+        + "; ".join(f"{label} step: worst metric {worst[label]:.3g}, gradients G "
+                    f"{out['grads'][label]['G']:.3g}, D {out['grads'][label]['D']:.3g} "
+                    f"(one process against itself under cuDNN's default algorithms: G "
+                    f"{out['floor'][label]['G']:.3g}, D {out['floor'][label]['D']:.3g})"
+                    for label, _ in MP_GAN_STEPS)
+        + f" (tolerances {MP_GAN_LOSS_TOL:g}, {MP_GAN_GRAD_TOL:g}; targets "
+        f"{MP_GAN_LOSS_TARGET:g} {'met' if met['metrics'] else 'missed'}, "
+        f"{MP_GAN_GRAD_TARGET:g} {'met' if met['gradients'] else 'missed'}); the planted fault "
+        "(the path-length gradient left un-reduced over the model group): metrics off by "
+        f"{out['fault_metrics']:.3g} (at least {MP_GAN_FAULT_MIN:g}); bf16 against one "
+        "process's bf16: " + ", ".join(f"{label} {v:.3g}" for label, v in
+                                       out["bf16_metrics"].items())
+        + f" (tolerance {MP_GAN_BF16_TOL:g}); {card}")
+    say("mp", "GAN peak memory over the R1 + path-length step, the three processes alone on the "
+        "card: at PyTorch's TF32 defaults ranks " + ", ".join(
+            f"{p:.1f}" for p in out["peak_mib"]) + f" MiB against one process's "
+        f"{one['peak_mib']:.1f} MiB = {out['peak_ratio']:.3f} (at most {MP_PEAK_RATIO:g}); with "
+        "TF32 off (both steps) ranks " + ", ".join(f"{p:.1f}" for p in out["peak_tf32_off_mib"])
+        + f" MiB against {one['peak_tf32_off_mib']:.1f} MiB = "
+        f"{out['peak_ratio_tf32_off']:.3f} (reported); the peak by phase at the TF32 defaults "
+        "(G's gradient, the path length's, D's with R1) " + "; ".join(
+            f"{who} " + " / ".join(f"{p:.0f}" for p in ps) + " MiB"
+            for who, ps in zip(("rank 0", "rank 1", "one process"), out["phase_peaks_mib"]))
+        + "; G and D resident "
+        f"{out['resident_mib'][0]:.0f} / {out['resident_mib'][-1]:.0f} MiB; per step and rank "
+        "(fp32): " + "; ".join(
+            f"{label} rank {r}: {c['halo']} halo exchanges {c['halo_bytes'] / 2**20:.1f} MiB, "
+            f"{c['gather']} gathers {c['gather_bytes'] / 2**20:.2f} MiB, {c['scatter']} "
+            f"scatters, {c['sum']} model-group sums {c['sum_bytes'] / 2**10:.1f} KiB"
+            for label, cs in out["counts"].items() for r, c in enumerate(cs))
+        + "; launches per step and rank (those of one process) " + "; ".join(
+            f"{label} {v}" for label, v in out["launches"].items()) + f"; {card}")
+    c = out["command"]
+    say("mp", f"train gan --data-parallel --model-parallel 2 ({MP_GAN_N} synthetic {RES}² images, "
+        f"batch {GAN_BATCH}, bf16, the command's `_train` on the mesh, cuDNN deterministic): run "
+        f"A 2 iterations {c['A']['seconds']:.1f} s, run B resumed from A to 4 "
+        f"{c['B']['seconds']:.1f} s, run C unbroken to 4 {c['C']['seconds']:.1f} s; B against C: "
+        f"{c['state_tensors']} tensors of the training state, max |B - C| "
+        f"{c['resume_max_dev']:.3g} (bit-equal); rank 0 wrote {c['B']['files']} (A and B) and "
+        f"{c['C']['files']} (C), rank 1 {c['B']['files_rank1']} and {c['C']['files_rank1']}; "
+        f"launches A {c['A']['launches']}; {card}")
+    for label, v in out["metrics"].items():
+        assert max(v.values()) <= MP_GAN_LOSS_TOL, ("GAN metric", label, v)
+    for label, v in out["grads"].items():
+        assert max(v.values()) <= MP_GAN_GRAD_TOL, ("GAN gradient", label, v)
+    assert out["fault_metrics"] > MP_GAN_FAULT_MIN, out["fault_metrics"]
+    assert max(out["bf16_metrics"].values()) <= MP_GAN_BF16_TOL, out["bf16_metrics"]
+    assert out["peak_ratio"] <= MP_PEAK_RATIO, out["peak_ratio"]
+    for label, cs in out["counts"].items():
+        assert all(x["halo"] > 0 and x["gather"] > 0 and x["sum"] > 0 for x in cs), (label, cs)
+    assert c["resume_max_dev"] == 0.0, sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    assert all(c[k]["files_rank1"] == [] for k in ("A", "B", "C")), c
+    assert {"gan", "gan.train_state", "gan_2.jsonl", "gan_4.jsonl"} <= set(c["B"]["files"]), c
+    assert {"gan", "gan.train_state", "gan_4.jsonl"} <= set(c["C"]["files"]), c
+    recs = cmd[0]["records"]
+    assert [r["iteration"] for r in recs] == [0, 1], recs
+    assert recs[0]["r1"] > 0 and recs[0]["pl_lengths"] > 0, recs[0]
+    assert all(math.isfinite(v) for r in recs for v in r.values()), recs
+    return out
 
 
 # ---------------------------------- timings --------------------------------- #
@@ -5932,9 +6271,13 @@ def main() -> int:
     set_tf32(False)
     worst_fid = phase_kernels({"the FID sampling": fid_calls, **tool_calls, **analysis_calls,
                                **c2c_calls}, configurations=False)
-    # The mp step's calls at their shard shapes (halo-extended, cropped).
-    record["mp"]["max_abs_err"] = worst_mp = phase_kernels(mp_calls, configurations=False)
-    worst_fid = {k: max(v, worst_mp[k]) for k, v in worst_fid.items()}
+    # The mp steps' calls at their shard shapes (halo-extended, cropped): the
+    # VisCoIN step's, then the GAN steps' (D's FIRs on rows, second order).
+    record["mp"]["max_abs_err"] = worst_mp = phase_kernels(
+        {k: v for k, v in mp_calls.items() if "GAN" not in k}, configurations=False)
+    record["mp"]["gan"]["max_abs_err"] = worst_mp_gan = phase_kernels(
+        {k: v for k, v in mp_calls.items() if "GAN" in k}, configurations=False)
+    worst_fid = {k: max(v, worst_mp[k], worst_mp_gan[k]) for k, v in worst_fid.items()}
     loop_calls = record["loop"].pop("calls_a")
     # Run A's calls against the plain versions too (the kernels line's path).
     worst_loop = phase_kernels({"the loop's run A": loop_calls}, configurations=False)
@@ -5959,6 +6302,8 @@ def main() -> int:
     for name, entry in timings["kernels"].items():
         entry["max_abs_err"] = worst[f"{name}/float32"]
         entry["mp_step_launches"] = record["mp"]["launches_per_step"][name]
+        entry["mp_gan_step_launches"] = record["mp"]["gan"]["launches"]["r1+ppl"][name]
+        entry["mp_gan_plain_step_launches"] = record["mp"]["gan"]["launches"]["plain"][name]
     record["seconds"] = time.perf_counter() - t_start
     say("done", f"all phases passed in {record['seconds']:.1f} s")
     if args.out:

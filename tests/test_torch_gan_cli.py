@@ -220,7 +220,8 @@ def test_fid_every_is_a_usage_error(toy_cli, capsys):
 
 def test_gan_data_parallel_over_several_cards_raises(monkeypatch):
     """Two visible cards: `train gan` starts a worker per card (stubbed
-    here); --model-parallel 2 still raises, naming its ROADMAP item."""
+    here), with --model-parallel 2 too (the workers build the (1, 2) mesh);
+    --model-parallel 2 without --data-parallel raises, as JAX's command."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
@@ -228,6 +229,10 @@ def test_gan_data_parallel_over_several_cards_raises(monkeypatch):
     monkeypatch.setattr(cli_train, "_spawn", lambda args, n: spawned.append((args, n)))
     main(["train", "gan", "--dataset", "synthetic"])
     (args, n), = spawned
-    assert n == 2 and args.model_name == "gan"
-    with pytest.raises(NotImplementedError, match="model-parallel 2.*ROADMAP"):
-        main(["train", "gan", "--dataset", "synthetic", "--model-parallel", "2"])
+    assert n == 2 and args.model_name == "gan" and args.model_parallel == 1
+    main(["train", "gan", "--dataset", "synthetic", "--model-parallel", "2"])
+    (args, n) = spawned[-1]
+    assert n == 2 and args.model_name == "gan" and args.model_parallel == 2
+    with pytest.raises(ValueError, match="requires --data-parallel"):
+        main(["train", "gan", "--dataset", "synthetic", "--model-parallel", "2",
+              "--no-data-parallel"])

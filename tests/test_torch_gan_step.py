@@ -23,11 +23,12 @@ from viscoin_tpu_torch.utils.weights import tree_to_state_dict
 STEP_CFG = dict(CFG, ada_interval=2, ema_kimg=0.01, style_mixing_prob=0.5)
 
 
-def port_draws(rng, images_shape) -> tgan.GANStepDraws:
-    """The port's draws from the 17 keys JAX's step splits ``rng`` into."""
+def port_draws(rng, images_shape, mixing_prob: float | None = None) -> tgan.GANStepDraws:
+    """The port's draws from the 17 keys JAX's step splits ``rng`` into
+    (style mixing at STEP_CFG's probability unless ``mixing_prob``)."""
     (k_flip, kz1, kz1m, kz2, kz2m, kzp, _kn1, _kn2, _knp, kmix, kcut, kmix2, kcut2, kpl, ka_g,
      ka_df, ka_dr) = jax.random.split(rng, 17)
-    prob = STEP_CFG["style_mixing_prob"]
+    prob = STEP_CFG["style_mixing_prob"] if mixing_prob is None else mixing_prob
 
     def cutoff(km, kc):
         mix = bool(jax.random.bernoulli(km, prob))

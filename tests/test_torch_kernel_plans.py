@@ -585,3 +585,41 @@ def test_fir_plan_walk_shard_plans(case, x_hw, adjoint):
     plans = check_fir(x, F1D, pallas=False, **case)
     if adjoint:
         assert all(pl.ho == x_hw[0] and pl.wo == x_hw[1] for pl in plans)
+
+
+# The discriminator's FIRs on a rank's rows (ops/conv2d_resample.py's down
+# path): conv1's and the skip's FIR and stride-2 conv read one window, so the
+# FIR sees the rank's rows with 2 (conv1) or 1 (skip) halo rows each side and
+# pads only along W; conv1's gives rows + 1 rows, the skip's rows - 1. R1's
+# second order runs each adjoint's adjoint, the forward's geometry again.
+SHARD_D_CONV_FIR = dict(up=1, down=1, padding=(2, 2, 0, 0), gain=1.0)
+SHARD_D_SKIP_FIR = dict(up=1, down=1, padding=(1, 1, 0, 0), gain=1.0)
+
+
+@pytest.mark.parametrize("order", [0, 1, 2], ids=["forward", "adjoint", "adjoint-adjoint"])
+@pytest.mark.parametrize("case,x_hw,ho", [(SHARD_D_CONV_FIR, (4 + 4, 9), 4 + 1),
+                                          (SHARD_D_SKIP_FIR, (4 + 2, 9), 4 - 1)],
+                         ids=["d-conv1-fir", "d-skip-fir"])
+def test_fir_plan_walk_discriminator_shard_plans(case, x_hw, ho, order):
+    """A rank's 4 rows of a D plane, halo-extended: the FIR's plan, its
+    adjoint's and the adjoint's adjoint's (the same padding as the forward,
+    as R1's second order calls it) walked against the JAX oracle."""
+    f = setup_filter(F1D)
+    h, w = x_hw
+    calls = [(case, (h, w))]
+    for _ in range(order):
+        kw, (hi, wi) = calls[-1]
+        hj, wj = output_size(hi, wi, 4, kw["up"], kw["down"], kw["padding"])
+        p = adjoint_padding((2, 3, hi, wi), (2, 3, hj, wj), f, up=kw["up"], down=kw["down"],
+                            padding=kw["padding"])
+        calls.append((dict(up=kw["down"], down=kw["up"], padding=p, gain=kw["gain"],
+                           flip_filter=not kw.get("flip_filter", False)), (hj, wj)))
+    kw, (hi, wi) = calls[-1]
+    assert output_size(h, w, 4, 1, 1, case["padding"])[0] == ho
+    if order == 2:
+        assert kw["padding"] == case["padding"] and not kw["flip_filter"]
+    x = np.random.default_rng(12).standard_normal((2, hi, wi, 3)).astype(np.float32)
+    plans = check_fir(x, F1D, pallas=False, **kw)
+    assert {pl.variant for pl in plans} == {VARIANTS[(4, 1, 1)]}
+    assert all((pl.ho, pl.wo) == ((ho, w - 3 + 2 * case["padding"][0]) if order != 1
+                                  else (h, w)) for pl in plans)

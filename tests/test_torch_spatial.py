@@ -8,14 +8,24 @@ float64 tensors, against the unsharded ops in this process:
     second-order gradient through it;
   * scatter_rows / gather_rows and their backwards;
   * the sharded convs (3x3/1, 7x7/2, 5x5/4, 1x1/2, 3x3/2, 1x1/1), the max
-    pools, StyleGAN's up-conv and the FIR at several paddings (up 2, up 1,
-    down 2), forward and the gradients of a weighted sum of the output (the
-    input's rows; the weights' summed over the ranks);
-  * the shard plans at 256² (model 2 and 4) and at the toy 32² geometry.
+    pools, StyleGAN's up-conv, the discriminator's down-2 convs (a 4-tap FIR
+    then a stride-2 3x3 or 1x1, one window) and the FIR at several paddings
+    (up 2, up 1, down 2), forward and the gradients of a weighted sum of the
+    output (the input's rows; the weights' summed over the ranks); the down
+    convs also to second order;
+  * gather_rows, scatter_rows and model_sum differentiated twice;
+  * the minibatch stddev over the data axis's batch with its mean over the
+    model group, the ADA pipe on rows (bit-equal), and the toy
+    discriminator on rows, with its natural plan and with its 8² and 4²
+    planes whole (b16's output gathered);
+  * the shard plans at 256² (model 2 and 4) and at the toy 32² geometry,
+    and the discriminator's planes where they stop.
 
-Float64 throughout: the sharded ops add the same products in the same order
-as the whole ones up to the model-group sums, so the tolerance is 1e-10
-relative to each output's scale."""
+Float64 where the ops allow it: the sharded ops add the same products in the
+same order as the whole ones up to the model-group sums, so the tolerance is
+1e-10 relative to each output's scale. The minibatch stddev takes its
+statistics in fp32 (so does the discriminator's), and the ADA pipe runs in
+fp32: their tolerances are stated at their tests."""
 
 import numpy as np
 import pytest
@@ -23,8 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from torch_dp_worker import run_ranks
+from viscoin_tpu_torch.models.bundle import init_models
+from viscoin_tpu_torch.models.stylegan import Discriminator, MinibatchStdLayer
 from viscoin_tpu_torch.ops import conv2d_resample, setup_filter, upfirdn2d
 from viscoin_tpu_torch.parallel import spatial as S
+from viscoin_tpu_torch.train import augment as TA
 
 H, W = 16, 8
 MESHES = {"spatial_1x4": (1, 4), "spatial_2x2": (2, 2)}
@@ -32,6 +45,21 @@ HALOS = [(1, 1, 0.0), (2, 1, 0.0), (3, 2, 0.0), (0, 2, 0.0), (1, 0, float("-inf"
 ADJOINT_HALO = (2, 3)
 FIR = setup_filter([1, 3, 3, 1])
 TOL = 1e-10
+ADA_P, ADA_SEED = 0.9, 1  # draws in which one image takes the final rot90 and one does not
+MBSTD_TOL = 1e-6  # fp32 statistics, the model group's partial sums
+DISC_TOL = 1e-5
+
+
+def _disc() -> Discriminator:
+    """The toy discriminator (16², channel_base 256, channel_max 16, mbstd
+    groups of 2) in float64, its weights perturbed."""
+    d = init_models(Discriminator(img_resolution=H, channel_base=256, channel_max=16,
+                                  mbstd_group_size=2, device="cpu"), 5).double()
+    g = _g(6)
+    with torch.no_grad():
+        for p in d.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, dtype=p.dtype))
+    return d
 
 
 def _g(seed: int):
@@ -50,6 +78,10 @@ def _ops() -> dict:
         cases[f"maxpool{k}/{stride}"] = dict(kind="maxpool", k=k, stride=stride, padding=pad)
     cases["upconv"] = dict(kind="upconv", f=FIR, padding=1,
                            w=torch.randn(4, 3, 3, 3, generator=g, dtype=torch.float64))
+    for k in (3, 1):  # the discriminator's conv1 and skip
+        cases[f"downconv{k}x{k}"] = dict(kind="downconv", f=FIR, padding=k // 2,
+                                         w=torch.randn(4, 3, k, k, generator=g,
+                                                       dtype=torch.float64))
     for name, up, down, pads, gain in (("up2 (2,1)", 2, 1, (2, 1), 4.0),
                                        ("up1 (1,2)", 1, 1, (1, 2), 1.0),
                                        ("up1 (2,1)", 1, 1, (2, 1), 1.0),
@@ -70,6 +102,8 @@ def _whole(case: dict, x: torch.Tensor, w: torch.Tensor | None) -> torch.Tensor:
     if kind == "upconv":
         return conv2d_resample(x, w, f=case["f"], up=2, padding=case["padding"],
                                flip_weight=False)
+    if kind == "downconv":
+        return conv2d_resample(x, w, f=case["f"], down=2, padding=case["padding"])
     return upfirdn2d(x, case["f"], up=case["up"], down=case["down"],
                      padding=case["fir_padding"], gain=case["gain"])
 
@@ -86,7 +120,13 @@ def ranks(tmp_path_factory):
         case["u"] = torch.randn(shape, generator=g, dtype=torch.float64)
     base = dict(x=x, halos=HALOS, adjoint_halo=ADJOINT_HALO, ops=ops,
                 v=torch.randn(2, 3, H, W, generator=g, dtype=torch.float64),
-                u=torch.randn(4, 2, 3, H, W, generator=g, dtype=torch.float64))
+                u=torch.randn(4, 2, 3, H, W, generator=g, dtype=torch.float64),
+                mbstd_x=torch.randn(8, 6, H, 4, generator=g, dtype=torch.float64),
+                mbstd_w=torch.randn(8, 7, H, 4, generator=g, dtype=torch.float64),
+                ada_x=torch.rand(2, 3, H, H, generator=g) * 2 - 1,
+                ada_u=torch.randn(2, 3, H, H, generator=g), ada_p=ADA_P,
+                ada_draws=TA.draw_augment(2, _g(ADA_SEED)), disc=_disc(),
+                disc_x=torch.rand(4, 3, H, H, generator=g, dtype=torch.float64) * 2 - 1)
     inputs = {}
     for name, mesh in MESHES.items():  # y, w: per rank, of its extended rows
         ext = H // mesh[1] + sum(ADJOINT_HALO)
@@ -195,6 +235,130 @@ def test_sharded_ops_match_the_whole_op(ranks, name, op):
         _close(gw, grads[1], (name, op, "weight grad summed over the group"))
 
 
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("op", ["downconv3x3", "downconv1x1"])
+def test_sharded_down_convs_second_order(ranks, name, op):
+    """The discriminator's down-2 convs on rows, to second order: the
+    gradient g of <u, y^2> with respect to the input, then the gradients of
+    <v, g^2> with respect to the input (the rank's rows) and the weight
+    (summed over the group), against the whole op's."""
+    inputs, outs = ranks
+    base = inputs[name]
+    data, model = MESHES[name]
+    case = base["ops"][op]
+    x = base["x"].clone().requires_grad_(True)
+    w = case["w"].clone().requires_grad_(True)
+    y = _whole(case, x, w)
+    (g,) = torch.autograd.grad((y ** 2 * case["u"]).sum(), x, create_graph=True)
+    hx, hw = torch.autograd.grad((g ** 2 * base["v"]).sum(), [x, w])
+    h = H // model
+    gw = 0
+    for r, m in _model_ranks(MESHES[name]):
+        got_x, got_w = outs[r][name]["ops"][op]["second"]
+        _close(got_x, hx[:, :, m * h: (m + 1) * h], (name, op, r, "second order, input"))
+        if r < model:
+            gw = gw + got_w
+    _close(gw, hw, (name, op, "second order, weight summed over the group"))
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_collectives_differentiate_twice(ranks, name):
+    """Through gather_rows, scatter_rows and model_sum a rank's loss is the
+    whole one; its gradient is ``model`` times its rows of the whole
+    gradient (the gradient rule), and the gradient of <v, g^2> ``model``²
+    times the whole one's."""
+    inputs, outs = ranks
+    base = inputs[name]
+    data, model = MESHES[name]
+    x = base["x"].clone().requires_grad_(True)
+    loss = (((x ** 3) * base["u"][0]).sum(dim=(2, 3)) ** 2).sum()
+    (g,) = torch.autograd.grad(loss, x, create_graph=True)
+    (hh,) = torch.autograd.grad((g ** 2 * base["v"]).sum(), x)
+    h = H // model
+    for r, m in _model_ranks(MESHES[name]):
+        got = outs[r][name]["double"]
+        rows = slice(m * h, (m + 1) * h)
+        _close(got["loss"], loss.detach(), (name, r, "loss"))
+        _close(got["g"] / model, g.detach()[:, :, rows], (name, r, "first order"))
+        _close(got["h"] / model ** 2, hh[:, :, rows], (name, r, "second order"))
+
+
+def _data_rows(t: torch.Tensor, r: int, mesh) -> torch.Tensor:
+    data, model = mesh
+    n = t.shape[0] // data
+    return t[(r // model) * n: (r // model + 1) * n]
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_minibatch_std_on_a_2d_mesh(ranks, name):
+    """Groups of 4 over the global batch of 8 (on (2, 2) each group spans
+    both data shards), the mean over (C, H, W) summed over the model group:
+    each rank's samples and rows of the whole layer's output and of the
+    input's gradient, each image counted once (fp32 statistics: 1e-6)."""
+    inputs, outs = ranks
+    base = inputs[name]
+    data, model = MESHES[name]
+    x = base["mbstd_x"].clone().requires_grad_(True)
+    y = MinibatchStdLayer(group_size=4)(x)
+    (g,) = torch.autograd.grad((y ** 2 * base["mbstd_w"]).sum(), x)
+    h = H // model
+    for r, m in _model_ranks(MESHES[name]):
+        got = outs[r][name]["mbstd"]
+        rows = slice(m * h, (m + 1) * h)
+        for what, want in (("y", y.detach()), ("g", g)):
+            want = _data_rows(want, r, MESHES[name])[:, :, rows]
+            err = float((got[what] - want).abs().max() / want.abs().max())
+            assert err <= MBSTD_TOL, (name, r, what, err)
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_ada_pipe_on_rows_is_the_whole_pipe(ranks, name):
+    """The ADA pipe at p = 0.9 (one image warped with the final rot90, one
+    without, both recoloured) on each rank's rows: bit-equal to the rows of
+    the whole pipe's output; the input's gradient of a weighted sum within
+    1e-6 of its scale."""
+    inputs, outs = ranks
+    base = inputs[name]
+    data, model = MESHES[name]
+    _, _, use_k1, skip = TA._spatial(base["ada_draws"], ADA_P, H, H)
+    assert use_k1.tolist() == [True, False] and not bool(skip.any())
+    x = base["ada_x"].clone().requires_grad_(True)
+    y = TA.augment(x, ADA_P, base["ada_draws"])
+    (g,) = torch.autograd.grad((y * base["ada_u"]).sum(), x)
+    h = H // model
+    for r, m in _model_ranks(MESHES[name]):
+        got = outs[r][name]["ada"]
+        rows = slice(m * h, (m + 1) * h)
+        assert torch.equal(got["y"], y.detach()[:, :, rows]), (name, r)
+        err = float((got["g"] - g[:, :, rows]).abs().max() / g.abs().max())
+        assert err <= 1e-6, (name, r, err)
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("plan", ["plan", "gathered"])
+def test_discriminator_on_rows(ranks, name, plan):
+    """The toy discriminator on each rank's samples and rows (its plan, and
+    the plan with its 8² and 4² planes whole): every rank of a model group
+    holds its samples' whole logits, and its input gradient of their sum is
+    ``model`` times its rows of the whole one (R1's rule); within 1e-5 of
+    the scale (its minibatch stddev is fp32)."""
+    inputs, outs = ranks
+    base = inputs[name]
+    data, model = MESHES[name]
+    x = base["disc_x"].clone().requires_grad_(True)
+    logits = base["disc"](x)
+    (g,) = torch.autograd.grad(logits.sum(), x)
+    h = H // model
+    for r, m in _model_ranks(MESHES[name]):
+        got = outs[r][name]["disc"][plan]
+        want = _data_rows(logits.detach(), r, MESHES[name])
+        err = float((got["logits"] - want).abs().max() / want.abs().max())
+        assert err <= DISC_TOL, (name, plan, r, "logits", err)
+        want = _data_rows(g, r, MESHES[name])[:, :, m * h: (m + 1) * h]
+        err = float((got["g"] / model - want).abs().max() / want.abs().max())
+        assert err <= DISC_TOL, (name, plan, r, "input gradient", err)
+
+
 def test_counts_tally_the_exchanges(ranks):
     """Every rank counted its halo exchanges (forward and adjoint), the
     gather and its backward sum, the scatter; bytes are those reduced."""
@@ -219,11 +383,12 @@ def test_window():
 FLAGSHIP_2 = dict.fromkeys(
     ["image", "f.stem", "f.pool", "f.stage0", "f.stage1", "f.stage2", "f.stage3",
      "psi.latent", "g.4", "g.8", "g.16", "g.32", "g.64", "g.128", "g.256",
-     "lpips.0", "lpips.1", "lpips.2", "lpips.3", "lpips.4"], True)
+     "lpips.0", "lpips.1", "lpips.2", "lpips.3", "lpips.4", "d.256", "d.128", "d.64", "d.32",
+     "d.16", "d.8", "d.4"], True)
 TOY_2 = dict(FLAGSHIP_2, **{"f.stage1": False, "f.stage2": False, "f.stage3": False,
                             "psi.latent": False})
 for _res in (64, 128, 256):
-    del TOY_2[f"g.{_res}"]
+    del TOY_2[f"g.{_res}"], TOY_2[f"d.{_res}"]
 
 
 @pytest.mark.parametrize("size, model, depths, want", [
@@ -238,6 +403,25 @@ for _res in (64, 128, 256):
 ])
 def test_shard_plans(size, model, depths, want):
     assert S.shard_plan(size, model, resnet_depths=depths) == want
+
+
+def test_discriminator_planes():
+    """D's planes shrink like f's: 32² over 8 ranks shards its 32² and 16²
+    planes (4 and 2 rows: conv1's window reads 2 halo rows each side) and
+    gathers b16's output (8² of 1 row each); 4 ranks hold 1 row of the 4²
+    epilogue (its 3x3 reads 1 each side). ``gan_spatial`` refuses images
+    that D or G cannot shard."""
+    plan = S.shard_plan(32, 8, resnet_depths=(1, 1, 1, 1))
+    assert [plan[f"d.{r}"] for r in (32, 16, 8, 4)] == [True, True, False, False]
+    assert S.shard_plan(16, 4, resnet_depths=(1, 1, 1, 1))["d.4"]
+    from viscoin_tpu_torch.parallel.mesh import Mesh2D
+
+    mesh = Mesh2D(rank=0, world=8, device=torch.device("cpu"), data=1, model=8)
+    with pytest.raises(ValueError, match="cannot be H-sharded over 8"):
+        S.gan_spatial(mesh, 8)
+    sp = S.gan_spatial(Mesh2D(rank=0, world=2, device=torch.device("cpu"), data=1, model=2), 16)
+    assert sp.model == 2 and all(sp.plan[f"d.{r}"] for r in (16, 8, 4))
+    assert S.gan_spatial(None, 16) is None
 
 
 def test_unshardable_geometries_are_refused():

@@ -1,7 +1,7 @@
 """One rank of the port's data-parallel and model-parallel CPU tests
 (tests/test_torch_parallel.py, tests/test_torch_dp_train.py,
 tests/test_torch_spatial.py, tests/test_torch_mp_train.py,
-tests/test_torch_mp_cli.py): joins a gloo group of WORLD processes on
+tests/test_torch_mp_gan.py, tests/test_torch_mp_cli.py): joins a gloo group of WORLD processes on
 127.0.0.1 and runs the named scenarios, each reading its inputs from
 ``<dir>/<scenario>.in.pt`` (written by the test) and writing what it computed
 to ``<dir>/<scenario>.rank<r>.pt``. A scenario whose inputs hold ``mesh2d``
@@ -173,12 +173,15 @@ def run_spatial_ops(inp: dict, mesh) -> dict:
     fills; <y, A x> and <A^T y, x>; the gradient of a cubic loss through the
     exchange and the gradient of its squared norm (second order);
     scatter_rows / gather_rows and their backwards; and each sharded op
-    (convs, the max pool, the up-conv, the FIRs) with the gradients of a
-    weighted sum of its output (this rank's rows of the weights)."""
+    (convs, the max pool, the up-conv, the discriminator's down convs, the
+    FIRs) with the gradients of a weighted sum of its output (this rank's
+    rows of the weights), the down convs to second order (the collectives
+    counted up to here); then the collectives differentiated twice, the
+    minibatch stddev, the ADA pipe and the discriminator on rows."""
     from viscoin_tpu_torch.ops import conv2d_resample, upfirdn2d
     from viscoin_tpu_torch.parallel import spatial as S
 
-    sp = S.Spatial(axis=mesh.model_axis)
+    sp = S.Spatial(axis=mesh.model_axis, plan=S.shard_plan(16, mesh.model_axis.world))
     rows = sp.rows(inp["x"].shape[2])
     x = inp["x"][:, :, rows]
     out: dict = {"halo": {}, "ops": {}}
@@ -213,6 +216,8 @@ def run_spatial_ops(inp: dict, mesh) -> dict:
         elif kind == "upconv":
             y = conv2d_resample(xg, w, f=case["f"], up=2, padding=case["padding"],
                                 flip_weight=False, sp=sp)
+        elif kind == "downconv":
+            y = conv2d_resample(xg, w, f=case["f"], down=2, padding=case["padding"], sp=sp)
         else:
             y = upfirdn2d(xg, case["f"], up=case["up"], down=case["down"],
                           padding=case["fir_padding"], gain=case.get("gain", 1.0), sp=sp)
@@ -220,7 +225,77 @@ def run_spatial_ops(inp: dict, mesh) -> dict:
         grads = torch.autograd.grad((y * weight).sum(), [t for t in (xg, w) if t is not None])
         out["ops"][name] = {"y": y.detach(), "gx": grads[0],
                             "gw": grads[1] if w is not None else None}
+        if kind == "downconv":  # second order: the gradient of <u, y^2>, then of <v, g^2>
+            xg, w = x.clone().requires_grad_(True), case["w"].clone().requires_grad_(True)
+            y = conv2d_resample(xg, w, f=case["f"], down=2, padding=case["padding"], sp=sp)
+            (g,) = torch.autograd.grad((y ** 2 * weight).sum(), xg, create_graph=True)
+            out["ops"][name]["second"] = torch.autograd.grad(
+                (g ** 2 * inp["v"][:, :, rows]).sum(), [xg, w])
     out["counts"] = S.counts()
+    out.update(double=_double_backward(x, inp, sp), mbstd=_mbstd_rows(inp, mesh, sp),
+               ada=_ada_rows(inp, sp), disc=_disc_rows(inp, mesh, sp))
+    return out
+
+
+def _double_backward(x: torch.Tensor, inp: dict, sp) -> dict:
+    """A rank's loss through gather_rows, scatter_rows and model_sum, whole on
+    every rank: L = sum over (B, C) of (sum over (H, W) of x^3 u)^2, as
+    model_sum(sum of this rank's rows of scatter(gather(x)^2 u) * x)^2; its
+    gradient, and the gradient of <v, gradient^2> (second order through each
+    collective's backward)."""
+    from viscoin_tpu_torch.parallel import spatial as S
+
+    rows = sp.rows(inp["x"].shape[2])
+    xg = x.clone().requires_grad_(True)
+    s = S.scatter_rows(S.gather_rows(xg, sp) ** 2 * inp["u"][0], sp)
+    m = S.model_sum((s * xg).sum(dim=(2, 3)), sp)
+    loss = (m ** 2).sum()
+    (g,) = torch.autograd.grad(loss, xg, create_graph=True)
+    (h,) = torch.autograd.grad((g ** 2 * inp["v"][:, :, rows]).sum(), xg)
+    return {"loss": loss.detach(), "g": g.detach(), "h": h}
+
+
+def _mbstd_rows(inp: dict, mesh, sp) -> dict:
+    """The minibatch stddev (groups of 4 over the data axis's batch, the
+    mean over (C, H, W) a model-group sum) on this rank's samples and rows,
+    and the gradient of a weighted sum of squares through it."""
+    from viscoin_tpu_torch.models.stylegan import MinibatchStdLayer
+
+    x = _rows(inp["mbstd_x"], mesh)
+    x = x[:, :, sp.rows(x.shape[2])].clone().requires_grad_(True)
+    y = MinibatchStdLayer(group_size=4)(x, mesh, sp=sp)
+    w = _rows(inp["mbstd_w"], mesh)
+    (g,) = torch.autograd.grad((y ** 2 * w[:, :, sp.rows(w.shape[2])]).sum(), x)
+    return {"y": y.detach(), "g": g}
+
+
+def _ada_rows(inp: dict, sp) -> dict:
+    """The ADA pipe on this rank's rows of square images (every rank the
+    same draws), and the gradient of a weighted sum through it."""
+    from viscoin_tpu_torch.train.augment import augment
+
+    x = inp["ada_x"][:, :, sp.rows(inp["ada_x"].shape[2])].clone().requires_grad_(True)
+    y = augment(x, inp["ada_p"], inp["ada_draws"], sp=sp)
+    u = inp["ada_u"][:, :, sp.rows(inp["ada_u"].shape[2])]
+    (g,) = torch.autograd.grad((y * u).sum(), x)
+    return {"y": y.detach(), "g": g}
+
+
+def _disc_rows(inp: dict, mesh, sp) -> dict:
+    """The discriminator on this rank's samples and rows, under the natural
+    plan and under one whose 8² and 4² planes are whole (b16's output
+    gathered): the logits, and the input's gradient of their sum (R1's)."""
+    from viscoin_tpu_torch.parallel import spatial as S
+
+    d = inp["disc"]
+    out = {}
+    for label, plan in (("plan", sp.plan), ("gathered", {**sp.plan, "d.8": False,
+                                                         "d.4": False})):
+        x = _rows(inp["disc_x"], mesh)
+        x = x[:, :, sp.rows(x.shape[2])].clone().requires_grad_(True)
+        logits = d(x, mesh, spatial=S.Spatial(axis=sp.axis, plan=plan))
+        (g,) = torch.autograd.grad(logits.sum(), x)
+        out[label] = {"logits": logits.detach(), "g": g}
     return out
 
 
@@ -275,6 +350,48 @@ def run_mp_step(inp: dict, mesh, fault: str | None = None) -> dict:
               for n, p in grp.items()}
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
             "params": params, "counts": S.counts()}
+
+
+def run_mp_gan_steps(inp: dict, mesh, fault: str | None = None) -> dict:
+    """GAN steps on this rank's samples and H rows of the global images and
+    draws (``inp["draws"]``, one per step, from the global batch: each
+    rank's from :meth:`GANStepDraws.shard`), constant synthesis noise: each
+    step's metrics, both networks' gradients (the Adams' first moments,
+    beta1 = 0: the gradients averaged over the ranks), the parameters after
+    the last step and the spatial collectives per step. ``fault``, a planted
+    one: "ppl" (the path-length gradient left un-reduced over the model
+    group)."""
+    from viscoin_tpu_torch.parallel import spatial as S
+    from viscoin_tpu_torch.train import gan as TG
+
+    g, d = inp["g"], inp["d"]
+    const_noise(g)
+    cfg = TG.GANTrainingParams(**inp["cfg"])
+    state = TG.create_gan_train_state(g, d, cfg)
+    step = TG.make_gan_train_step(g, d, cfg, mesh)
+    whole = TG.whole_ws_grads
+    if fault == "ppl":
+        TG.whole_ws_grads = lambda partial, sp: partial
+    out: dict = {"metrics": [], "grads": [], "counts": []}
+    try:
+        for images, draws in zip(inp["images"], inp["draws"]):
+            if mesh is not None:
+                images = _rows(images, mesh)
+                axis = mesh.model_axis
+                images = images[:, axis.rows(axis.local(images.shape[1]))]
+                draws = draws.shard(mesh)
+            S.reset_counts()
+            _, metrics = step(state, images, draws)
+            out["counts"].append(S.counts())
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+            out["grads"].append({f"{who}.{n}": opt.state[p]["exp_avg"].clone()
+                                 for who, module, opt in (("G", g, state.g_opt),
+                                                          ("D", d, state.d_opt))
+                                 for n, p in module.named_parameters()})
+    finally:
+        TG.whole_ws_grads = whole
+    out.update(g=state.generator.state_dict(), d=state.discriminator.state_dict())
+    return out
 
 
 def run_mp_eval(inp: dict, mesh) -> dict:
@@ -535,6 +652,52 @@ def run_command(inp: dict, mesh: Mesh | None) -> dict:
     return {"rcs": rcs, "first": first, "files": sorted(os.listdir(work))}
 
 
+def run_gan_command(inp: dict, mesh: Mesh | None) -> dict:
+    """``python -m viscoin_tpu_torch train gan`` (its ``main``) with
+    ``inp["argv"]`` at toy widths (``inp["g"]``, ``inp["d"]``: the
+    generator's and discriminator's options) on the synthetic dataset at
+    ``inp["size"]``², each rank in its own working directory: run A for
+    ``inp["epochs"][0]`` iterations, run B resumed from rank 0's state of A
+    to ``inp["epochs"][1]``, and run C unbroken to there (in rank<r>_c); the
+    group is each run's own (WORLD_SIZE set, a port per run). Returns the
+    exit codes, the files of each directory and rank 0's states of B and C."""
+    from viscoin_tpu_torch.__main__ import main
+    from viscoin_tpu_torch.cli import train as cli_train
+    from viscoin_tpu_torch.models import bundle as tb
+    from viscoin_tpu_torch.models.stylegan import Discriminator, Generator
+
+    def toy_gan_modules(size, channel_base, channel_max, batch_size, device="cuda", seed=0):
+        g = Generator(img_resolution=size, **inp["g"], device=device)
+        d = Discriminator(img_resolution=size, **inp["d"], mbstd_group_size=min(4, batch_size),
+                          device=device)
+        return tb.init_models(g, seed), tb.init_models(d, seed + 1)
+
+    cli_train.build_gan_modules = toy_gan_modules
+    rank = int(os.environ["RANK"])
+    work = os.path.join(inp["dir"], f"rank{rank}")
+    unbroken = os.path.join(inp["dir"], f"rank{rank}_c")
+    for d in (work, unbroken):
+        os.makedirs(d, exist_ok=True)
+    os.environ.update(VISCOIN_SYNTH_N="8", VISCOIN_SYNTH_SIZE=str(inp["size"]))
+    base = ["train", "gan", "--device", "cpu", "--dataset", "synthetic", "--batch-size", "4",
+            "--compute-dtype", "float32", "--output-weights", "gan", *inp["argv"]]
+    first, last = inp["epochs"]
+    rcs = []
+    for port, cwd, args in (
+            (inp["ports"][0], work, ["--epochs", str(first)]),
+            (inp["ports"][1], work, ["--epochs", str(last), "--resume",
+                                     os.path.join(inp["dir"], "rank0", "gan.train_state")]),
+            (inp["ports"][2], unbroken, ["--epochs", str(last)])):
+        os.chdir(cwd)
+        os.environ["MASTER_PORT"] = str(port)
+        rcs.append(main([*base, *args]))
+    out = {"rcs": rcs, "files": sorted(os.listdir(work)), "files_c": sorted(os.listdir(unbroken))}
+    if rank == 0:
+        out["states"] = [torch.load(os.path.join(d, "gan.train_state", "train_state.pt"),
+                                    weights_only=True) for d in (work, unbroken)]
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -619,8 +782,8 @@ def main(argv: list[str]) -> int:
     for name in scenarios:
         inp = to_device(torch.load(os.path.join(out_dir, f"{name}.in.pt"), weights_only=False),
                         device)
-        if name == "command":  # the command joins and leaves the group itself
-            out = run_command(inp, None)
+        if name in ("command", "gan_command"):  # the command joins and leaves the group
+            out = globals()[f"run_{name}"](inp, None)
         else:
             mesh = (make_mesh_2d(*inp["mesh2d"], device, backend="gloo") if "mesh2d" in inp
                     else make_mesh(device, backend="gloo"))

@@ -43,13 +43,13 @@ JAX command does over every device, one process per card
 even 1); otherwise, with several visible cards, it starts one worker
 process per card itself. ``--batch-size`` stays the global batch. With one
 card (or the CPU) and no ``torchrun``, there is no mesh. Rank 0 writes the
-logs and the checkpoints. ``train viscoin --model-parallel M`` arranges the
-processes as a 2-D ``(data, model)`` mesh (``parallel/spatial.py``): each
+logs and the checkpoints. ``train viscoin|gan --model-parallel M`` arranges
+the processes as a 2-D ``(data, model)`` mesh (``parallel/spatial.py``): each
 group of M consecutive ranks splits its data shard's images along H, so there
 must be a multiple of M of them (``torchrun --nproc-per-node D*M``, or D*M
-visible cards, one spawned worker each). ``train gan --model-parallel`` > 1
-is not ported; ``classifier`` and ``concept2clip`` ignore it, as the JAX
-command does.
+visible cards, one spawned worker each), and the images must shard (a
+geometry that cannot is refused before training). ``classifier`` and
+``concept2clip`` ignore it, as the JAX command does.
 
 ``concept2clip``: the MLP from the bundle at
 ``checkpoints/<dataset>/viscoin-<dataset>``'s concept space (``--latent-type
@@ -77,8 +77,6 @@ from viscoin_tpu_torch.data.utils import default_checkpoints, get_dataloaders
 from viscoin_tpu_torch.parallel.mesh import destroy_mesh
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
-GAN_MODEL_PARALLEL = ("queue 1: model parallelism of the GAN trainer, "
-                      "train gan --model-parallel")
 DEFAULT_FID_DETECTOR = "checkpoints/inception"
 
 
@@ -96,7 +94,7 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
                    help="Shard the batch over all visible cards, one process per card (under "
                         "torchrun: over its processes)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="[viscoin] Devices per model-parallel group: a 2-D (data, model) mesh "
+                   help="[viscoin/gan] Devices per model-parallel group: a 2-D (data, model) mesh "
                         "whose 'model' axis splits the images' H axis through the train step "
                         "(explicit halo exchanges), for scaling past the per-card batch "
                         "minimum")
@@ -177,10 +175,7 @@ def train(args: argparse.Namespace) -> None:
             args.parser.error(f"--fid-every needs a FID detector; none at {detector} (port one "
                               "with `python -m viscoin_tpu_torch port-weights inception`, or "
                               "pass --fid-detector)")
-    if args.model_name == "gan" and args.model_parallel > 1:
-        raise NotImplementedError(f"--model-parallel {args.model_parallel} is not ported for "
-                                  f"train gan (ROADMAP.md, {GAN_MODEL_PARALLEL})")
-    model_parallel = args.model_parallel if args.model_name == "viscoin" else 1
+    model_parallel = args.model_parallel if args.model_name in ("viscoin", "gan") else 1
     device = card_or_cpu(f"train {args.model_name}", args.device)
     workers = _spawned_workers(device, args.data_parallel, model_parallel)
     if workers > 1:
@@ -523,8 +518,9 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
     FID_TAG, i), j)``) against the first ``fid_samples`` training images in
     order, every ``fid_every`` iterations (i > start) and at the last. With
     a data-parallel ``mesh`` each rank loads and steps on its shard of every
-    global batch and samples its share of the FID fakes; rank 0 logs and
-    writes."""
+    global batch and samples its share of the FID fakes; on a 2-D one each
+    data shard's ranks load its shard and each keeps its H rows of the
+    images; rank 0 logs and writes."""
     import json
 
     import numpy as np
@@ -533,6 +529,7 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
     from viscoin_tpu_torch.data.utils import get_datasets
     from viscoin_tpu_torch.eval.viscoin import to_device
     from viscoin_tpu_torch.parallel.mesh import broadcast_tree, is_main
+    from viscoin_tpu_torch.parallel.spatial import gan_spatial
     from viscoin_tpu_torch.train.gan import (
         GANTrainingParams,
         create_gan_train_state,
@@ -560,8 +557,9 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
         compute_dtype=compute_dtype, mirror=mirror, ema_rampup=ema_rampup).items()
         if v is not None})
     # The JAX command's multi-process rules: a batch that divides over the
-    # ranks, one loader shard per rank (the same global order everywhere).
-    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    # data axis, one loader shard per data shard (the same global order
+    # everywhere); on a 2-D mesh, images whose H axis shards.
+    shard = (0, 1) if mesh is None else (mesh.data_axis.rank, mesh.data_axis.world)
     local_bs = cfg.batch_size if mesh is None else mesh.local(cfg.batch_size)
     train_ds, _ = get_datasets(dataset, "gan", train_only=True, **(ds_kwargs or {}))
     loader = DataLoader(train_ds, cfg.batch_size, shuffle=True, shard=shard)
@@ -569,6 +567,8 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
         raise ValueError(f"dataset has {len(train_ds)} samples < batch_size={cfg.batch_size}: "
                          "no full batch can ever be formed")
     size = train_ds.out_size
+    sp = gan_spatial(mesh, size)
+    rows = slice(None) if sp is None else sp.rows(size)
     generator, discriminator = build_gan_modules(size, channel_base, channel_max,
                                                  cfg.batch_size, device, seed)
     if is_main(mesh):
@@ -626,7 +626,7 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
         images, _ = next(it)
         while images.shape[0] != local_bs:
             images, _ = next(it)
-        return to_device(images, device)
+        return to_device(images[:, rows], device)  # (b, H or this rank's rows, W, C)
 
     prefetcher = DevicePrefetcher(next_images, prefetch) if prefetch > 0 else None
     next_batch = prefetcher.next if prefetcher is not None else next_images

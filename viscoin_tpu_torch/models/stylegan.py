@@ -24,7 +24,11 @@ of the shard plan is computed on this rank's rows (halo exchanges in the
 convs and the skip upsample) or whole, and scattered where the plan starts
 sharding; a layer's random noise is drawn for the whole plane and its rows
 kept, so the ranks draw what one process draws. The image comes back as this
-rank's rows.
+rank's rows. The discriminator takes ``spatial`` too: each plane "d.<res>" is
+computed on this rank's rows (the down-2 convs' FIR and strided conv read one
+halo-extended window) or whole, gathered where the plan stops sharding; the
+minibatch stddev sums its mean over the model group, and the 4² features are
+gathered whole for ``fc``.
 """
 
 from __future__ import annotations
@@ -120,10 +124,12 @@ class Conv2dLayer(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gain: float = 1.0,
+                sp: S.Spatial | None = None) -> torch.Tensor:
+        """``sp``: ``x`` is this rank's rows of an H-sharded plane."""
         w = (self.weight * self.weight_gain).to(x.dtype)
         x = conv2d_resample(x, w, f=self.resample_filter, up=self.up, down=self.down,
-                            padding=self.padding, flip_weight=(self.up == 1))
+                            padding=self.padding, flip_weight=(self.up == 1), sp=sp)
         clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         act_gain = activation_funcs[self.activation].def_gain * gain
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=clamp)
@@ -477,13 +483,15 @@ class MinibatchStdLayer(nn.Module):
         super().__init__()
         self.group_size, self.num_channels = group_size, num_channels
 
-    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None, sp: S.Spatial | None = None) -> torch.Tensor:
         """With a data-parallel ``mesh`` the groups are those of the global
-        batch, as the JAX layer's under GSPMD: a group spans ranks, so the
-        statistic is taken over the gathered batch (differentiably) and each
-        rank keeps its own rows."""
+        batch, as the JAX layer's under GSPMD: a group spans the ranks of
+        the data axis, so the statistic is taken over the batch gathered
+        along it (differentiably) and each rank keeps its own samples.
+        ``sp``: ``x`` is this rank's rows of an H-sharded plane, and the
+        mean over (C, H, W) sums over the model group."""
         b, C, H, W = x.shape
-        xg = all_gather_batch(x.float(), mesh)
+        xg = all_gather_batch(x.float(), None if mesh is None else mesh.data_axis)
         B = xg.shape[0]
         G = min(self.group_size, B)
         G = B // (B // G) if B % G == 0 else 1
@@ -491,7 +499,10 @@ class MinibatchStdLayer(nn.Module):
         y = xg.reshape(G, B // G, F_, C // F_, H, W)
         y = y - y.mean(dim=0, keepdim=True)
         y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
-        y = y.mean(dim=(2, 3, 4))  # (B // G, F)
+        if sp is None:
+            y = y.mean(dim=(2, 3, 4))  # (B // G, F)
+        else:
+            y = S.model_sum(y.sum(dim=(2, 3, 4)), sp) / (C // F_ * H * sp.model * W)
         y = y.repeat(G, 1).to(x.dtype)  # (B, F): sample s takes y[s % (B // G)]
         if mesh is not None:
             y = y[mesh.rows(b)]
@@ -501,14 +512,15 @@ class MinibatchStdLayer(nn.Module):
 class DiscriminatorBlock(nn.Module):
     """fromRGB (first block only) and two convs, the second down 2, with a
     residual 1x1 down-2 ``skip`` (the resnet architecture); the ``sqrt(0.5)``
-    gains of skip and conv1 scale their clamps too."""
+    gains of skip and conv1 scale their clamps too. ``resolution``: its
+    input's, which names its planes under model parallelism."""
 
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int, *,
                  img_channels: int = 3, architecture: str = "resnet",
                  resample_filter=RESAMPLE_FILTER, conv_clamp: float | None = None,
-                 device="cuda"):
+                 resolution: int | None = None, device="cuda"):
         super().__init__()
-        self.in_channels = in_channels
+        self.in_channels, self.resolution = in_channels, resolution
         if in_channels == 0:
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, 1, activation="lrelu",
                                        conv_clamp=conv_clamp, device=device)
@@ -521,14 +533,21 @@ class DiscriminatorBlock(nn.Module):
                                  resample_filter=resample_filter, conv_clamp=conv_clamp,
                                  device=device)
 
-    def forward(self, x, img):
+    def forward(self, x, img, sp: S.Spatial | None = None):
+        """``sp``: ``x`` and ``img`` come in the layout of the plan's plane
+        "d.<resolution>" and the output goes in that of "d.<resolution / 2>"
+        (gathered where the plan stops sharding)."""
+        src = dst = None
+        if sp is not None:
+            src, dst = f"d.{self.resolution}", f"d.{self.resolution // 2}"
+        on = S.at(sp, src)
         if self.in_channels == 0:
-            x_in = self.fromrgb(img)
+            x_in = self.fromrgb(img, sp=on)
             x = x_in if x is None else x + x_in
-        y = self.skip(x, gain=math.sqrt(0.5)) if self.skip is not None else None
-        x = self.conv0(x)
-        x = self.conv1(x, gain=math.sqrt(0.5) if y is not None else 1.0)
-        return y + x if y is not None else x
+        y = self.skip(x, gain=math.sqrt(0.5), sp=on) if self.skip is not None else None
+        x = self.conv0(x, sp=on)
+        x = self.conv1(x, gain=math.sqrt(0.5) if y is not None else 1.0, sp=on)
+        return S.convert(y + x if y is not None else x, sp, src, dst)
 
 
 class Discriminator(nn.Module):
@@ -549,7 +568,7 @@ class Discriminator(nn.Module):
             self.add_module(f"b{res}", DiscriminatorBlock(
                 0 if i == 0 else self.channels(res), self.channels(res),
                 self.channels(res // 2), img_channels=img_channels, conv_clamp=conv_clamp,
-                device=device))
+                resolution=res, device=device))
         ch4 = self.channels(4)
         self.mbstd = MinibatchStdLayer(mbstd_group_size)
         self.conv = Conv2dLayer(ch4 + 1, ch4, 3, activation="lrelu", conv_clamp=conv_clamp,
@@ -560,13 +579,23 @@ class Discriminator(nn.Module):
     def channels(self, res: int) -> int:
         return min(self.channel_base // res, self.channel_max)
 
-    def forward(self, img: torch.Tensor, mesh=None) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, mesh=None,
+                spatial: S.Spatial | None = None) -> torch.Tensor:
         """``mesh``: the data-parallel mesh whose global batch the
-        minibatch stddev groups span (None: this batch alone)."""
+        minibatch stddev groups span (None: this batch alone). ``spatial``:
+        ``img`` is this rank's rows (the plan's first plane "d.<res>" must be
+        sharded), every plane of the plan is computed on its rows, and the
+        4² features are gathered whole for ``fc``, so the logits are whole
+        on every rank of a model group."""
+        top = self.resolutions[0]
+        if spatial is not None and not S.sharded(spatial, f"d.{top}"):
+            raise ValueError(f"the {top}² image cannot be H-sharded over {spatial.model} "
+                             "model ranks")
         x = None
         for i, res in enumerate(self.resolutions):
-            x = getattr(self, f"b{res}")(x, img if i == 0 else None)
-        x = self.conv(self.mbstd(x, mesh))
+            x = getattr(self, f"b{res}")(x, img if i == 0 else None, sp=spatial)
+        on = S.at(spatial, "d.4")
+        x = S.convert(self.conv(self.mbstd(x, mesh, sp=on), sp=on), spatial, "d.4", None)
         # JAX flattens NHWC: the fc's input runs over (h, w, c).
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.out(self.fc(x))

@@ -75,7 +75,10 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor, *, f=None, up: int = 1,
             an H-sharded plane: the rows the window reads from the
             neighbours are exchanged first and the padding along H becomes
             the rank's own (``spatial.window``; the up path's transposed
-            conv and FIR read as one window of kh + fh - 1 rows).
+            conv and FIR, and the down path's FIR and strided conv, read as
+            one window of kh + fh - 1 rows, so the FIR's local padding may
+            be negative, a crop; down needs an even count of rows per rank,
+            so that the stride lands on the global rows).
     """
     fh, fw = _filter_size(f)
     px0, px1, py0, py1 = parse_padding(padding)
@@ -98,11 +101,17 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor, *, f=None, up: int = 1,
         py1 += (fh - down) // 2
 
     if sp is not None:
-        if down > 1:
-            raise NotImplementedError("a downsampling conv on H-sharded rows is not ported "
-                                      "(ROADMAP.md, queue 1: model parallelism of the GAN "
-                                      "trainer)")
-        top, bottom, py0, py1 = spatial.window(kh + fh - 1 if up > 1 else kh, up, 1, py0)
+        if up > 1 and down > 1:
+            raise NotImplementedError("a conv that both up- and downsamples on H-sharded rows")
+        # The FIR and the conv read one window along H (kh + fh - 1 rows).
+        k = kh + fh - 1 if up > 1 or down > 1 else kh
+        height = x.shape[2] * sp.model
+        if (height * up + py0 + py1 - k) // down + 1 != height * up // down \
+                or (x.shape[2] * up) % down:
+            raise ValueError(f"conv2d_resample on H-sharded rows needs H * up / down output "
+                             f"rows and a rank's rows divisible by down; H {height}, rows "
+                             f"{x.shape[2]}, up {up}, down {down}")
+        top, bottom, py0, py1 = spatial.window(k, up, down, py0)
         x = spatial.halo_exchange(x, top, bottom, sp)
 
     if up > 1:

@@ -282,6 +282,9 @@ _PSI_CONV1 = (5, 1, 4, 2)
 # G: conv0's transposed 3x3 and 4-tap FIR as one window (k = 3 + 4 - 1,
 # pad0 = 1 + (4 + 2 - 1) // 2, ops/conv2d_resample.py), the skip upsample.
 _UPCONV, _UPSAMPLE = (6, 2, 1, 3), (4, 2, 1, 2)
+# D: conv1's 4-tap FIR and stride-2 3x3 as one window (k = 4 + 3 - 1, pad0 =
+# 1 + (4 - 2 + 1) // 2), the skip's FIR and stride-2 1x1 (k = 4, pad0 = 1).
+_DOWNCONV, _DOWNSKIP = (6, 1, 2, 2), (4, 1, 2, 1)
 _VGG_POOL = (2, 1, 2, 0)
 RESNET_STAGES = 4
 LPIPS_SLICES = 5
@@ -315,7 +318,9 @@ def shard_plan(image_size: int, model: int, synthesis_resolution: int | None = N
     Planes: "image" (the batch, read by f's stem and LPIPS's first conv),
     "f.stem", "f.pool", "f.stage0".."f.stage3" (f's hidden states),
     "psi.latent" (Psi's conv1-conv5 outputs), "g.<res>" (G's planes at
-    each resolution) and "lpips.0".."lpips.4" (the VGG slices)."""
+    each resolution), "lpips.0".."lpips.4" (the VGG slices) and "d.<res>"
+    (the discriminator's planes at ``image_size``: a block's input at each
+    resolution down to 8², then the epilogue's 4²; they shrink like f's)."""
     plan = {"image": qualifies(image_size, model, [_STEM, _3X3])}
     s = image_size // 2
     plan["f.stem"] = plan["image"] and qualifies(s, model, [_MAXPOOL])
@@ -344,6 +349,12 @@ def shard_plan(image_size: int, model: int, synthesis_resolution: int | None = N
         reads = [_3X3] + ([_VGG_POOL] if i + 1 < LPIPS_SLICES else [])
         prev = plan[f"lpips.{i}"] = prev and qualifies(s, model, reads)
         s //= 2
+    prev, res = True, image_size
+    while res > 4:
+        reads = ([_1X1] if res == image_size else []) + [_3X3, _DOWNCONV, _DOWNSKIP]
+        prev = plan[f"d.{res}"] = prev and qualifies(res, model, reads)
+        res //= 2
+    plan["d.4"] = prev and qualifies(4, model, [_3X3])
     return plan
 
 
@@ -360,6 +371,20 @@ def spatial_for(mesh, image_size: int, synthesis_resolution: int | None = None,
     if not (plan["image"] and plan[last] and plan["lpips.0"]):
         raise ValueError(f"{image_size}² images cannot be H-sharded over {axis.world} model "
                          "ranks (each rank needs at least 3 rows and an even count)")
+    return Spatial(axis=axis, plan=plan)
+
+
+def gan_spatial(mesh, image_size: int) -> Spatial | None:
+    """The :class:`Spatial` of ``train gan`` on a 2-D ``mesh`` (None for no
+    mesh or a 1-D one) at ``image_size``²: G's planes and D's; raises where
+    the images cannot be sharded (G's last plane and D's first)."""
+    axis = getattr(mesh, "model_axis", None)
+    if axis is None:
+        return None
+    plan = shard_plan(image_size, axis.world)
+    if not (plan[f"g.{image_size}"] and plan[f"d.{image_size}"]):
+        raise ValueError(f"{image_size}² images cannot be H-sharded over {axis.world} model "
+                         "ranks (each rank needs at least 2 rows and an even count)")
     return Spatial(axis=axis, plan=plan)
 
 

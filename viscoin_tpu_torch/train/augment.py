@@ -34,6 +34,8 @@ from dataclasses import dataclass, fields
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from viscoin_tpu_torch.parallel import spatial as S
+
 _MAX_T = 0.125  # integer translation range, a fraction of the size
 
 
@@ -246,15 +248,24 @@ def _color(d: AugmentDraws, p: float) -> torch.Tensor:
     return torch.einsum("bij,bjk->bik", m, mats)
 
 
-def augment(images: torch.Tensor, p: float, draws: AugmentDraws) -> torch.Tensor:
+def augment(images: torch.Tensor, p: float, draws: AugmentDraws,
+            sp: S.Spatial | None = None) -> torch.Tensor:
     """Apply the ADA 'bgc' pipe to a batch.
 
     Args:
         images: (B, C, H, W) float images in [-1, 1], square.
         p: the augmentation probability.
         draws: the batch's random numbers (:func:`draw_augment`).
+        sp: a ``parallel.spatial.Spatial`` when ``images`` are this rank's
+            rows of the batch (the draws the same on every rank of the
+            model group): the warp moves pixels across the ranks' rows (pass
+            1 along y, the rot90 turning columns into rows), so the rows
+            are gathered, the whole images warped and this rank's rows kept;
+            the colour matrices act per pixel, on the rows. Nothing is
+            gathered where no image is warped.
     """
-    B, C, H, W = images.shape
+    B, C, h, W = images.shape
+    H = h if sp is None else h * sp.model
     if H != W:
         # The rot90 stages are area-preserving only on square images.
         raise ValueError(f"augment() requires square images, got {H}x{W}")
@@ -263,9 +274,12 @@ def augment(images: torch.Tensor, p: float, draws: AugmentDraws) -> torch.Tensor
     x = images
     if not bool(skip.all()):
         dev = images.device
-        warped = twopass_warp(x, A.to(dev), v.to(dev))
+        whole = x if sp is None else S.gather_rows(x, sp)
+        warped = twopass_warp(whole, A.to(dev), v.to(dev))
         warped = torch.where(use_k1.to(dev)[:, None, None, None],
                              torch.rot90(warped, 1, dims=(2, 3)), warped)
+        if sp is not None:
+            warped = S.scatter_rows(warped, sp)
         x = torch.where(skip.to(dev)[:, None, None, None], x, warped)
 
     mats = _color(draws, p)

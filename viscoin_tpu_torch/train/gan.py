@@ -37,6 +37,20 @@ the global one, differentiably (``all_mean``); ADA's r_t and ``w_avg``'s
 batch mean are global means; each rank's draws are its rows of the global
 batch's, and its synthesis noise its own. The FID samples are sharded and
 the features gathered.
+
+Model parallelism (a 2-D ``(data, model)`` mesh, ``parallel/spatial.py``):
+each data shard's images are split along H over its model ranks. G's
+synthesis, the ADA pipe's output, D's planes, R1's gradient and the
+path-length projection hold this rank's rows; the warp and D's 4² epilogue
+read gathered whole planes, so the logits, and every loss term, are whole on
+every rank of a model group (the gradient rule of ``parallel/spatial.py``).
+A rank's gradient of a replicated input from a value that is whole on every
+rank is that of ``model`` times it (R1's, divided by ``model``); from a value
+it holds a part of, its part (the path length's, summed over the model
+group). The ranks of a model group share their data index's draws and
+noise seeds; the batch statistics count each image once (the data axis's
+global batch). The FID fakes are sampled whole by every rank of a model
+group and the features gathered over the data axis.
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from viscoin_tpu_torch.models.stylegan import num_ws_for_resolution
+from viscoin_tpu_torch.parallel import spatial as S
 from viscoin_tpu_torch.parallel.mesh import Mesh, all_gather_batch, all_mean, all_reduce_grads
 from viscoin_tpu_torch.train.augment import AugmentDraws, ada_update, augment, draw_augment
 from viscoin_tpu_torch.train.viscoin import fold_seed, make_cast, rank_seed
@@ -225,7 +240,9 @@ def make_gan_fid_fns(batch_size: int, mesh: Mesh | None = None):
     ``seed``, no truncation; a test may pass the latents ``z``),
     ``real_images(images_u8)`` converts a loader batch on its device. Both
     go through the same [0, 1] -> ImageNet normalization. With a ``mesh``
-    a rank samples its rows of the batch's latents, with noise of its own."""
+    a rank samples its rows of the batch's latents, with noise of its own
+    (on a 2-D mesh, its data shard's: the ranks of a model group sample the
+    same images, whole)."""
     from viscoin_tpu_torch.data.transforms import device_preprocess, normalize_only
 
     @torch.no_grad()
@@ -249,10 +266,11 @@ def make_gan_fid_fns(batch_size: int, mesh: Mesh | None = None):
 
 def _features(detector, images: torch.Tensor, mesh: Mesh | None = None) -> np.ndarray:
     """The detector's features of ``images``, with a ``mesh`` those of the
-    global batch (every rank's rows, gathered in rank order)."""
+    global batch (every data shard's rows, gathered in the data axis's rank
+    order: on a 2-D mesh each image once)."""
     features = detector(images).detach()
     if mesh is not None:
-        features = all_gather_batch(features.float(), mesh)
+        features = all_gather_batch(features.float(), mesh.data_axis)
     return features.double().cpu().numpy()
 
 
@@ -262,11 +280,11 @@ def accumulate_real_fid_stats(detector, real_images_fn, dataset, batch_size: int
     """The real side's FID moments: one pass in order over ``dataset``
     through ``real_images_fn`` and ``detector``, stopped at ``max_items``;
     a partial last batch is skipped, as in the JAX package. With a ``mesh``
-    each rank runs its shard of every batch."""
+    each data shard runs its shard of every batch."""
     from viscoin_tpu_torch.data.loader import DataLoader
     from viscoin_tpu_torch.eval.fid import FeatureStats
 
-    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    shard = (0, 1) if mesh is None else (mesh.data_axis.rank, mesh.data_axis.world)
     rows = batch_size // shard[1]
     stats = FeatureStats(max_items=max_items, capture_all=capture_all)
     for images, _ in DataLoader(dataset, batch_size, shuffle=False, shard=shard):
@@ -329,9 +347,10 @@ class GANStepDraws:
         return GANStepDraws(**moved)
 
     def shard(self, mesh: Mesh) -> "GANStepDraws":
-        """A rank's draws: its rows of the global batch's per-image draws
-        (the style-mixing cutoffs are the batch's), and synthesis noise
-        seeds of its own."""
+        """A rank's draws: its data shard's rows of the global batch's
+        per-image draws (the style-mixing cutoffs are the batch's), and
+        synthesis noise seeds of its data shard's own; on a 2-D mesh
+        ``pl_y``'s H rows are the rank's too."""
         rows = mesh.rows(mesh.local(self.z.shape[0]))
         out = {}
         for k, v in self.__dict__.items():
@@ -340,6 +359,9 @@ class GANStepDraws:
             elif isinstance(v, AugmentDraws):
                 v = v.rows(rows)
             out[k] = v
+        axis = mesh.model_axis
+        if axis is not None and self.pl_y is not None:
+            out["pl_y"] = out["pl_y"][:, :, axis.rows(axis.local(self.pl_y.shape[2]))]
         out["noise_seeds"] = {k: rank_seed(v, mesh) for k, v in self.noise_seeds.items()}
         return GANStepDraws(**out)
 
@@ -382,6 +404,15 @@ def draw_step(cfg: GANTrainingParams, generator, seed: int, step: int, device,
 # ------------------------------ the losses ---------------------------------- #
 
 
+def whole_ws_grads(partial: torch.Tensor, sp: S.Spatial | None) -> torch.Tensor:
+    """The gradient of the whole path-length projection with respect to the
+    latents (replicated over the model group) from this rank's part: the
+    projection of its rows reaches the latents on every rank through the
+    halo exchanges and the scatters, so the parts sum over the model group
+    (differentiably, for the G update). ``partial`` itself without ``sp``."""
+    return partial if sp is None else S.model_sum(partial, sp)
+
+
 def _sub(params: dict, prefix: str) -> dict:
     n = len(prefix)
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
@@ -393,7 +424,9 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Me
     passed as {name: tensor} dicts of the modules' parameters (the fp32
     masters; they are cast to the compute dtype inside). With a ``mesh`` the
     batch statistics (mbstd, the path-length mean, r_t, the mean w) are the
-    global batch's; the losses stay this rank's means.
+    global batch's; the losses stay this data shard's means. On a 2-D mesh
+    the images (``real``, ``pl_y``) are this rank's rows and the losses are
+    whole on every rank of its model group.
 
     Returns a dict with ``g_loss_fn``, ``d_loss_fn``, ``ppl_penalty`` and
     the compute dtype ``dt``."""
@@ -402,6 +435,8 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Me
 
     def cast(params: dict) -> dict:
         return cast_groups({"p": params})["p"]
+
+    sp = S.gan_spatial(mesh, generator.img_resolution)
 
     if cfg.augment not in ("ada", "fixed", "none"):
         raise ValueError(f"augment={cfg.augment!r}: expected ada|fixed|none")
@@ -414,13 +449,14 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Me
     def synth(g_params, ws, noise_seed: int):
         noise = torch.Generator(device=ws.device).manual_seed(int(noise_seed))
         return functional_call(generator.synthesis, _sub(g_params, "synthesis."), (ws,),
-                               dict(noise_mode="random", generator=noise))
+                               dict(noise_mode="random", generator=noise, spatial=sp))
 
     def run_d(d_params, images, aug_p, draws):
         """D with the ADA pipe in front (both real and fake batches)."""
         if use_aug:
-            images = augment(images, aug_p, draws)
-        return functional_call(discriminator, d_params, (images,), {"mesh": mesh})
+            images = augment(images, aug_p, draws, sp=sp)
+        return functional_call(discriminator, d_params, (images,),
+                               {"mesh": mesh, "spatial": sp})
 
     def mixed_ws(g_params, z, z_mix, cutoff: int):
         """Style mixing: layers >= cutoff take the second latent's styles.
@@ -447,9 +483,10 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Me
         g_params = cast(g_params)
         ws = map_ws(g_params, z)
         img = synth(g_params, ws, noise_seed)
-        h, w = img.shape[2], img.shape[3]
-        proj = (img.float() * (pl_y / math.sqrt(h * w))).sum()
+        h, w = img.shape[2] * (1 if sp is None else sp.model), img.shape[3]
+        proj = (img.float() * (pl_y / math.sqrt(h * w))).sum()  # this rank's rows' part
         (pl_grads,) = torch.autograd.grad(proj, ws, create_graph=True)
+        pl_grads = whole_ws_grads(pl_grads, sp)
         pl_lengths = pl_grads.float().square().sum(dim=2).mean(dim=1).sqrt()
         batch_mean = all_mean(pl_lengths.mean(), mesh)  # not detached: the global mean
         new_pl_mean = pl_mean + cfg.ppl_decay * (batch_mean - pl_mean)
@@ -472,7 +509,12 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Me
             # Through the same augmentation draws as the real pass (whose
             # logits these are): the lazy R1 penalty, second order.
             (grad_real,) = torch.autograd.grad(real_logits.sum(), real, create_graph=True)
-            r1 = grad_real.float().square().sum(dim=(1, 2, 3)).mean()
+            norms = grad_real.float().square().sum(dim=(1, 2, 3))
+            if sp is not None:
+                # The logits are whole on every rank: its rows' gradient is
+                # ``model`` times theirs; the squared norm sums over the rows.
+                norms = S.model_sum(norms, sp) / sp.model**2
+            r1 = norms.mean()
             loss = loss + (cfg.r1_gamma / 2) * r1 * cfg.r1_interval
         # aux: r_t, the ADA overfitting signal E[sign(D(real))] (global).
         return loss, (r1.detach(), all_mean(torch.sign(real_logits.detach()).mean(), mesh))
@@ -531,7 +573,8 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams,
     are 0-d device tensors (r1 and pl_lengths 0 off their cadence). With a
     data-parallel ``mesh`` the images and draws are this rank's slice of the
     global batch, each update takes the gradients' mean over the ranks, and
-    the metrics are global."""
+    the metrics are global. On a 2-D mesh the images are also this rank's
+    rows along H (the draws' ``pl_y`` too, :meth:`GANStepDraws.shard`)."""
     fns = make_gan_loss_fns(generator, discriminator, cfg, mesh)
     g_loss_fn, d_loss_fn, ppl_penalty = fns["g_loss_fn"], fns["d_loss_fn"], fns["ppl_penalty"]
     dt = fns["dt"]
@@ -539,7 +582,7 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams,
     def step(state: GANTrainState, images, draws: GANStepDraws):
         i = state.step
         x = preprocess_real(images, draws.flips if cfg.mirror else None).to(dt)
-        B = x.shape[0] * (1 if mesh is None else mesh.world)  # the global batch
+        B = x.shape[0] * (1 if mesh is None else mesh.data_axis.world)  # the global batch
         aug_p = float(state.ada_p) if cfg.augment == "ada" else cfg.augment_p
         g_named, d_named = state.g_params(), state.d_params()
         g_list, d_list = list(g_named.values()), list(d_named.values())
