@@ -171,9 +171,12 @@ after mp, and runs phase 23 alone:
                upfirdn2d; img/s); amplify-pca --pca 2's computation (launches
                exact, the mapping at N = 32 and the synthesis at N = 5 added
                to phase 3's shapes, one component card vs CPU within 1 u8
-               level); amplify, concepts, concept-heatmaps and logs as
-               commands where matplotlib is installed, else their
-               ImportError and their computations in-process; to-pickle;
+               level); amplify, amplify-pca --pca 2, concepts,
+               concept-heatmaps and logs as commands with matplotlib
+               unimportable: their 11 PNGs of their figures' sizes, every
+               image panel the renderer's resampling of its array, amplify's
+               within 1 u8 level of amplify_images in this process, launches
+               exact, walls; to-pickle;
 20. concept2clip beside the analysis phase's bundle, in a directory of its
                own: (a) CLIP ViT-B/32 at full width from seeded weights, every
                leaf perturbed: encode_image on 8 seeded 224² inputs and
@@ -250,8 +253,9 @@ after mp, and runs phase 23 alone:
                the same over the GAN cycle (``gan_cycle_*``), one FID
                estimate (``fid_sampling_*``), the projection's timed steps
                (``projection_*``), one PPL batch (``ppl_batch_*``),
-               amplify-pca --pca 2's computation (``amplify_pca_*``) and train
-               concept2clip --latent-type gan's W+ pass (``concept2clip_w_*``),
+               amplify-pca --pca 2's computation (``amplify_pca_*``), the
+               amplify command (``amplify_*``) and train concept2clip
+               --latent-type gan's W+ pass (``concept2clip_w_*``),
                and each kernel's launches per mp step (``mp_step_launches``)
                and per mp GAN step (``mp_gan_step_launches``: the R1 +
                path-length step; ``mp_gan_plain_step_launches``);
@@ -3923,98 +3927,162 @@ def analysis_w_plus(models, cpu_models, device: dict) -> tuple[dict, dict]:
              "amplify_pca": {"launches": pca_counts, "card_vs_cpu_u8": pca_u8}}, calls)
 
 
-def analysis_commands(models, bundle: str, loop_jsonl: str, device: dict) -> dict:
-    """amplify, concepts, concept-heatmaps and logs as commands where the
-    host has matplotlib; where it has not, each raises an ImportError naming
-    it, and their computations run in-process (concept-heatmaps' without a
-    kernel launch); to-pickle as a command (it draws nothing) on a raw
-    checkpoint of the JAX command's default hyperparameters."""
+# The figures of the analysis commands: {command: {PNG name: (width, height)}},
+# each figsize x 100 pixels (two amplified images, --pca 2, 5 heatmap rows).
+FIGURES = {
+    "amplify": {"amplify": (1500, 1000)},
+    "amplify-pca": {"amplify_pca_0": (1500, 1000)},
+    "concepts": dict.fromkeys(["concept_activation_per_concept", "concept_activation_per_image",
+                               "class_concept_correlations", "concept_class_correlations",
+                               "concept_entropies"], (640, 480)),
+    "concept-heatmaps": {"concept_heatmaps": (2000, 1000)},
+    "logs": dict.fromkeys(["training_losses", "testing_losses", "preds_overlap"], (640, 480)),
+}
+
+
+def analysis_commands(models, bundle: str, loop_jsonl: str, device: dict,
+                      pca_launches: dict) -> tuple[dict, dict]:
+    """amplify, amplify-pca --pca 2, concepts, concept-heatmaps and logs as
+    commands on the card with matplotlib unimportable
+    (``sys.modules["matplotlib"] = None``): each command's launches and wall;
+    its PNGs read back with PIL, each of its figure's size and each image
+    panel exactly ``plotting.panel_pixels`` of the array the figure kept;
+    amplify's panels against the in-process ``amplify_images`` arrays after
+    the same resampling within 1 u8 level; launches: amplify 2x the
+    generator's per image, amplify-pca the CPU's narrow count
+    (``pca_launches``, its W+ pass included: it runs in a directory without
+    the cache), the others none. Then to-pickle (it draws nothing) on a raw
+    checkpoint of the JAX command's default hyperparameters. Returns (record,
+    amplify's kernel calls)."""
     import importlib.util
 
-    from viscoin_tpu_torch.cli import amplify, concept_heatmaps, logs
+    from viscoin_tpu_torch.cli import amplify
     from viscoin_tpu_torch.data.utils import get_datasets
+    from viscoin_tpu_torch.utils import plotting
+    from viscoin_tpu_torch.utils.images import from_torch
     from viscoin_tpu_torch.utils.weights import bundle_to_jax_tree
 
     card = device["nvidia_smi"]
-    out: dict = {}
+    out: dict = {"matplotlib_installed": importlib.util.find_spec("matplotlib") is not None,
+                 "font": plotting.font_kind(), "walls": {}, "launches": {}}
+    say("analysis", f"figures: {out['font']}; the host has matplotlib: "
+        f"{out['matplotlib_installed']} (hidden from the commands either way)")
     with open("loop_a.jsonl", "w") as f:
         f.write(loop_jsonl)
-    common = ["--viscoin-pickle-path", bundle, "--dataset", "synthetic", "--outdir", "figs"]
+    figs = os.path.abspath("figs")
+    common = ["--viscoin-pickle-path", bundle, "--dataset", "synthetic", "--outdir", figs]
     drawing = {"amplify": [*common, "--concept-top-k", "4", "--image-indices", "0,1"],
+               "amplify-pca": [*common, "--pca", "2", "--image", "0"],
                "concepts": [*common, "--batch-size", "32"],
                "concept-heatmaps": common,
-               "logs": ["--logs-path", "loop_a.jsonl", "--outdir", "figs"]}
+               "logs": ["--logs-path", "loop_a.jsonl", "--outdir", figs]}
+    figures, save = {}, plotting.save_figure
+
+    def keep(fig, outdir, name):
+        figures[name] = fig
+        return save(fig, outdir, name)
+
     env = {k: os.environ.get(k) for k in ("VISCOIN_SYNTH_N", "VISCOIN_SYNTH_SIZE")}
-    os.environ.update(VISCOIN_SYNTH_N="8", VISCOIN_SYNTH_SIZE=str(RES))
+    had = sys.modules.get("matplotlib", False)
+    sys.modules["matplotlib"] = None  # as on a host without it: importing raises
+    plotting.save_figure = keep
+    cwd = os.getcwd()
     try:
-        out["matplotlib"] = importlib.util.find_spec("matplotlib") is not None
-        if out["matplotlib"]:
-            for name, args in drawing.items():
+        for name, args in drawing.items():
+            # amplify-pca as analysis_w_plus ran it, in a directory without its W+ cache
+            n = ANALYSIS_N if name == "amplify-pca" else 8
+            os.environ.update(VISCOIN_SYNTH_N=str(n), VISCOIN_SYNTH_SIZE=str(RES))
+            if name == "amplify-pca":
+                os.makedirs("pca_command")
+                os.chdir("pca_command")
+            recorder = PathRecorder() if name == "amplify" else contextlib.nullcontext()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with recorder:
                 _quiet_main([name, *args])
-            out["figures"] = sorted(os.listdir("figs"))
-            assert len(out["figures"]) == 1 + 5 + 1 + 3, out["figures"]
-            how = f"as commands, {len(out['figures'])} figures written"
-        else:
-            for name, args in drawing.items():
-                try:
-                    _port_main([name, *args])
-                except ImportError as e:
-                    assert "matplotlib" in str(e), (name, e)
-                else:
-                    raise AssertionError(f"{name} ran without matplotlib")
-            _, test_ds = get_datasets("synthetic")
-            _kernels.reset_launch_counts()
-            originals, amplified = amplify.amplify_images(
-                models, test_ds, [0, 1], {"method": "top_k", "k": 4}, amplify.MULTIPLIERS,
-                np.random.default_rng(SEED))
             torch.cuda.synchronize()
-            amp_counts = _kernels.launch_counts()
-            assert amp_counts == {k: 2 * n for k, n in expected_launches(models).items()}, \
-                amp_counts  # one generator pass of 2M + 1 images per image
-            assert len(amplified) == 2 and amplified[0][0].shape == (RES, RES, 3)
-            _kernels.reset_launch_counts()
-            imgs, labels, maps, logits = concept_heatmaps.heatmap_batch(models, test_ds,
-                                                                         range(5))
-            torch.cuda.synchronize()
-            hm_counts = _kernels.launch_counts()
-            assert hm_counts == {k: 0 for k in KERNELS}, hm_counts
-            assert maps["conv5"].shape == (5, RES // 32, RES // 32) and logits.shape == (5, 200)
-            records = logs.read_records("loop_a.jsonl")
-            training, testing = logs.split_viscoin_records(records)
-            assert len(training) == len(testing) == 2
-            out.update(amplify_launches=amp_counts, heatmap_launches=hm_counts)
-            how = ("each raised ImportError naming matplotlib (the host has none), so their "
-                   f"computations ran in-process: amplify's 2 images (launches {amp_counts}), "
-                   f"concept-heatmaps' 5 (launches {hm_counts}), the loop's jsonl read into "
-                   f"{len(training)} training and testing records; concepts' is "
-                   "test_concepts above")
-        raw_models = default_models(device="cuda", seed=SEED + 96)
-        ckpt.save_pytree(bundle_to_jax_tree(raw_models), "raw")
-        t0 = time.perf_counter()
-        log = _quiet_main(["to-pickle", "--checkpoints", "raw", "--output", "picked"])
-        out["to_pickle_s"] = time.perf_counter() - t0
-        got = ckpt.load_viscoin_bundle("picked", device="cuda").state_dict()
-        want = raw_models.state_dict()
-        assert sorted(got) == sorted(want)
-        assert all(torch.equal(got[k], want[k]) for k in want), "to-pickle changed a weight"
-        del raw_models, got, want
+            out["walls"][name] = time.perf_counter() - t0
+            out["launches"][name] = _kernels.launch_counts()
+            if name == "amplify":
+                amp_calls = recorder.unique()
+            os.chdir(cwd)
+        os.environ.update(VISCOIN_SYNTH_N="8", VISCOIN_SYNTH_SIZE=str(RES))
+        _, test_ds = get_datasets("synthetic")
+        originals, amplified = amplify.amplify_images(
+            models, test_ds, [0, 1], {"method": "top_k", "k": 4}, amplify.MULTIPLIERS,
+            np.random.default_rng(SEED))
+        torch.cuda.synchronize()
     finally:
+        os.chdir(cwd)
+        plotting.save_figure = save
+        if had is False:
+            sys.modules.pop("matplotlib", None)
+        else:
+            sys.modules["matplotlib"] = had
         for k, v in env.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    say("analysis", f"amplify, concepts, concept-heatmaps, logs: {how}; {log.strip()} "
-        f"({out['to_pickle_s']:.1f} s; the JAX command's default widths, channel_base 32768), "
-        f"reloaded bit-equal; {card}")
-    return out
+    none = {k: 0 for k in KERNELS}
+    want = {"amplify": {k: 2 * n for k, n in expected_launches(models).items()},
+            "amplify-pca": pca_launches, "concepts": none, "concept-heatmaps": none,
+            "logs": none}
+    assert out["launches"] == want, (out["launches"], want)
+    names = {n: size for sizes in FIGURES.values() for n, size in sizes.items()}
+    assert sorted(os.listdir(figs)) == sorted(f"{n}.png" for n in names), os.listdir(figs)
+    assert sorted(figures) == sorted(names), sorted(figures)
+    panels = 0
+    for name, (w, h) in names.items():
+        png = _png(os.path.join(figs, f"{name}.png"))
+        assert png.shape == (h, w, 3) and figures[name].size == (w, h), (name, png.shape)
+        for ax in figures[name].axes:
+            if ax.images:
+                x0, y0, x1, y1 = ax.box
+                panels += 1
+                assert np.array_equal(png[y0:y1, x0:x1],
+                                      plotting.panel_pixels(ax.images[-1], (x1 - x0, y1 - y0)))
+    # amplify's panels against this process's images of the same indices
+    grid = figures["amplify"].grid
+    refs = [[from_torch(o), *(from_torch(a) for a in row)] for o, row in zip(originals, amplified)]
+    assert grid.shape == (2, 1 + len(amplify.MULTIPLIERS)), grid.shape
+    png = _png(os.path.join(figs, "amplify.png"))
+    amp_u8 = 0
+    for (i, j), ax in np.ndenumerate(grid):
+        x0, y0, x1, y1 = ax.box
+        amp_u8 = max(amp_u8, _u8_dev(png[y0:y1, x0:x1],
+                                     plotting.panel_pixels(refs[i][j], (x1 - x0, y1 - y0))))
+    assert amp_u8 <= 1, amp_u8
+    out.update(figures=sorted(names), panels_exact=panels, amplify_panels_u8=amp_u8)
+    say("analysis", "amplify, amplify-pca --pca 2, concepts, concept-heatmaps, logs as commands "
+        "on the card, matplotlib unimportable: walls "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in out["walls"].items())
+        + f"; launches amplify {out['launches']['amplify']} (2 images, one generator pass of "
+        f"2M + 1 each), amplify-pca {out['launches']['amplify-pca']} (the CPU's narrow count, "
+        f"its W+ pass included), the others none; {len(names)} PNGs of their figures' sizes, "
+        f"{panels} image panels each exactly the renderer's resampling of its array; amplify's "
+        f"{grid.size} panels against this process's amplify_images {amp_u8} u8 levels "
+        f"(tolerance 1); {card}")
+    raw_models = default_models(device="cuda", seed=SEED + 96)
+    ckpt.save_pytree(bundle_to_jax_tree(raw_models), "raw")
+    t0 = time.perf_counter()
+    log = _quiet_main(["to-pickle", "--checkpoints", "raw", "--output", "picked"])
+    out["to_pickle_s"] = time.perf_counter() - t0
+    got = ckpt.load_viscoin_bundle("picked", device="cuda").state_dict()
+    want = raw_models.state_dict()
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want), "to-pickle changed a weight"
+    del raw_models, got, want
+    say("analysis", f"to-pickle: {log.strip()} ({out['to_pickle_s']:.1f} s; the JAX command's "
+        f"default widths, channel_base 32768), reloaded bit-equal; {card}")
+    return out, amp_calls
 
 
 def phase_analysis(models, device: dict, loop_jsonl: str, tmp: str) -> tuple[dict, dict]:
     """serve's command, explain, test_concepts, the W+ pass, amplify-pca and
     the analysis commands on the flagship bundle, saved to ``tmp`` as
-    ``viscoin-flagship``. Returns (record, {label: amplify-pca's kernel
-    calls})."""
+    ``viscoin-flagship``. Returns (record, {label: the kernel calls of
+    amplify-pca's computation and of the amplify command})."""
     out: dict = {}
     t_start = time.perf_counter()
     cwd = os.getcwd()
@@ -4030,14 +4098,15 @@ def phase_analysis(models, device: dict, loop_jsonl: str, tmp: str) -> tuple[dic
         os.chdir(tmp)
         out["w_space"], pca_calls = analysis_w_plus(models, cpu_models, device)
         del cpu_models
-        out["commands"] = analysis_commands(models, bundle, loop_jsonl, device)
+        out["commands"], amp_calls = analysis_commands(
+            models, bundle, loop_jsonl, device, out["w_space"]["amplify_pca"]["launches"])
     finally:
         os.chdir(cwd)
         tf32_defaults(device)
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_start
     say("analysis", f"the phase took {out['seconds']:.1f} s; {device['nvidia_smi']}")
-    return out, {"amplify-pca --pca 2": pca_calls}
+    return out, {"amplify-pca --pca 2": pca_calls, "amplify --concept-top-k 4": amp_calls}
 
 
 # ---------------------------- the concept2clip phase -------------------------- #
@@ -5945,6 +6014,12 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
          f"over {ANALYSIS_N} train and {ANALYSIS_N} test images (the adapted mapping at N = "
          "32, 4 batches) and one gen_from_w call of 5 images per component, no_grad, TF32 "
          "off; every kernel call as often as it made it (no bias_act_grad call)"),
+        ("amplify", "float32 amplify --concept-top-k 4 (summed)",
+         tool_calls["amplify --concept-top-k 4"],
+         f"`amplify --concept-top-k 4 --image-indices 0,1` as a command at {RES}², full "
+         "width: per image one generator pass of 2M + 1 = 9 images (the adapted mapping and "
+         "the synthesis), no_grad, TF32 at the defaults; every kernel call as often as it made "
+         "it (no bias_act_grad call)"),
         ("concept2clip_w", "float32 train concept2clip --latent-type gan (summed)",
          tool_calls["train concept2clip --latent-type gan"],
          f"`train concept2clip --latent-type gan`: its W+ pass over {C2C_N} train and {C2C_N} "
@@ -6294,6 +6369,8 @@ def main() -> int:
             record["gan_tools"]["ppl"]["launches_per_batch"][name], (name, entry)
         assert entry["amplify_pca_launches"] == \
             record["analysis"]["w_space"]["amplify_pca"]["launches"][name], (name, entry)
+        assert entry["amplify_launches"] == \
+            record["analysis"]["commands"]["launches"]["amplify"][name], (name, entry)
         assert entry["concept2clip_w_launches"] == \
             record["concept2clip"]["command"]["gan"]["launches"][name], (name, entry)
     record["timings"] = timings

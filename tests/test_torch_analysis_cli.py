@@ -167,15 +167,37 @@ def test_to_pickle_command(pair, bundle, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["amplify", "--concept-top-k", "1"], ["amplify-pca"], ["concepts"], ["concept-heatmaps"],
-    ["logs", "--logs-path", "missing.jsonl"]], ids=lambda a: a[0])
-def test_drawing_commands_need_matplotlib(bundle, monkeypatch, argv):
-    """Without matplotlib a drawing command raises an ImportError naming it,
-    before it reads or computes anything."""
+    ["amplify", "--concept-top-k", "1", "--image-indices", "0"],
+    ["amplify-pca", "--pca", "2", "--image", "0"], ["concepts", "--batch-size", "4"],
+    ["concept-heatmaps"], ["logs", "--logs-path", "viscoin.jsonl"]], ids=lambda a: a[0])
+def test_drawing_commands_run_without_matplotlib(bundle, monkeypatch, argv):
+    """With matplotlib unimportable (as on the card's machines) each drawing
+    command runs to its PNGs, each of its figure's size times 100 pixels."""
     import sys
 
+    from PIL import Image
+
     monkeypatch.setitem(sys.modules, "matplotlib", None)
-    args = argv + (["--viscoin-pickle-path", "missing", "--device", "cpu"]
-                   if argv[0] != "logs" else [])
-    with pytest.raises(ImportError, match="matplotlib"):
-        main(args)
+    with pytest.raises(ImportError):
+        import matplotlib  # noqa: F401
+    test_keys = [f.name for f in TestingResults.__dataclass_fields__.values()]
+    _write_jsonl("viscoin.jsonl", [{**{f"train_{k}": 1.0 + i for k in TRAIN_METRICS},
+                                    **{f"test_{k}": 0.5 * i for k in test_keys}}
+                                   for i in range(2)])
+    args = argv + (["--viscoin-pickle-path", bundle, "--device", "cpu", "--dataset",
+                    "synthetic"] if argv[0] != "logs" else []) + ["--outdir", "figs"]
+    run(*args)
+    small = (640, 480)
+    want = {"amplify": {"amplify": (1500, 500)},
+            "amplify-pca": {"amplify_pca_0": (1500, 1000)},
+            "concepts": dict.fromkeys(["concept_activation_per_concept",
+                                       "concept_activation_per_image",
+                                       "class_concept_correlations",
+                                       "concept_class_correlations", "concept_entropies"], small),
+            "concept-heatmaps": {"concept_heatmaps": (2000, 1000)},
+            "logs": dict.fromkeys(["training_losses", "testing_losses", "preds_overlap"],
+                                  small)}[argv[0]]
+    assert sorted(os.listdir("figs")) == sorted(f"{n}.png" for n in want)
+    for name, size in want.items():
+        with Image.open(f"figs/{name}.png") as img:
+            assert (img.format, img.size) == ("PNG", size), name

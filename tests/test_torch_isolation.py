@@ -72,6 +72,19 @@ def test_package_imports_neither_jax_nor_viscoin_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_package_imports_no_matplotlib():
+    """No module of the port imports matplotlib, at its top or inside a
+    function (checked on the sources): the port draws its figures itself,
+    and the card's machines have no matplotlib."""
+    files = sorted(PACKAGE.rglob("*.py"))
+    assert len(files) >= 25
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert words[1].split(".")[0] != "matplotlib", (path, line)
+
+
 def test_chip_smoke_imports_neither_jax_nor_viscoin_tpu():
     """chip_smoke.py reads no module of the JAX package (checked on its
     source: importing it would need a card)."""

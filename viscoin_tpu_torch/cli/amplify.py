@@ -80,8 +80,6 @@ def amplify_images(models, test_ds, indices, selection, multipliers, rng):
 
 
 def amplify(args: argparse.Namespace) -> None:
-    import matplotlib  # noqa: F401 - the figure needs it: fail before any work
-
     from viscoin_tpu_torch.cli.utils import card_or_cpu
     from viscoin_tpu_torch.data.utils import get_datasets
     from viscoin_tpu_torch.utils.checkpoints import load_viscoin_bundle

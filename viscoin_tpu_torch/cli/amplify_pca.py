@@ -90,8 +90,6 @@ def w_plus_pca(models, dataset: str, n_components: int, image: int | None):
 
 
 def amplify_pca(args: argparse.Namespace) -> None:
-    import matplotlib  # noqa: F401 - the figures need it: fail before any work
-
     from viscoin_tpu_torch.cli.utils import card_or_cpu
     from viscoin_tpu_torch.utils.checkpoints import load_viscoin_bundle
     from viscoin_tpu_torch.utils.plotting import plot_grid

@@ -40,8 +40,6 @@ def add_parser(subparsers) -> None:
 
 
 def concepts(args: argparse.Namespace) -> None:
-    import matplotlib  # noqa: F401 - the figures need it: fail before any work
-
     from viscoin_tpu_torch.cli.utils import card_or_cpu
     from viscoin_tpu_torch.data.loader import DataLoader
     from viscoin_tpu_torch.data.utils import get_datasets

@@ -120,8 +120,6 @@ def plot_logs(records: list[dict], outdir: str) -> list[str]:
 
 
 def logs(args: argparse.Namespace) -> None:
-    import matplotlib  # noqa: F401 - the figures need it: fail before any work
-
     records = read_records(args.logs_path)
     for path in plot_logs(records, args.outdir):
         print(f"wrote {path}")

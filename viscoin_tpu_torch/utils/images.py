@@ -41,7 +41,8 @@ def from_torch(x) -> np.ndarray:
 
 def heatmap_to_img(heatmap: np.ndarray, size: int = 256) -> np.ndarray:
     """Heatmap -> RGB uint8 (JET colormap, resized to ``size``²): cv2 where
-    it is installed, else matplotlib's jet and a PIL bicubic resize."""
+    it is installed, else matplotlib's jet (``utils/colormaps.py``) and a
+    PIL bicubic resize."""
     heatmap = np.asarray(heatmap).squeeze()
     try:
         import cv2
@@ -51,11 +52,12 @@ def heatmap_to_img(heatmap: np.ndarray, size: int = 256) -> np.ndarray:
         resized = cv2.resize(colored, (size, size), interpolation=cv2.INTER_CUBIC)
         return cv2.cvtColor(resized, cv2.COLOR_BGR2RGB)
     except ImportError:
-        from matplotlib import cm
         from PIL import Image
 
+        from viscoin_tpu_torch.utils.colormaps import JET, lookup
+
         norm = normalize_image(heatmap.astype(np.float32))
-        rgb = (cm.jet(norm)[..., :3] * 255).astype(np.uint8)
+        rgb = (lookup(JET, norm)[..., :3] * 255).astype(np.uint8)
         return np.asarray(Image.fromarray(rgb).resize((size, size), Image.BICUBIC))
 
 
