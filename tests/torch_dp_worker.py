@@ -454,6 +454,29 @@ def run_gan_steps(inp: dict, mesh: Mesh | None, skip_grad_reduce: bool = False) 
     return out
 
 
+def run_gan_counts(inp: dict, mesh: Mesh | None) -> dict:
+    """The GAN step at each of ``inp["steps"]``, each alone between a reset
+    and a read of the counted collectives: the counts per step, and the
+    bytes of G's and D's parameters (the gradients a step averages)."""
+    from viscoin_tpu_torch.parallel import mesh as M
+    from viscoin_tpu_torch.train import gan as TG
+
+    g, d = inp["g"], inp["d"]
+    cfg = TG.GANTrainingParams(**inp["cfg"])
+    state = TG.create_gan_train_state(g, d, cfg)
+    step = TG.make_gan_train_step(g, d, cfg, mesh)
+    counts = []
+    for j, i in enumerate(inp["steps"]):
+        state.step = i
+        draws = TG.draw_step(cfg, g, 7, i, inp["images"].device, mesh)
+        M.reset_collective_counts()
+        step(state, _rows(inp["images"][j], mesh), draws)
+        counts.append(dict(M.collective_counts()))
+    return {"counts": counts, "w_dim": g.w_dim,
+            "param_bytes": {who: sum(p.numel() * p.element_size() for p in m.parameters())
+                            for who, m in (("G", g), ("D", d))}}
+
+
 def gan_inputs() -> dict:
     """The GAN scenario at toy widths (32², z 8, w 16, channel_base 256,
     channel_max 16, mbstd group 4, global batch 8; ADA at p = 0.2 with a

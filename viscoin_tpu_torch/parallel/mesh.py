@@ -18,7 +18,9 @@ global semantics explicitly:
 
 The model-group collectives of ``parallel/spatial.py`` are these same
 functions on a :class:`Mesh2D`'s :attr:`~Mesh2D.model_axis`, counted
-(``count=True``; :func:`collective_counts`).
+(``count=True``; :func:`collective_counts`). :func:`all_reduce_grads` and
+:func:`all_mean` are always counted, as "grad" and "mean", and run inside
+the spans ``dp.allreduce_grads`` and ``dp.all_mean`` (``utils/tracing.py``).
 
 ``DistributedDataParallel`` is not used: the trainers take gradients with
 ``torch.autograd.grad`` against parameter dicts through
@@ -51,6 +53,8 @@ from datetime import timedelta
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from viscoin_tpu_torch.utils import tracing
 
 TIMEOUT = timedelta(seconds=60)
 
@@ -192,7 +196,9 @@ def reset_collective_counts() -> None:
 def collective_counts() -> Counter:
     """The counted collectives since :func:`reset_collective_counts`, by
     this process: calls and bytes reduced per kind (``<kind>`` and
-    ``<kind>_bytes``)."""
+    ``<kind>_bytes``). Kinds: "grad" (:func:`all_reduce_grads`, one call
+    per dtype), "mean" (:func:`all_mean` and its backward), and the model
+    group's "halo", "gather", "scatter" and "sum" (``parallel/spatial.py``)."""
     return Counter(_COUNTS)
 
 
@@ -239,12 +245,15 @@ def _unflatten_into(flat: torch.Tensor, idx: list[int], tensors: list, out: list
 def all_reduce_grads(grads: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
     """The mean over the ranks of each gradient: flattened into one buffer
     per dtype, one ``all_reduce`` each, divided by the world size, and
-    returned as new tensors in ``grads``' order and shapes."""
+    returned as new tensors in ``grads``' order and shapes. Counted as
+    "grad" (:func:`collective_counts`)."""
     out: list = [None] * len(grads)
-    for idx, flat in _flat_by_dtype(grads):
-        dist.all_reduce(flat, group=mesh.group)
-        flat.div_(mesh.world)
-        _unflatten_into(flat, idx, grads, out)
+    with tracing.span("dp.allreduce_grads"):
+        for idx, flat in _flat_by_dtype(grads):
+            dist.all_reduce(flat, group=mesh.group)
+            count_collective("grad", flat.numel() * flat.element_size())
+            flat.div_(mesh.world)
+            _unflatten_into(flat, idx, grads, out)
     return out
 
 
@@ -277,12 +286,14 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 class _AllMean(torch.autograd.Function):
-    """y = mean over ranks of x, on every rank; self-adjoint."""
+    """y = mean over ranks of x, on every rank; self-adjoint. Each pass,
+    forward or backward, is counted as "mean"."""
 
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        return _all_reduce(x, mesh).div_(mesh.world)
+        with tracing.span("dp.all_mean"):
+            return _all_reduce(x, mesh, "mean").div_(mesh.world)
 
     @staticmethod
     def backward(ctx, g):

@@ -69,6 +69,7 @@ from viscoin_tpu_torch.parallel import spatial as S
 from viscoin_tpu_torch.parallel.mesh import Mesh, all_gather_batch, all_mean, all_reduce_grads
 from viscoin_tpu_torch.train.augment import AugmentDraws, ada_update, augment, draw_augment
 from viscoin_tpu_torch.train.viscoin import fold_seed, make_cast, rank_seed
+from viscoin_tpu_torch.utils import tracing
 
 _NOISE_TAGS = {"g": 1, "d": 2, "ppl": 3}  # synthesis noise generators of a step's phases
 _DEVICE_TAG = 0x44455643  # "DEVC": the device generator of a step's tensors
@@ -373,32 +374,33 @@ def draw_step(cfg: GANTrainingParams, generator, seed: int, step: int, device,
     draws from one seeded ``fold_seed(seed, step, DEVICE_TAG)``. With a
     ``mesh`` every rank draws the global batch's and keeps its own
     (:meth:`GANStepDraws.shard`)."""
-    B, z_dim = cfg.batch_size, generator.z_dim
-    num_ws = num_ws_for_resolution(generator.img_resolution)
-    host = torch.Generator().manual_seed(fold_seed(seed, step))
-    dev = torch.Generator(device=device).manual_seed(fold_seed(seed, step, _DEVICE_TAG))
+    with tracing.span("gan_draw"):
+        B, z_dim = cfg.batch_size, generator.z_dim
+        num_ws = num_ws_for_resolution(generator.img_resolution)
+        host = torch.Generator().manual_seed(fold_seed(seed, step))
+        dev = torch.Generator(device=device).manual_seed(fold_seed(seed, step, _DEVICE_TAG))
 
-    def cutoff() -> int:
-        mix = float(torch.rand((), generator=host)) < cfg.style_mixing_prob
-        k = int(torch.randint(1, num_ws, (), generator=host))
-        return k if mix else num_ws
+        def cutoff() -> int:
+            mix = float(torch.rand((), generator=host)) < cfg.style_mixing_prob
+            k = int(torch.randint(1, num_ws, (), generator=host))
+            return k if mix else num_ws
 
-    def latents():
-        return torch.randn((B, z_dim), device=device, generator=dev)
+        def latents():
+            return torch.randn((B, z_dim), device=device, generator=dev)
 
-    use_aug = cfg.augment != "none"
-    aug = [draw_augment(B, host) if use_aug else None for _ in range(3)]
-    draws = GANStepDraws(
-        flips=torch.rand(B, device=device, generator=dev) < 0.5, z=latents(), z_mix=latents(),
-        z2=latents(), z2_mix=latents(), cutoff=cutoff(), cutoff2=cutoff(), aug_g=aug[0],
-        aug_df=aug[1], aug_dr=aug[2],
-        noise_seeds={k: fold_seed(seed, step, t) for k, t in _NOISE_TAGS.items()})
-    if step % cfg.ppl_interval == 0 and cfg.ppl_weight > 0:
-        res = generator.img_resolution
-        draws.zp = latents()
-        draws.pl_y = torch.randn((B, generator.synthesis.img_channels, res, res),
-                                 device=device, generator=dev)
-    return draws if mesh is None else draws.shard(mesh)
+        use_aug = cfg.augment != "none"
+        aug = [draw_augment(B, host) if use_aug else None for _ in range(3)]
+        draws = GANStepDraws(
+            flips=torch.rand(B, device=device, generator=dev) < 0.5, z=latents(), z_mix=latents(),
+            z2=latents(), z2_mix=latents(), cutoff=cutoff(), cutoff2=cutoff(), aug_g=aug[0],
+            aug_df=aug[1], aug_dr=aug[2],
+            noise_seeds={k: fold_seed(seed, step, t) for k, t in _NOISE_TAGS.items()})
+        if step % cfg.ppl_interval == 0 and cfg.ppl_weight > 0:
+            res = generator.img_resolution
+            draws.zp = latents()
+            draws.pl_y = torch.randn((B, generator.synthesis.img_channels, res, res),
+                                     device=device, generator=dev)
+        return draws if mesh is None else draws.shard(mesh)
 
 
 # ------------------------------ the losses ---------------------------------- #
@@ -508,14 +510,15 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Me
         if do_r1:
             # Through the same augmentation draws as the real pass (whose
             # logits these are): the lazy R1 penalty, second order.
-            (grad_real,) = torch.autograd.grad(real_logits.sum(), real, create_graph=True)
-            norms = grad_real.float().square().sum(dim=(1, 2, 3))
-            if sp is not None:
-                # The logits are whole on every rank: its rows' gradient is
-                # ``model`` times theirs; the squared norm sums over the rows.
-                norms = S.model_sum(norms, sp) / sp.model**2
-            r1 = norms.mean()
-            loss = loss + (cfg.r1_gamma / 2) * r1 * cfg.r1_interval
+            with tracing.span("gan_step.r1"):
+                (grad_real,) = torch.autograd.grad(real_logits.sum(), real, create_graph=True)
+                norms = grad_real.float().square().sum(dim=(1, 2, 3))
+                if sp is not None:
+                    # The logits are whole on every rank: its rows' gradient is
+                    # ``model`` times theirs; the squared norm sums over the rows.
+                    norms = S.model_sum(norms, sp) / sp.model**2
+                r1 = norms.mean()
+                loss = loss + (cfg.r1_gamma / 2) * r1 * cfg.r1_interval
         # aux: r_t, the ADA overfitting signal E[sign(D(real))] (global).
         return loss, (r1.detach(), all_mean(torch.sign(real_logits.detach()).mean(), mesh))
 
@@ -580,52 +583,68 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams,
     dt = fns["dt"]
 
     def step(state: GANTrainState, images, draws: GANStepDraws):
-        i = state.step
-        x = preprocess_real(images, draws.flips if cfg.mirror else None).to(dt)
-        B = x.shape[0] * (1 if mesh is None else mesh.data_axis.world)  # the global batch
-        aug_p = float(state.ada_p) if cfg.augment == "ada" else cfg.augment_p
-        g_named, d_named = state.g_params(), state.d_params()
-        g_list, d_list = list(g_named.values()), list(d_named.values())
+        with tracing.span("gan_step"):
+            i = state.step
+            x = preprocess_real(images, draws.flips if cfg.mirror else None).to(dt)
+            B = x.shape[0] * (1 if mesh is None else mesh.data_axis.world)  # the global batch
+            aug_p = float(state.ada_p) if cfg.augment == "ada" else cfg.augment_p
+            g_named, d_named = state.g_params(), state.d_params()
+            g_list, d_list = list(g_named.values()), list(d_named.values())
 
-        # The G phase (style mixing), plus the path-length penalty on cadence.
-        d_frozen = {k: v.detach() for k, v in d_named.items()}
-        g_loss, ws_mean = g_loss_fn(g_named, d_frozen, draws.z.to(dt), draws.z_mix.to(dt),
-                                    draws.cutoff, draws.noise_seeds["g"], aug_p, draws.aug_g)
-        g_grads = _grads(g_loss, g_list)
-        pl_len, new_pl_mean = torch.zeros((), device=x.device), state.pl_mean
-        if i % cfg.ppl_interval == 0 and cfg.ppl_weight > 0:
-            scaled, (pl_len, new_pl_mean) = ppl_penalty(g_named, draws.zp.to(dt),
-                                                        draws.noise_seeds["ppl"], draws.pl_y,
-                                                        state.pl_mean)
-            g_grads = [a + b for a, b in zip(g_grads, _grads(scaled, g_list))]
-            pl_len, new_pl_mean = pl_len.detach(), new_pl_mean.detach()
-        _adam_step(state.g_opt, g_list, _reduced(g_grads, mesh))
+            # The G phase (style mixing), plus the path-length penalty on cadence.
+            with tracing.span("gan_step.g_forward"):
+                d_frozen = {k: v.detach() for k, v in d_named.items()}
+                g_loss, ws_mean = g_loss_fn(g_named, d_frozen, draws.z.to(dt),
+                                            draws.z_mix.to(dt), draws.cutoff,
+                                            draws.noise_seeds["g"], aug_p, draws.aug_g)
+            with tracing.span("gan_step.g_backward"):
+                g_grads = _grads(g_loss, g_list)
+            pl_len, new_pl_mean = torch.zeros((), device=x.device), state.pl_mean
+            if i % cfg.ppl_interval == 0 and cfg.ppl_weight > 0:
+                with tracing.span("gan_step.path_length"):
+                    scaled, (pl_len, new_pl_mean) = ppl_penalty(
+                        g_named, draws.zp.to(dt), draws.noise_seeds["ppl"], draws.pl_y,
+                        state.pl_mean)
+                    g_grads = [a + b for a, b in zip(g_grads, _grads(scaled, g_list))]
+                    pl_len, new_pl_mean = pl_len.detach(), new_pl_mean.detach()
+            with tracing.span("gan_step.g_update"):
+                _adam_step(state.g_opt, g_list, _reduced(g_grads, mesh))
 
-        # The D phase, against the updated generator, with R1 on cadence.
-        d_loss, (r1, rt_batch) = d_loss_fn(
-            d_named, g_named, x, draws.z2.to(dt), draws.z2_mix.to(dt), draws.cutoff2,
-            draws.noise_seeds["d"], i % cfg.r1_interval == 0, aug_p, draws.aug_df,
-            draws.aug_dr)
-        _adam_step(state.d_opt, d_list, _reduced(_grads(d_loss, d_list), mesh))
+            # The D phase, against the updated generator, with R1 on cadence.
+            with tracing.span("gan_step.d_forward"):
+                d_loss, (r1, rt_batch) = d_loss_fn(
+                    d_named, g_named, x, draws.z2.to(dt), draws.z2_mix.to(dt), draws.cutoff2,
+                    draws.noise_seeds["d"], i % cfg.r1_interval == 0, aug_p, draws.aug_df,
+                    draws.aug_dr)
+            with tracing.span("gan_step.d_backward"):
+                d_grads = _grads(d_loss, d_list)
+            with tracing.span("gan_step.d_update"):
+                # Each list goes once used: the unreduced one when reduced, the reduced one
+                # after the update (the step's peak memory holds neither longer).
+                d_grads = _reduced(d_grads, mesh)
+                _adam_step(state.d_opt, d_list, d_grads)
+                del d_grads
 
-        with torch.no_grad():
-            if cfg.augment == "ada":
-                state.ada_p, state.ada_rt = ada_update(
-                    state.ada_p, state.ada_rt, rt_batch, i, B, target=cfg.ada_target,
-                    interval=cfg.ada_interval, kimg=cfg.ada_kimg)
-            state.w_avg = ws_mean.detach() * (1 - cfg.w_avg_beta) + state.w_avg * cfg.w_avg_beta
-            beta = ema_beta(cfg, i, B)
-            ema = list(state.g_ema.parameters())
-            torch._foreach_mul_(ema, beta)
-            torch._foreach_add_(ema, g_list, alpha=float(np.float32(1.0) - np.float32(beta)))
-            state.pl_mean = new_pl_mean
-        state.step = i + 1
-        losses = torch.stack([g_loss.detach(), d_loss.detach(), r1])
-        if mesh is not None:
-            losses = all_mean(losses, mesh)
-        metrics = {"g_loss": losses[0], "d_loss": losses[1], "r1": losses[2],
-                   "pl_lengths": pl_len, "pl_mean": new_pl_mean,
-                   "ada_p": state.ada_p.clone(), "ada_rt": rt_batch}
-        return state, metrics
+            with torch.no_grad(), tracing.span("gan_step.ema_ada"):
+                if cfg.augment == "ada":
+                    state.ada_p, state.ada_rt = ada_update(
+                        state.ada_p, state.ada_rt, rt_batch, i, B, target=cfg.ada_target,
+                        interval=cfg.ada_interval, kimg=cfg.ada_kimg)
+                state.w_avg = (ws_mean.detach() * (1 - cfg.w_avg_beta)
+                               + state.w_avg * cfg.w_avg_beta)
+                beta = ema_beta(cfg, i, B)
+                ema = list(state.g_ema.parameters())
+                torch._foreach_mul_(ema, beta)
+                torch._foreach_add_(ema, g_list,
+                                    alpha=float(np.float32(1.0) - np.float32(beta)))
+                state.pl_mean = new_pl_mean
+            state.step = i + 1
+            losses = torch.stack([g_loss.detach(), d_loss.detach(), r1])
+            if mesh is not None:
+                losses = all_mean(losses, mesh)
+            metrics = {"g_loss": losses[0], "d_loss": losses[1], "r1": losses[2],
+                       "pl_lengths": pl_len, "pl_mean": new_pl_mean,
+                       "ada_p": state.ada_p.clone(), "ada_rt": rt_batch}
+            return state, metrics
 
     return step

@@ -62,6 +62,7 @@ from viscoin_tpu_torch.models.bundle import VisCoINModels
 from viscoin_tpu_torch.parallel.mesh import Mesh, all_mean, all_reduce_grads, broadcast_tree
 from viscoin_tpu_torch.parallel.spatial import bundle_spatial, spatial_for
 from viscoin_tpu_torch.train import losses as L
+from viscoin_tpu_torch.utils import tracing
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_TARGETS = ("lpips", "classifier", "gan")
@@ -298,14 +299,15 @@ def make_sample_fakes(generator_gan, cfg: VisCoINTrainingParams, mesh: Mesh | No
 
     @torch.no_grad()
     def sample(frozen: dict, seeds: list[int]) -> torch.Tensor:
-        gen_module = frozen["generator"]
-        device = next(gen_module.parameters()).device
-        z = torch.cat([torch.randn((rows, generator_gan.z_dim), device=device,
-                                   generator=torch.Generator(device=device).manual_seed(s))
-                       for s in seeds]).to(dt)
-        noise = torch.Generator(device=device).manual_seed(fold_seed(seeds[0], 1))
-        fakes = gen_module(z, noise_mode="random", generator=noise, spatial=sp)
-        return fakes.to(dt).reshape(len(seeds), rows, *fakes.shape[1:])
+        with tracing.span("sample"):
+            gen_module = frozen["generator"]
+            device = next(gen_module.parameters()).device
+            z = torch.cat([torch.randn((rows, generator_gan.z_dim), device=device,
+                                       generator=torch.Generator(device=device).manual_seed(s))
+                           for s in seeds]).to(dt)
+            noise = torch.Generator(device=device).manual_seed(fold_seed(seeds[0], 1))
+            fakes = gen_module(z, noise_mode="random", generator=noise, spatial=sp)
+            return fakes.to(dt).reshape(len(seeds), rows, *fakes.shape[1:])
 
     return sample
 
@@ -342,37 +344,40 @@ def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
                                            spatial=sp)
         all_images = torch.cat([real, fake.to(dt)])
 
-        classes, hidden = frozen["classifier"](all_images, spatial=sp)
-        classes = classes.float()
-        phi, phi_prime = functional_call(modules["concept_extractor"],
-                                         params_c["concept_extractor"], (tuple(hidden[-3:]),),
-                                         {"spatial": sp})
-        explainer_classes = functional_call(
-            modules["explainer"], params_c["explainer"], (phi,),
-            dict(train=True, generator=rng, dropout_mask=dropout_mask)).float()
+        with tracing.span("viscoin_step.classifier"):
+            classes, hidden = frozen["classifier"](all_images, spatial=sp)
+            classes = classes.float()
+        with tracing.span("viscoin_step.concepts"):
+            phi, phi_prime = functional_call(modules["concept_extractor"],
+                                             params_c["concept_extractor"],
+                                             (tuple(hidden[-3:]),), {"spatial": sp})
+            explainer_classes = functional_call(
+                modules["explainer"], params_c["explainer"], (phi,),
+                dict(train=True, generator=rng, dropout_mask=dropout_mask)).float()
 
-        # Losses in fp32.
-        acc_loss = L.softmax_cross_entropy(classes[:B], labels)
-        gate = float(step > cfg.cd_fid_iteration)
-        cr_loss = gate * cfg.delta * L.concept_regularization_loss(phi.float())
-        of_loss = gate * cfg.alpha * L.output_fidelity_loss(classes, explainer_classes)
-        # Orthogonality on the fp32 master weight.
-        ortho_loss = L.concept_orthogonality_loss(params["concept_extractor"]["conv5.weight"])
+            # Losses in fp32.
+            acc_loss = L.softmax_cross_entropy(classes[:B], labels)
+            gate = float(step > cfg.cd_fid_iteration)
+            cr_loss = gate * cfg.delta * L.concept_regularization_loss(phi.float())
+            of_loss = gate * cfg.alpha * L.output_fidelity_loss(classes, explainer_classes)
+            # Orthogonality on the fp32 master weight.
+            ortho_loss = L.concept_orthogonality_loss(params["concept_extractor"]["conv5.weight"])
 
-        ws = functional_call(modules["mapping"], params_c["mapping"], (phi, phi_prime))
-        synthesis = frozen["synthesis"]
-        if "gan" in remat:
-            state = rng.get_state() if rng is not None else None
+        with tracing.span("viscoin_step.synthesis"):
+            ws = functional_call(modules["mapping"], params_c["mapping"], (phi, phi_prime))
+            synthesis = frozen["synthesis"]
+            if "gan" in remat:
+                state = rng.get_state() if rng is not None else None
 
-            def synth(ws):
-                if state is not None:  # the recompute draws the forward's noise again
-                    rng.set_state(state)
-                return synthesis(ws, noise_mode="random", generator=rng, spatial=sp)
+                def synth(ws):
+                    if state is not None:  # the recompute draws the forward's noise again
+                        rng.set_state(state)
+                    return synthesis(ws, noise_mode="random", generator=rng, spatial=sp)
 
-            rebuilt = checkpoint(synth, ws, use_reentrant=False)
-        else:
-            rebuilt = synthesis(ws, noise_mode="random", generator=rng, spatial=sp)
-        rebuilt = post(rebuilt, sp).to(dt)
+                rebuilt = checkpoint(synth, ws, use_reentrant=False)
+            else:
+                rebuilt = synthesis(ws, noise_mode="random", generator=rng, spatial=sp)
+            rebuilt = post(rebuilt, sp).to(dt)
 
         def f_rebuilt(x):
             return frozen["classifier"](x, spatial=sp)[0]
@@ -380,26 +385,28 @@ def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
         def lpips_fn(a, b):
             return frozen["lpips"](a.to(dt), b.to(dt), spatial=sp).float()
 
-        if "classifier" in remat:
-            rebuilt_classes = checkpoint(f_rebuilt, rebuilt, use_reentrant=False)
-        else:
-            rebuilt_classes = f_rebuilt(rebuilt)
+        with tracing.span("viscoin_step.f_rebuilt"):
+            if "classifier" in remat:
+                rebuilt_classes = checkpoint(f_rebuilt, rebuilt, use_reentrant=False)
+            else:
+                rebuilt_classes = f_rebuilt(rebuilt)
         if "lpips" in remat:
             lpips_call = lambda a, b: checkpoint(lpips_fn, a, b, use_reentrant=False)  # noqa: E731
         else:
             lpips_call = lpips_fn
 
-        rec_loss = L.reconstruction_loss(
-            rebuilt.float(), all_images.float(), rebuilt_classes.float(), classes, lpips_call,
-            lambda_classes=cfg.gamma, lambda_lpips=cfg.beta, spatial=sp)
-        gan_loss = L.gan_regularization_loss(ws.float(), params["mapping"]["fixed_w_avg"])
+        with tracing.span("viscoin_step.lpips"):
+            rec_loss = L.reconstruction_loss(
+                rebuilt.float(), all_images.float(), rebuilt_classes.float(), classes,
+                lpips_call, lambda_classes=cfg.gamma, lambda_lpips=cfg.beta, spatial=sp)
+            gan_loss = L.gan_regularization_loss(ws.float(), params["mapping"]["fixed_w_avg"])
 
-        total = acc_loss + cr_loss + of_loss + ortho_loss + rec_loss + gan_loss
-        metrics = {"acc_loss": acc_loss, "cr_loss": cr_loss, "of_loss": of_loss,
-                   "ortho_loss": ortho_loss, "rec_loss": rec_loss, "gan_loss": gan_loss,
-                   "inter_loss": L.cross_cross_entropy_loss(rebuilt_classes.float(), classes),
-                   "total_loss": total}
-        return total, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+            total = acc_loss + cr_loss + of_loss + ortho_loss + rec_loss + gan_loss
+            metrics = {"acc_loss": acc_loss, "cr_loss": cr_loss, "of_loss": of_loss,
+                       "ortho_loss": ortho_loss, "rec_loss": rec_loss, "gan_loss": gan_loss,
+                       "inter_loss": L.cross_cross_entropy_loss(rebuilt_classes.float(), classes),
+                       "total_loss": total}
+            return total, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
 
     return loss_fn
 
@@ -428,20 +435,25 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
                    dropout_mask=None):
         if external_fakes and fake is None:
             raise ValueError("this step takes its synthetic batch from outside (external_fakes)")
-        if preprocess:
-            flips = torch.rand(images_u8.shape[0], device=images_u8.device, generator=rng) < 0.5
-            real = device_preprocess(images_u8, flips)
-        else:
-            real = images_u8
-        state.opt.zero_grad(set_to_none=True)
-        state.gan_opt.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(state.params, frozen, real, labels, state.step, rng, fake,
-                                 dropout_mask)
-        total.backward()
-        optimizer_update(state, cfg, schedule, mesh)
-        if mesh is not None:
-            metrics = dict(zip(metrics, all_mean(torch.stack(list(metrics.values())), mesh)))
-        return state, metrics
+        with tracing.span("viscoin_step"):
+            with tracing.span("viscoin_step.preprocess"):
+                if preprocess:
+                    flips = torch.rand(images_u8.shape[0], device=images_u8.device,
+                                       generator=rng) < 0.5
+                    real = device_preprocess(images_u8, flips)
+                else:
+                    real = images_u8
+            state.opt.zero_grad(set_to_none=True)
+            state.gan_opt.zero_grad(set_to_none=True)
+            total, metrics = loss_fn(state.params, frozen, real, labels, state.step, rng, fake,
+                                     dropout_mask)
+            with tracing.span("viscoin_step.backward"):
+                total.backward()
+            with tracing.span("viscoin_step.update"):
+                optimizer_update(state, cfg, schedule, mesh)
+            if mesh is not None:
+                metrics = dict(zip(metrics, all_mean(torch.stack(list(metrics.values())), mesh)))
+            return state, metrics
 
     return train_step
 
@@ -479,11 +491,15 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
     are (seed, i), the synthetic groups are aligned to absolute steps).
     ``prefetch`` > 0 loads and places the next batches on a background
     thread (one producer, so the order is unchanged). ``timings``: a dict
-    that collects wall seconds per phase ("steps", "eval", "checkpoint",
-    "probe"), with "n_<phase>" counts, "max_<phase>" and, under
-    "seconds", every duration. ``stop_after``: at most this many steps in
+    that collects the host's seconds per phase ("steps", "eval",
+    "checkpoint", "probe"), with "n_<phase>" counts, "max_<phase>" and,
+    under "seconds", every duration (``utils/tracing.py::timed``). Nothing
+    synchronises the card for them: "steps" is the time the host took to
+    enqueue the step's work (the card may finish it later), "eval" holds
+    the eval's reads back. ``stop_after``: at most this many steps in
     this call, on the full ``cfg.iterations`` schedule. ``profile_dir``: a
-    torch.profiler trace of steps 2 to 5 of this call (``trace.json``).
+    torch.profiler trace of steps 2 to 5 of this call (``trace.json``), the
+    phases named by the spans of ``utils/tracing.py``.
 
     ``mesh``: data parallelism (every rank calls this with its own mesh).
     ``cfg.batch_size`` stays the global batch; ``train_loader`` and
@@ -500,7 +516,6 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
     rank 0 writes."""
     import json
     import os
-    import time
 
     from viscoin_tpu_torch.data.loader import DevicePrefetcher, loop_iter
     from viscoin_tpu_torch.eval.viscoin import (
@@ -578,14 +593,6 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
     prefetcher = DevicePrefetcher(pull_and_place, prefetch) if prefetch > 0 else None
     next_batch = prefetcher.next if prefetcher is not None else pull_and_place
 
-    def mark(phase, t0):
-        if timings is not None:
-            dt = time.perf_counter() - t0
-            timings[phase] = timings.get(phase, 0.0) + dt
-            timings[f"n_{phase}"] = timings.get(f"n_{phase}", 0) + 1
-            timings[f"max_{phase}"] = max(timings.get(f"max_{phase}", 0.0), dt)
-            timings.setdefault("seconds", {}).setdefault(phase, []).append(dt)
-
     # The eval, the checkpoints and the probe read the bundle itself. The JAX
     # loop's sync_models() first copies the trained parameters back into it;
     # here they are the bundle's own, updated in place, so nothing is copied.
@@ -603,56 +610,54 @@ def train_viscoin(models: VisCoINModels, generator_gan, lpips_module, train_load
                     activities.append(ProfilerActivity.CUDA)
                 profiler = profile(activities=activities)
                 profiler.__enter__()
-            t_step = time.perf_counter()
-            images, labels = next_batch()
-            group = (i // K) * K  # aligned to absolute steps: any resume regenerates it
-            if fake_group_start != group:
-                fake_group = sample_fakes(frozen, fake_sample_keys(seed, group, K, mesh))
-                fake_group_start = group
-            state, metrics = step_fn(state, frozen, images, labels,
-                                     step_generator(seed, i, device, mesh), fake_group[i - group])
-            mark("steps", t_step)
+            with tracing.timed(None, timings, "steps"):
+                with tracing.span("loop.data"):
+                    images, labels = next_batch()
+                group = (i // K) * K  # aligned to absolute steps: any resume regenerates it
+                if fake_group_start != group:
+                    fake_group = sample_fakes(frozen, fake_sample_keys(seed, group, K, mesh))
+                    fake_group_start = group
+                state, metrics = step_fn(state, frozen, images, labels,
+                                         step_generator(seed, i, device, mesh),
+                                         fake_group[i - group])
             if profiler is not None and i == start + 5:
                 _stop_profiler(profiler, profile_dir)
                 profiler = None
 
             if eval_every and i % eval_every == 0:
-                t_eval = time.perf_counter()
-                values = torch.stack([metrics[k] for k in TRAIN_METRICS]).double().cpu()
-                record = {f"train_{k}": float(v) for k, v in zip(TRAIN_METRICS, values)}
-                if eval_step is None:
-                    eval_step = make_test_step(models, lpips_module, mesh)
-                results = test_viscoin(models, lpips_module, test_loader,
-                                       compute_fid=fid_detector is not None,
-                                       fid_detector=fid_detector, verbose=False, mesh=mesh,
-                                       step=eval_step)
-                record.update({f"test_{k}": v for k, v in results.__dict__.items()})
-                if is_main(mesh):  # one jsonl log, not one per rank
-                    logger.info(json.dumps(record))
-                mark("eval", t_eval)
+                with tracing.timed("loop.eval", timings, "eval"):
+                    values = torch.stack([metrics[k] for k in TRAIN_METRICS]).double().cpu()
+                    record = {f"train_{k}": float(v) for k, v in zip(TRAIN_METRICS, values)}
+                    if eval_step is None:
+                        eval_step = make_test_step(models, lpips_module, mesh)
+                    results = test_viscoin(models, lpips_module, test_loader,
+                                           compute_fid=fid_detector is not None,
+                                           fid_detector=fid_detector, verbose=False, mesh=mesh,
+                                           step=eval_step)
+                    record.update({f"test_{k}": v for k, v in results.__dict__.items()})
+                    if is_main(mesh):  # one jsonl log, not one per rank
+                        logger.info(json.dumps(record))
 
             if checkpoint_every and i % checkpoint_every == 0 and is_main(mesh):
-                t_ckpt = time.perf_counter()
-                ckpt.save_viscoin(models, os.path.join(
-                    checkpoint_dir,
-                    f"viscoin{i // checkpoint_every}-{cfg.iterations // checkpoint_every}"),
-                    async_save=True)
-                ckpt.save_train_state(state, os.path.join(checkpoint_dir, "train_state"),
-                                      meta=resume_meta, async_save=True)
-                mark("checkpoint", t_ckpt)
+                with tracing.timed("loop.checkpoint", timings, "checkpoint"):
+                    ckpt.save_viscoin(models, os.path.join(
+                        checkpoint_dir,
+                        f"viscoin{i // checkpoint_every}-{cfg.iterations // checkpoint_every}"),
+                        async_save=True)
+                    ckpt.save_train_state(state, os.path.join(checkpoint_dir, "train_state"),
+                                          meta=resume_meta, async_save=True)
 
             if faithfulness_every and i % faithfulness_every == 0 and i > 0 and is_main(mesh):
-                t_probe = time.perf_counter()
-                if probe_fn is None:
-                    probe_fn = make_faithfulness_fn(models)
-                ds = test_loader.dataset
-                probe_rng = np.random.default_rng((seed, i))  # the same after a resume
-                idx = probe_rng.choice(len(ds), min(200, len(ds)), replace=False)
-                images_u8 = np.stack([np.asarray(ds[int(j)][0]) for j in idx])
-                probs = faithfulness_probe(models, images_u8, fn=probe_fn)
-                print(f"Faithfullness stats (probability of best concept after reconstruction): "
-                      f"mean = {np.mean(probs)} --- std = {np.std(probs)}")
-                mark("probe", t_probe)
+                with tracing.timed("loop.probe", timings, "probe"):
+                    if probe_fn is None:
+                        probe_fn = make_faithfulness_fn(models)
+                    ds = test_loader.dataset
+                    probe_rng = np.random.default_rng((seed, i))  # the same after a resume
+                    idx = probe_rng.choice(len(ds), min(200, len(ds)), replace=False)
+                    images_u8 = np.stack([np.asarray(ds[int(j)][0]) for j in idx])
+                    probs = faithfulness_probe(models, images_u8, fn=probe_fn)
+                    print("Faithfullness stats (probability of best concept after "
+                          f"reconstruction): mean = {np.mean(probs)} --- std = {np.std(probs)}")
     finally:
         # Every exit (a failing step, an interrupt, an I/O error) stops the
         # producers: the prefetcher joins its thread, then the loader's
