@@ -57,10 +57,11 @@ after mp, and runs phase 23 alone:
   8. train     the VisCoIN training step at flagship width (the bundle, a
                frozen original Generator with 2 mapping layers, LPIPS-VGG;
                batch 8 real + 8 synthetic, sampled 2 steps at a time), in
-               float32 and bfloat16: exact launch counts of one step and one
-               sampler call, finite losses, a non-zero gradient on every
-               trainable leaf, 3 + 10 steps on the host clock, peak memory,
-               one step under torch.profiler;
+               float32 and bfloat16: exact launch counts of one pass through
+               the step (a step that captures its CUDA graph runs a warm-up
+               pass and a replay) and one sampler call, finite losses, a non-zero
+               gradient on every trainable leaf, 3 + 10 steps on the host
+               clock, peak memory, one step under torch.profiler;
   9. train-cpu one fp32 step's gradients at full width on 1 real + 1
                synthetic image, card against device="cpu";
 10. loop      train_viscoin at flagship width on SyntheticDataset (200
@@ -211,7 +212,7 @@ after mp, and runs phase 23 alone:
 22. mp        model parallelism (parallel/spatial.py), see phase_mp: a (1
                data, 2 model) mesh of two processes on the one card over
                gloo at full width (batch 8 + 8) against one process in a
-               process of its own, started after phase 3, taking their
+               process of its own (its VisCoIN steps eager, as the ranks'), started after phase 3, taking their
                peak memory with no other process on the card (the lanes
                wait for it), idle until dp, then beside dp's (a): the
                fp32 step's metrics and each network's gradient (TF32 off),
@@ -314,6 +315,7 @@ from viscoin_tpu_torch.train import viscoin as T
 from viscoin_tpu_torch.train.viscoin import fold_seed
 from viscoin_tpu_torch.utils import checkpoints as ckpt
 from viscoin_tpu_torch.utils import exporting, porting
+from viscoin_tpu_torch.utils import tracing
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 from viscoin_tpu_torch.utils.weights import load_jax_tree, module_to_jax_tree
 
@@ -424,25 +426,44 @@ def phase_build() -> float:
 
 class PathRecorder:
     """Records every kernel-wrapper call (op, shape, dtype, arguments) while
-    the path runs, without changing what runs or synchronising the card."""
+    the path runs, without changing what runs or synchronising the card. A
+    call inside a CUDA graph's capture runs nothing: it is kept with its
+    graph and recorded at each of that graph's replays, as the card runs it."""
 
     def __init__(self):
         self.calls: list[tuple] = []
-        self._orig = (ba._bias_act_cuda, ba._bias_act_grad_cuda, up._upfirdn2d_cuda)
+        self._captured: list[tuple] = []  # calls of the capture under way
+        self._graphs: dict[int, tuple] = {}  # id -> (graph, the calls it captured)
+        self._orig = (ba._bias_act_cuda, ba._bias_act_grad_cuda, up._upfirdn2d_cuda,
+                      torch.cuda.CUDAGraph.capture_end, torch.cuda.CUDAGraph.replay)
+
+    def _add(self, call: tuple) -> None:
+        (self._captured if torch.cuda.is_current_stream_capturing() else self.calls).append(call)
 
     def __enter__(self):
-        orig_ba, orig_grad, orig_up = self._orig
+        orig_ba, orig_grad, orig_up, orig_end, orig_replay = self._orig
+        rec = self
+
+        def capture_end(graph):
+            orig_end(graph)
+            rec._graphs[id(graph)] = (graph, rec._captured)
+            rec._captured = []
+
+        def replay(graph):
+            orig_replay(graph)
+            assert id(graph) in rec._graphs, "a graph captured before the recorder started"
+            rec.calls.extend(rec._graphs[id(graph)][1])
 
         def rec_ba(x, b, **kw):
             offset = x.data_ptr() % 16 // x.element_size()  # elements past 16-byte alignment
-            self.calls.append(("bias_act", tuple(x.shape), x.dtype,
+            self._add(("bias_act", tuple(x.shape), x.dtype,
                                (None if b is None else b.dtype, offset),
                                tuple(sorted(kw.items()))))
             return orig_ba(x, b, **kw)
 
         def rec_grad(x, b, dy, *, need_db=True, dy_add=None, **kw):
             offset = x.data_ptr() % 16 // x.element_size()
-            self.calls.append(("bias_act_grad", tuple(x.shape), x.dtype,
+            self._add(("bias_act_grad", tuple(x.shape), x.dtype,
                                (None if b is None else b.dtype, offset, need_db,
                                 dy_add is not None),
                                tuple(sorted(kw.items()))))
@@ -451,15 +472,17 @@ class PathRecorder:
         def rec_up(x, f, **kw):
             taps = up._taps(f)  # the wrapper's cached read: no device sync per call
             kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
-            self.calls.append(("upfirdn2d", tuple(x.shape), x.dtype, taps,
+            self._add(("upfirdn2d", tuple(x.shape), x.dtype, taps,
                                tuple(sorted(kw.items()))))
             return orig_up(x, f, **kw)
 
         ba._bias_act_cuda, ba._bias_act_grad_cuda, up._upfirdn2d_cuda = rec_ba, rec_grad, rec_up
+        torch.cuda.CUDAGraph.capture_end, torch.cuda.CUDAGraph.replay = capture_end, replay
         return self
 
     def __exit__(self, *exc):
-        ba._bias_act_cuda, ba._bias_act_grad_cuda, up._upfirdn2d_cuda = self._orig
+        (ba._bias_act_cuda, ba._bias_act_grad_cuda, up._upfirdn2d_cuda,
+         torch.cuda.CUDAGraph.capture_end, torch.cuda.CUDAGraph.replay) = self._orig
 
     def unique(self) -> dict[tuple, int]:
         out: dict[tuple, int] = {}
@@ -1189,13 +1212,25 @@ class TrainRun:
         # Start past the warm-up gate (cd_fid_iteration), as a resumed run
         # would: all six loss terms, and so every trainable leaf, are live.
         self.state.step = self.cfg.cd_fid_iteration + 1
-        self.step_fn = T.make_train_step(self.models, gen, lpips, self.cfg, external_fakes=True)
+        self.gen, self.lpips = gen, lpips
+        self.release()
         self.sample = T.make_sample_fakes(gen, self.cfg)
         self.k = self.cfg.fake_presample_steps
         self.group, self.fakes = None, None
         self.images = torch.from_numpy(seeded_images(4 * BATCH, SEED + 40)).cuda()
         self.labels = torch.from_numpy(
             np.random.default_rng(SEED + 41).integers(0, N_CLASSES, 4 * BATCH)).cuda()
+
+    def release(self) -> None:
+        """A new step function: the old one's CUDA graph goes with it, and
+        its private pool, which holds the step's activations, returns to
+        the allocator (the gradients, which live in it, are dropped); the
+        next step captures anew."""
+        for grp in self.state.params.values():
+            for p in grp.values():
+                p.grad = None
+        self.step_fn = T.make_train_step(self.models, self.gen, self.lpips, self.cfg,
+                                         external_fakes=True)
 
     def sample_if_needed(self) -> bool:
         """Draw the K-step group of synthetic batches the next step is in
@@ -1217,12 +1252,28 @@ class TrainRun:
 
     def record(self) -> dict[tuple, int]:
         """One step (sampling first) under the recorder: the step's kernel
-        calls, forward and backward."""
+        calls, forward and backward, per pass through the step's region (a
+        step that captures its CUDA graph runs it GRAPH_WARMUP + 1 times:
+        the warm-up and the replay)."""
         self.sample_if_needed()
+        tracing.reset_graph_counts()
         with PathRecorder() as rec:
             self.step()
         torch.cuda.synchronize()
-        return rec.unique()
+        passes = step_passes()
+        calls = rec.unique()
+        assert passes > 0 and all(m % passes == 0 for m in calls.values()), (passes, calls)
+        self.release()  # the mp processes take their peaks before the step runs again
+        return {c: m // passes for c, m in calls.items()}
+
+
+def step_passes() -> int:
+    """Passes the card ran through the VisCoIN step's region (preprocess to
+    backward, where the kernels launch) since the graph counter's reset:
+    GRAPH_WARMUP warm-up passes per capture (the capture runs nothing), one
+    per replay and one per eager step."""
+    counts = tracing.graph_counts()
+    return T.GRAPH_WARMUP * counts["captures"] + counts["replays"] + counts["eager"]
 
 
 def phase_adjoint(calls: dict[tuple, int], label: str = "the train step's") -> float:
@@ -1255,7 +1306,9 @@ def phase_adjoint(calls: dict[tuple, int], label: str = "the train step's") -> f
 
 def phase_train(runs: dict[str, TrainRun], models, card: str,
                 calls: dict[str, dict[tuple, int]]) -> tuple[dict, dict]:
-    """For each dtype: exact launch counts of one step and one sampler call,
+    """For each dtype: exact launch counts of one pass through the step's
+    region (``calls``, the recorded step) and of one sampler call, a step
+    launching that per pass (a replay of its CUDA graph one),
     the grad_fn of each wrapper's CUDA output, finite losses and a non-zero
     gradient on every trainable leaf; then TRAIN_WARMUP + TRAIN_STEPS steps
     timed on the host clock (each step ends by reading its loss), peak
@@ -1275,9 +1328,14 @@ def phase_train(runs: dict[str, TrainRun], models, card: str,
         assert run.sample_if_needed()
         sampler_counts = _kernels.launch_counts()
         _kernels.reset_launch_counts()
+        tracing.reset_graph_counts()
         metrics = run.step()
         step_counts = _kernels.launch_counts()
-        assert step_counts == step_want, (dtype, step_counts, step_want)
+        passes = step_passes()
+        per_pass = {n: sum(m for c, m in calls[dtype].items() if c[0] == n) for n in KERNELS}
+        assert per_pass == step_want, (dtype, per_pass, step_want)
+        assert step_counts == {k: v * passes for k, v in step_want.items()}, (
+            dtype, step_counts, passes, step_want)
         assert sampler_counts == sampler_want, (dtype, sampler_counts, sampler_want)
         values = {k: float(v) for k, v in metrics.items()}
         assert all(math.isfinite(v) for v in values.values()), values
@@ -1286,13 +1344,15 @@ def phase_train(runs: dict[str, TrainRun], models, card: str,
                 or not torch.isfinite(p.grad).all()]
         assert not zero, (dtype, zero)
         n_leaves = sum(len(grp) for grp in run.state.params.values())
-        say("train", f"{dtype}: one step launched {step_counts} (expected {step_want}); the "
+        say("train", f"{dtype}: one pass through the step launched {per_pass} (expected "
+            f"{step_want}), the step after it {step_counts} ({passes} passes: "
+            f"{dict(tracing.graph_counts())}); the "
             f"sampler ({run.k} x {BATCH} images) launched {sampler_counts}; losses "
             + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
             + f"; all {n_leaves} trainable leaves of Psi, Theta and the mapping have finite, "
             "non-zero gradients")
         if dtype == "float32":
-            launches = step_counts
+            launches = per_pass
 
         step_ms, sample_ms = [], []
         torch.cuda.synchronize()
@@ -1325,6 +1385,7 @@ def phase_train(runs: dict[str, TrainRun], models, card: str,
             f"cudnn={torch.backends.cudnn.allow_tf32}, matmul="
             f"{torch.backends.cuda.matmul.allow_tf32} (PyTorch's defaults); {card}")
         rec["profile"] = profile_step(run, dtype, kernels_want(calls[dtype]))
+        run.release()  # the lanes share the card: no graph held past its dtype
         record[dtype] = rec
     return record, launches
 
@@ -1543,8 +1604,8 @@ def loop_data():
 def loop_run(models, gen, lpips, ckpt_dir: str, log: str, cfg_kw: dict, run_kw: dict,
              watch: bool = False, threads: int = 8):
     """One train_viscoin call on a copy of the bundle, with the launch
-    counts reset just before and read just after; ``threads``: the train
-    loader's."""
+    counts and the graph counter reset just before and read just after
+    (the timings' "graph"); ``threads``: the train loader's."""
     m = copy.deepcopy(models)
     train_ds, test_ds = loop_data()
     tl = RecordingLoader(train_ds, BATCH, seed=SEED, num_threads=threads)
@@ -1556,19 +1617,26 @@ def loop_run(models, gen, lpips, ckpt_dir: str, log: str, cfg_kw: dict, run_kw: 
     torch.cuda.synchronize()
     with LoopRecorder(watch) as rec:
         _kernels.reset_launch_counts()
+        tracing.reset_graph_counts()
         T.train_viscoin(m, gen, lpips, tl, el, cfg, seed=SEED, checkpoint_dir=ckpt_dir,
                         timings=timings, device="cuda", **{"prefetch": 1, **run_kw})
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
+    timings["graph"] = dict(tracing.graph_counts())
     return m, rec, timings, counts, tl
 
 
-def loop_expected(step: dict, sampler: dict, per_pass: dict, steps: int, samplers: int,
-                  eval_batches: int, probe_chunks: int) -> dict[str, int]:
-    """Launches of a loop run: steps, sampler calls, and one generator pass
-    per eval batch and per probe chunk."""
+def loop_expected(step: dict, sampler: dict, per_pass: dict, timings: dict, steps: int,
+                  samplers: int, eval_batches: int, probe_chunks: int) -> dict[str, int]:
+    """Launches of a loop run of ``steps`` steps (``timings`` its loop_run's):
+    the passes through the step's region (the warm-up before the first
+    step's capture, then every step a replay of the CUDA graph; the run
+    starts before the cd_fid_iteration gate and stays on its side), sampler
+    calls, and one generator pass per eval batch and per probe chunk."""
+    assert timings["graph"] == {"captures": 1, "replays": steps}, timings["graph"]
     passes = eval_batches + probe_chunks
-    return {k: step[k] * steps + sampler[k] * samplers + per_pass[k] * passes for k in step}
+    return {k: step[k] * (T.GRAPH_WARMUP + steps) + sampler[k] * samplers + per_pass[k] * passes
+            for k in step}
 
 
 def tree_deviation(a, b, path: str = "") -> dict[str, float]:
@@ -1683,7 +1751,8 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
             m_a, rec_a, tim_a, counts_a, tl_a = loop_run(models, gen, lpips, dir_a, "a.jsonl",
                                                          dict(iterations=8), kw_a)
         out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
-        want_a = loop_expected(step_want, sampler_want, per_pass, 8, 4, 2 * EVAL_BATCHES, 1)
+        want_a = loop_expected(step_want, sampler_want, per_pass, tim_a, 8, 4,
+                               2 * EVAL_BATCHES, 1)
         assert counts_a == want_a, ("run A launches", counts_a, want_a)
         calls_a = path_a.unique()
         recorded = {n: sum(m for c, m in calls_a.items() if c[0] == n) for n in KERNELS}
@@ -1713,7 +1782,8 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         np.testing.assert_array_equal(got.classify(imgs)["logits"],
                                       want.classify(imgs)["logits"])
         say("loop", f"run A (8 iterations; eval, checkpoint, probe every 4): launches {counts_a} "
-            f"= expected {want_a} (8 steps, 4 sampler calls, {2 * EVAL_BATCHES} eval batches, "
+            f"= expected {want_a} (8 steps: {tim_a['graph']}, {T.GRAPH_WARMUP + 8} passes "
+            f"through the step; 4 sampler calls, {2 * EVAL_BATCHES} eval batches, "
             "1 probe chunk); 2 jsonl records with every train_*/test_* key, finite; the bundle "
             "viscoin1-2 reloads through load_viscoin_bundle with every tensor equal to the one "
             "saved and reconstructs bit-equal (u8, predictions, logits) on the card")
@@ -1733,7 +1803,7 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         nondeterministic = caught.__enter__()
         warnings.simplefilter("always")
         try:
-            _, rec_b1, _, counts_b1, tl_b1 = loop_run(models, gen, lpips, dir_b, "b1.jsonl",
+            _, rec_b1, tim_b1, counts_b1, tl_b1 = loop_run(models, gen, lpips, dir_b, "b1.jsonl",
                                                       dict(iterations=8),
                                                       dict(kw_b, stop_after=4))
             state = torch.load(os.path.join(dir_b, "train_state", "train_state.pt"),
@@ -1742,7 +1812,7 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
             dir_b3 = os.path.join(tmp, "b3")  # B1's state, for the planted fault (run B3)
             shutil.copytree(os.path.join(dir_b, "train_state"),
                             os.path.join(dir_b3, "train_state"))
-            m_b, rec_b2, _, counts_b2, tl_b2 = loop_run(
+            m_b, rec_b2, tim_b2, counts_b2, tl_b2 = loop_run(
                 models, gen, lpips, dir_b, "b2.jsonl", dict(iterations=8),
                 dict(kw_b, resume_from=os.path.join(dir_b, "train_state")))
             dir_a2 = os.path.join(tmp, "a2")
@@ -1760,8 +1830,8 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
             torch.backends.cudnn.deterministic = False
         flagged = sorted({str(w.message).splitlines()[0][:200] for w in nondeterministic
                           if "deterministic" in str(w.message)})
-        want_b1 = loop_expected(step_want, sampler_want, per_pass, 4, 2, EVAL_BATCHES, 0)
-        want_b2 = loop_expected(step_want, sampler_want, per_pass, 4, 2, EVAL_BATCHES, 1)
+        want_b1 = loop_expected(step_want, sampler_want, per_pass, tim_b1, 4, 2, EVAL_BATCHES, 0)
+        want_b2 = loop_expected(step_want, sampler_want, per_pass, tim_b2, 4, 2, EVAL_BATCHES, 1)
         assert counts_b1 == want_b1, ("run B1 launches", counts_b1, want_b1)
         assert counts_b2 == want_b2, ("run B2 launches", counts_b2, want_b2)
         check_records(read_jsonl(os.path.join(dir_b, "b1.jsonl")), 1, "run B1")
@@ -1807,13 +1877,13 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         # Run C: gradient accumulation 2, 4 micro-steps.
         dir_c = os.path.join(tmp, "c")
         os.makedirs(dir_c)
-        _, rec_c, _, counts_c, _ = loop_run(
+        _, rec_c, tim_c, counts_c, _ = loop_run(
             models, gen, lpips, dir_c, "c.jsonl", dict(iterations=4, gradient_accumulation=2),
             dict(eval_every=0, checkpoint_every=0, faithfulness_every=0), watch=True)
         moved = [not all(torch.equal(a, b) for a, b in zip(e["before"], e["after"]))
                  for e in rec_c.steps]
         assert moved == [False, True, False, True], moved
-        want_c = loop_expected(step_want, sampler_want, per_pass, 4, 2, 0, 0)
+        want_c = loop_expected(step_want, sampler_want, per_pass, tim_c, 4, 2, 0, 0)
         assert counts_c == want_c, ("run C launches", counts_c, want_c)
         say("loop", f"run C (gradient accumulation 2, 4 micro-steps): the watched parameters "
             f"({', '.join(f'{g}.{n}' for g, n in WATCHED)}) moved after micro-steps "
@@ -1822,11 +1892,12 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         # Run D: device busy share over 3 profiled steps (steps 2-4 of 5).
         dir_d = os.path.join(tmp, "d")
         os.makedirs(dir_d)
-        _, _, _, counts_d, _ = loop_run(
+        _, _, tim_d, counts_d, _ = loop_run(
             models, gen, lpips, dir_d, "d.jsonl", dict(iterations=5),
             dict(eval_every=0, checkpoint_every=0, faithfulness_every=0,
                  profile_dir=os.path.join(dir_d, "prof")))
-        assert counts_d == loop_expected(step_want, sampler_want, per_pass, 5, 3, 0, 0), counts_d
+        assert counts_d == loop_expected(step_want, sampler_want, per_pass, tim_d, 5, 3, 0, 0), \
+            counts_d
         kernel_ms, window_ms, n_kernels = busy_share(os.path.join(dir_d, "prof", "trace.json"))
         out["busy"] = dict(kernel_ms=kernel_ms, window_ms=window_ms, kernels=n_kernels)
 
@@ -1838,7 +1909,7 @@ def phase_loop(models, gen, lpips, isolated: dict, card: str) -> dict:
         _, _, tim_e, counts_e, _ = loop_run(
             models, gen, lpips, dir_e, "e.jsonl", dict(iterations=12),
             dict(eval_every=0, checkpoint_every=0, faithfulness_every=0))
-        assert counts_e == loop_expected(step_want, sampler_want, per_pass, 12, 6, 0, 0)
+        assert counts_e == loop_expected(step_want, sampler_want, per_pass, tim_e, 12, 6, 0, 0)
         steady = {"prefetch 1, 8 loader threads": [1e3 * t for t in tim_e["seconds"]["steps"][2:]]}
         out["steady_step_ms"] = steady
 
@@ -4576,16 +4647,23 @@ class Groups:
         if self.done is not None:
             return self.done
         out = {}
+        # A session that has failed already first: its output names the cause,
+        # while one before it in the order may wait (the mp ranks at their pause).
+        failed_first = sorted(self.procs.items(), key=lambda kv: kv[1].poll() in (None, 0))
         try:
-            for label, proc in self.procs.items():
+            for label, proc in failed_first:
                 left = max(1.0, timeout - (time.perf_counter() - self.t0))
                 try:
                     log, _ = proc.communicate(timeout=left)
                 except subprocess.TimeoutExpired:
                     raise RuntimeError(f"{label} timed out after {timeout} s") from None
                 if proc.returncode != 0:
+                    # Each rank's last error line too: a torchrun log ends with
+                    # the ranks that died of the first one's failure.
+                    errors = [ln for ln in log.splitlines() if "Error" in ln][-12:]
                     raise RuntimeError(f"{label}: {' '.join(self.cmds[label][0][2:8])} ... "
-                                       f"exited {proc.returncode}:\n{log[-6000:]}")
+                                       f"exited {proc.returncode}:\n{log[-6000:]}\nerror lines:\n"
+                                       + "\n".join(ln[:600] for ln in errors))
                 out[label] = (time.perf_counter() - self.t0, log)
         finally:
             self.kill()
@@ -5375,6 +5453,11 @@ def mp_worker_main(out_dir: str) -> int:
 
     world = int(os.environ["WORLD_SIZE"])
     mesh = M.make_mesh_2d(1, 2, "cuda:0", backend="gloo") if world == 2 else None
+    if mesh is None:
+        # The reference's VisCoIN steps eager, as the ranks' (a model axis):
+        # it shares the card with them and the main process, and a CUDA
+        # graph's private pool would hold its activations a second time.
+        T.eager_reason = lambda *a, **k: "reference"
     defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     set_tf32(False)
     t0 = time.perf_counter()
@@ -5982,7 +6065,8 @@ def phase_timings(models, path_calls: dict[str, dict[tuple, int]], loop_calls: d
     tf32_defaults(device)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     card = device["nvidia_smi"]
-    over = (f"the loop's run A: 8 fp32 train steps, 4 sampler calls, {2 * EVAL_BATCHES} eval "
+    over = (f"the loop's run A: 8 fp32 train steps (a warm-up pass, then 8 replays of the "
+            f"step's CUDA graph), 4 sampler calls, {2 * EVAL_BATCHES} eval "
             f"batches of {BATCH}, 1 probe chunk of {TE.PROBE_BATCH}; every kernel call as often "
             "as the run made it")
     sums, rows, host = time_path("float32 loop run A (summed)", loop_calls, gen, card)

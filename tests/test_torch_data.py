@@ -11,6 +11,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from torch_port_helpers import one_torch_thread  # noqa: F401 - an autouse fixture
 from viscoin_tpu import native as jax_native
@@ -289,3 +290,32 @@ def test_prefetcher_close_while_the_producer_is_busy():
     assert not pf._thread.is_alive()
     with pytest.raises(TL.PrefetcherClosed):
         pf.next()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_channel_constants_equal_the_per_call_values_and_are_made_once(dtype, monkeypatch):
+    """The ImageNet mean and std (``_stats``) and LPIPS's shift and scale are
+    the values the per-call ``torch.tensor(values, dtype=)`` made, in fp32
+    and bf16, made once per (values, device, dtype); one first made in
+    inference mode can enter autograd; while exporting each is made afresh."""
+    from viscoin_tpu_torch.data import transforms as tr
+    from viscoin_tpu_torch.models import lpips as lp
+
+    x = torch.zeros(2, 3, 4, 4, dtype=dtype)
+    mean, std = tr._stats(x)
+    assert torch.equal(mean, torch.tensor(tr.IMAGENET_MEAN, dtype=dtype)[:, None, None])
+    assert torch.equal(std, torch.tensor(tr.IMAGENET_STD, dtype=dtype)[:, None, None])
+    for values in (tr.IMAGENET_MEAN, tr.IMAGENET_STD, lp.SHIFT, lp.SCALE):
+        c = tr.channel_constant(values, x)
+        assert c.dtype == dtype and c.shape == (3, 1, 1)
+        assert torch.equal(c, torch.tensor(values, dtype=dtype)[:, None, None])
+        assert tr.channel_constant(values, x) is c
+    assert tr._stats(x)[0] is mean
+    with torch.inference_mode():
+        fresh = tr.channel_constant((0.25, 0.5, 0.125), x)
+    assert not fresh.is_inference()
+    y = torch.ones(1, 3, 1, 1, dtype=dtype, requires_grad=True)
+    (y * fresh).sum().backward()
+    assert torch.equal(y.grad, fresh.expand(3, 1, 1)[None])
+    monkeypatch.setattr(torch.compiler, "is_exporting", lambda: True)
+    assert tr.channel_constant(lp.SHIFT, x) is not tr.channel_constant(lp.SHIFT, x)

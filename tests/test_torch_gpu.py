@@ -12,8 +12,11 @@ that has a card but no JAX:
 Without a card every test skips (the check is made inside a fixture).
 """
 
+import contextlib
+import json
 import math
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -549,6 +552,195 @@ def test_toy_loop_on_the_card_resumes_and_counts(cuda, tmp_path):
     np.testing.assert_allclose(first + rest, unbroken, rtol=1e-3)
     with open(tmp_path / "a.jsonl") as f:
         assert len(f.readlines()) == 2
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms and torch's (warn_only), the
+    defaults after: two runs of one step are then equal bit for bit."""
+    from viscoin_tpu_torch.utils.cudnn import deterministic_cudnn
+
+    with deterministic_cudnn(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def _forced_eager(monkeypatch):
+    """Every VisCoIN step eager, as on a host without a card."""
+    monkeypatch.setattr(T, "eager_reason", lambda *a, **k: "forced")
+
+
+@pytest.mark.parametrize("accumulation,data_parallel", [(1, False), (2, False), (1, True)],
+                         ids=["plain", "accumulation_2", "nccl_world_1"])
+def test_graphed_viscoin_step_is_bit_equal_to_the_eager_step(cuda, monkeypatch, accumulation,
+                                                             data_parallel):
+    """Six steps of the toy bundle (32², batch 2, synthetic batches two
+    steps at a time) as CUDA graph replays and eagerly, under deterministic
+    algorithms: steps 0-5 cross the cd_fid_iteration gate (2: the second
+    capture is at step 3) and two sampler groups' boundaries, with gradient
+    accumulation 2 three update windows, and on a data-parallel mesh (NCCL
+    at world size 1, as `torchrun --nproc-per-node 1` runs the trainer) the
+    gradient all-reduce and the metrics' mean after each replay. Every
+    metric (kept as returned, so an alias between two calls' metrics would
+    show), every gradient or accumulated mean after each step, every
+    parameter and both Adams' moments are bit-equal; the counter reads two
+    captures, six replays (the capturing steps replay too) and no eager
+    step. The kernels' launch counts count what the card ran: the warm-up
+    and each replay, not the capture."""
+    from torch_dp_worker import free_port
+
+    from viscoin_tpu_torch.parallel import mesh as M
+    from viscoin_tpu_torch.utils import tracing
+
+    mesh = None
+    if data_parallel:
+        for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=str(free_port())).items():
+            monkeypatch.setenv(k, v)
+        mesh = M.make_mesh("cuda")
+
+    def run():
+        models, gen, lpips = _toy_loop_modules(cuda)
+        cfg = T.VisCoINTrainingParams(iterations=10, batch_size=2, cd_fid_iteration=2,
+                                      gradient_accumulation=accumulation,
+                                      fake_presample_steps=2)
+        frozen = T.make_frozen(models, gen, lpips)
+        state = T.create_train_state(models, cfg)
+        step = T.make_train_step(models, gen, lpips, cfg, external_fakes=True, mesh=mesh)
+        sample = T.make_sample_fakes(gen, cfg, mesh)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        images = torch.randint(0, 256, (12, 32, 32, 3), generator=g, device=cuda,
+                               dtype=torch.uint8)
+        labels = torch.randint(0, 4, (12,), generator=g, device=cuda)
+        steps, launches = [], []
+        for i in range(6):
+            if i % 2 == 0:
+                fakes = sample(frozen, T.fake_sample_keys(7, i, 2))
+            _kernels.reset_launch_counts()
+            rng = T.step_generator(7, i, cuda, mesh)
+            _, metrics = step(state, frozen, images[2 * i: 2 * i + 2], labels[2 * i: 2 * i + 2],
+                              rng, fakes[i % 2])
+            launches.append(sum(_kernels.launch_counts().values()))
+            grads = ({f"{g}.{n}": p.grad.clone() for g, grp in state.params.items()
+                      for n, p in grp.items() if p.grad is not None} if accumulation == 1
+                     else {f"{g}.{n}": a.clone() for g, grp in state.acc.items()
+                           for n, a in grp.items()})
+            steps.append((metrics, grads, rng.get_state()))
+        tensors = {f"{g}.{n}": p.detach().clone() for g, grp in state.params.items()
+                   for n, p in grp.items()}
+        for opt in (state.opt, state.gan_opt):
+            for k, p in enumerate(p for group in opt.param_groups for p in group["params"]):
+                tensors.update({f"{id(opt)}.{k}.{name}": v for name, v in opt.state[p].items()
+                                if name != "step"})
+        return steps, list(tensors.values()), launches
+
+    try:
+        with _deterministic():
+            tracing.reset_graph_counts()
+            M.reset_collective_counts()
+            graphed, graphed_tensors, launches = run()
+            counts, collectives = tracing.graph_counts(), M.collective_counts()
+            with monkeypatch.context() as m:
+                _forced_eager(m)
+                eager, eager_tensors, eager_launches = run()
+    finally:
+        if mesh is not None:
+            M.destroy_mesh(mesh)
+    assert counts == {"captures": 2, "replays": 6}, counts
+    if data_parallel:  # one all-reduce per update (one dtype) and one mean a step
+        assert (collectives["grad"], collectives["mean"]) == (6, 6), collectives
+    passes = [1 + T.GRAPH_WARMUP if i in (0, 3) else 1 for i in range(6)]  # 0, 3: captures
+    assert min(eager_launches) > 0, eager_launches
+    assert launches == [n * e for n, e in zip(passes, eager_launches)], (launches, eager_launches)
+    assert len(graphed_tensors) == len(eager_tensors)
+    for a, b in zip(graphed_tensors, eager_tensors):
+        assert torch.equal(a, b)
+    for i, ((m_g, g_g, s_g), (m_e, g_e, s_e)) in enumerate(zip(graphed, eager)):
+        assert torch.equal(s_g, s_e), i  # the step's generator advanced alike
+        assert m_g.keys() == m_e.keys() and g_g.keys() == g_e.keys(), i
+        for k in m_e:
+            assert torch.equal(m_g[k], m_e[k]), (i, k)
+        for k in g_e:
+            assert torch.equal(g_g[k], g_e[k]), (i, k)
+
+
+def test_graphed_step_captures_again_when_a_kernel_setting_changes(cuda, monkeypatch):
+    """Three steps of the toy bundle with cuDNN's TF32 off, on, then off
+    again: each change captures anew (three captures, three replays, the
+    graph of the setting before dropped), and every step is bit-equal to
+    the eager step under the same setting."""
+    from viscoin_tpu_torch.utils import tracing
+
+    def run():
+        models, gen, lpips = _toy_loop_modules(cuda)
+        cfg = T.VisCoINTrainingParams(iterations=10, batch_size=2, cd_fid_iteration=-1)
+        frozen = T.make_frozen(models, gen, lpips)
+        state = T.create_train_state(models, cfg)
+        step = T.make_train_step(models, gen, lpips, cfg, external_fakes=True)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        images = torch.randint(0, 256, (2, 32, 32, 3), generator=g, device=cuda,
+                               dtype=torch.uint8)
+        labels = torch.randint(0, 4, (2,), generator=g, device=cuda)
+        fake = torch.randn((2, 3, 32, 32), generator=g, device=cuda)
+        metrics = []
+        try:
+            for i, tf32 in enumerate((False, True, False)):
+                torch.backends.cudnn.allow_tf32 = tf32
+                metrics.append(step(state, frozen, images, labels, T.step_generator(7, i, cuda),
+                                    fake)[1])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        return metrics, [p.detach().clone() for grp in state.params.values()
+                         for p in grp.values()]
+
+    with _deterministic():
+        tracing.reset_graph_counts()
+        graphed = run()
+        counts = tracing.graph_counts()
+        with monkeypatch.context() as m:
+            _forced_eager(m)
+            eager = run()
+    assert counts == {"captures": 3, "replays": 3}, counts
+    for a, b in zip(graphed[0], eager[0]):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    assert all(torch.equal(a, b) for a, b in zip(graphed[1], eager[1]))
+
+
+def test_toy_loop_with_graphed_steps_logs_what_the_eager_loop_logs(cuda, tmp_path, monkeypatch):
+    """train_viscoin on the card for 4 steps with an eval every 2 (and the
+    probe and a checkpoint between steps), graphed and eagerly, under
+    deterministic algorithms: the jsonl records are equal, so the eval read
+    the parameters the replays trained."""
+    from viscoin_tpu_torch.data.datasets import SyntheticDataset
+    from viscoin_tpu_torch.data.loader import DataLoader
+    from viscoin_tpu_torch.utils import tracing
+    from viscoin_tpu_torch.utils.logging import configure_score_logging
+
+    def run(name):
+        models, gen, lpips = _toy_loop_modules(cuda)
+        tl = DataLoader(SyntheticDataset(n=6, n_classes=4, image_size=32), 2, seed=1)
+        el = DataLoader(SyntheticDataset(n=3, n_classes=4, image_size=32, mode="test"), 2,
+                        shuffle=False)
+        (tmp_path / name).mkdir()
+        configure_score_logging(str(tmp_path / f"{name}.jsonl"))
+        T.train_viscoin(models, gen, lpips, tl, el, T.VisCoINTrainingParams(
+            iterations=4, batch_size=2, cd_fid_iteration=-1), checkpoint_dir=str(tmp_path / name),
+            eval_every=2, checkpoint_every=2, faithfulness_every=2, prefetch=1)
+        with open(tmp_path / f"{name}.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    with _deterministic():
+        tracing.reset_graph_counts()
+        graphed = run("graphed")
+        assert tracing.graph_counts() == {"captures": 1, "replays": 4}
+        with monkeypatch.context() as m:
+            _forced_eager(m)
+            eager = run("eager")
+    assert len(graphed) == 2 and graphed == eager
 
 
 def test_toy_amplify_on_the_card_matches_the_cpu(cuda):

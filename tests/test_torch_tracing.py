@@ -7,10 +7,12 @@ group; without a profiler a span is one shared no-op, and the steps compute
 bit for bit what they compute with the helper stubbed out (with a profiler
 too); on a 2-rank gloo mesh ``collective_counts`` counts the gradient
 all-reduce and the means of a GAN step; ``train_viscoin``'s timings keep
-their keys."""
+their keys; the VisCoIN step's route to its CUDA graph or to the eager
+step, and the counter of how each step ran."""
 
 import contextlib
 import copy
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -247,3 +249,86 @@ def test_spatial_counts_keep_their_own_kinds():
     assert not any(S.counts().values())
     S.reset_counts()
 
+
+
+@pytest.mark.parametrize("device,mesh,remat,want", [
+    ("cpu", None, "", "not_cuda"),
+    ("cpu", SimpleNamespace(model_axis=object()), "lpips", "not_cuda"),
+    ("cuda", SimpleNamespace(model_axis=object()), "", "model_parallel"),
+    ("cuda", SimpleNamespace(model_axis=object()), "gan", "model_parallel"),
+    ("cuda", None, "lpips", "remat"),
+    ("cuda", None, "gan+classifier", "remat"),
+    ("cuda", SimpleNamespace(model_axis=None), "", None),  # data parallelism alone
+    ("cuda", None, "", None),
+], ids=["cpu", "cpu_remat_model_axis", "model_axis", "model_axis_remat", "remat",
+        "remat_two", "data_parallel", "card"])
+def test_eager_reason_routes_the_step(device, mesh, remat, want):
+    """Eager on the CPU, with a model axis and with remat; the CUDA graph on
+    a card, with or without a data-parallel mesh."""
+    assert T.eager_reason(torch.device(device), mesh, remat) == want
+
+
+def test_cpu_steps_count_as_eager_with_their_reason():
+    """Every step on the CPU is counted eager, under "not_cuda"."""
+    tracing.reset_graph_counts()
+    viscoin_steps(2)
+    assert tracing.graph_counts() == {"eager": 2, "eager.not_cuda": 2}
+    tracing.reset_graph_counts()
+    assert tracing.graph_counts() == {}
+
+
+def test_a_failed_capture_warns_once_and_the_steps_stay_eager(monkeypatch):
+    """Routed to the graph where no capture can start (the CPU, where
+    torch raises a RuntimeError as CUDA does when it refuses a capture),
+    the first step warns once, every step runs eagerly under "capture_failed" and
+    computes what the eager step computes, bit for bit."""
+    want_metrics, want_tensors = viscoin_steps(3)
+    monkeypatch.setattr(T, "eager_reason", lambda *a, **k: None)
+    tracing.reset_graph_counts()
+    with pytest.warns(RuntimeWarning, match="capture failed") as caught:
+        metrics, tensors = viscoin_steps(3)
+    assert sum("capture failed" in str(w.message) for w in caught) == 1
+    assert tracing.graph_counts() == {"eager": 3, "eager.capture_failed": 3}
+    for a, b in [*zip(metrics, want_metrics), (tensors, want_tensors)]:
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+def test_an_error_other_than_a_capture_refusal_raises(monkeypatch):
+    """Only a RuntimeError, what CUDA's refusals raise, sends the step
+    back to the eager path: any other error inside the capture raises and
+    counts no step."""
+
+    def broken(*a, **k):
+        raise TypeError("a fault of the step's own code")
+
+    monkeypatch.setattr(T, "eager_reason", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "Stream", broken)
+    tracing.reset_graph_counts()
+    with pytest.raises(TypeError, match="own code"):
+        viscoin_steps(1)
+    assert tracing.graph_counts() == {}
+
+
+def test_add_launches_counts_what_no_wrapper_counted():
+    """A replay adds its capture's launches; a capture takes its own back."""
+    from viscoin_tpu_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    _kernels.count_launch("bias_act")
+    _kernels.add_launches({"bias_act": 3, "upfirdn2d": 2}, 2)
+    assert _kernels.launch_counts() == {"bias_act": 7, "bias_act_grad": 0, "upfirdn2d": 4}
+    _kernels.add_launches({"bias_act": 7, "upfirdn2d": 4}, -1)
+    assert set(_kernels.launch_counts().values()) == {0}
+
+
+def test_step_metrics_are_not_aliased_between_calls():
+    """Two calls' metrics are tensors of their own: no storage shared, and
+    the first call's values stay what they were after the second."""
+    (first, second), _ = viscoin_steps(2)
+    kept = {k: v.clone() for k, v in first.items()}
+    assert first.keys() == second.keys() == set(T.TRAIN_METRICS) | {"total_loss"}
+    for k in first:
+        assert first[k].untyped_storage().data_ptr() != second[k].untyped_storage().data_ptr()
+        assert torch.equal(first[k], kept[k]), k

@@ -45,6 +45,7 @@ from viscoin_tpu_torch.models.lpips import LPIPS as TLPIPS
 from viscoin_tpu_torch.models.stylegan import Generator as TGenerator
 from viscoin_tpu_torch.models.stylegan import GeneratorAdapted as TGeneratorAdapted
 from viscoin_tpu_torch.models.stylegan import MappingNetwork as TMappingNetwork
+from viscoin_tpu_torch.models.stylegan import MappingNetworkAdapted as TMappingNetworkAdapted
 from viscoin_tpu_torch.models.stylegan import adapted_state_from_gan
 from viscoin_tpu_torch.parallel.mesh import Mesh
 from viscoin_tpu_torch.train import losses as TL
@@ -112,6 +113,55 @@ def test_mapping_network_matches_jax():
             got = tm(torch.from_numpy(z), truncation_psi=psi)
         assert got.shape == (4, 5, 20)
         _close(got.numpy(), want)
+
+
+def _styles_by_index(m: TMappingNetworkAdapted, z1: torch.Tensor, z2: torch.Tensor):
+    """The adapted mapping's styles as its forward wrote them before the
+    single concatenation: each group's rows assigned at its index list."""
+    from viscoin_tpu_torch.models.stylegan import flatten_concepts, normalize_2nd_moment
+
+    x1 = normalize_2nd_moment(flatten_concepts(z1).float())
+    x2 = normalize_2nd_moment(z2.float())
+    styles = torch.zeros((x1.shape[0], m.num_ws, m.w_dim))
+    if m.g1:
+        styles[:, m.g1] = m._run_group(x1, "g1", len(m.g1))
+    if m.g2:
+        styles[:, m.g2] = m._run_group(x2, "g2", len(m.g2))
+    return styles + m.fixed_w_avg[None, None, :]
+
+
+@pytest.mark.parametrize("coarse,mid,num_ws", [(2, 10, 14), (0, 2, 6), (3, 5, 6), (0, 5, 6),
+                                               (4, 3, 6)],
+                         ids=["default", "g2_after_only", "g2_before_only", "g2_empty",
+                              "g1_empty"])
+def test_adapted_mapping_concatenation_equals_index_assignment(coarse, mid, num_ws):
+    """MappingNetworkAdapted's styles, one concatenation of g2's rows
+    before g1, g1, and g2's rows after it, are the index-assignment form's
+    bit for bit, forward and every parameter's and input's gradient, on
+    layouts where either group is empty or g2 lies on one side of g1."""
+    m = TMappingNetworkAdapted(z1_dim=9 * 2, z2_dim=9 * 2, w_dim=8, num_ws=num_ws,
+                               num_layers=2, coarse_layer=coarse, mid_layer=mid, device="cpu")
+    with torch.no_grad():
+        m.init_weights(torch.Generator().manual_seed(4))
+        for p in m.parameters():
+            p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    g = torch.Generator().manual_seed(5)
+    z1 = torch.randn(3, 2, 3, 3, generator=g)
+    z2 = torch.randn(3, 18, generator=g)
+    dy = torch.randn(3, num_ws, 8, generator=g)
+    grads = []
+    for forward in (m, lambda a, b: _styles_by_index(m, a, b)):
+        m.zero_grad(set_to_none=True)
+        a, b = z1.clone().requires_grad_(True), z2.clone().requires_grad_(True)
+        y = forward(a, b)
+        y.backward(dy)
+        grads.append((y.detach(), a.grad, b.grad,
+                      [None if p.grad is None else p.grad.clone() for p in m.parameters()]))
+    (y, ga, gb, gp), (y_ref, ga_ref, gb_ref, gp_ref) = grads
+    assert y.shape == (3, num_ws, 8) and torch.equal(y, y_ref)
+    for got, want in zip([ga, gb, *gp], [ga_ref, gb_ref, *gp_ref]):  # None: an empty group's z
+        assert (got is None and want is None) or torch.equal(got, want)
+    assert (ga is None) == (not m.g1) and (gb is None) == (not m.g2)
 
 
 def test_adapted_state_from_gan_matches_jax(jax_generator):

@@ -24,6 +24,7 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 TRAIN_SIZE = 256
 TEST_RESIZE = int(256 / 0.875)  # 292
+_CHANNEL_CONSTANTS: dict[tuple, torch.Tensor] = {}
 
 
 def random_resized_crop_params(height: int, width: int, rng: np.random.Generator,
@@ -93,10 +94,26 @@ def host_test_transform(img: np.ndarray, size: int = TRAIN_SIZE,
     return out[top: top + size, left: left + size]
 
 
+def channel_constant(values: tuple[float, ...], like: torch.Tensor) -> torch.Tensor:
+    """``values`` as a (C, 1, 1) tensor of ``like``'s device and dtype, made
+    once per (values, device, dtype): a copy to the card per call waits for
+    the stream, and a CUDA graph cannot capture it. Made outside inference
+    mode, so that a constant first made while serving can enter autograd
+    later. While a program is traced for ``torch.export`` it is made afresh
+    and not kept: a tensor of the tracer's must not outlive its trace."""
+    if torch.compiler.is_exporting():
+        return torch.tensor(values, dtype=like.dtype, device=like.device)[:, None, None]
+    key = (values, like.device, like.dtype)
+    c = _CHANNEL_CONSTANTS.get(key)
+    if c is None:
+        with torch.inference_mode(False):
+            c = _CHANNEL_CONSTANTS[key] = torch.tensor(values, dtype=like.dtype,
+                                                       device=like.device)[:, None, None]
+    return c
+
+
 def _stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)[:, None, None]
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)[:, None, None]
-    return mean, std
+    return channel_constant(IMAGENET_MEAN, x), channel_constant(IMAGENET_STD, x)
 
 
 def device_preprocess(images_u8: torch.Tensor, flip: torch.Tensor | None = None) -> torch.Tensor:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from viscoin_tpu_torch.data.transforms import channel_constant
 from viscoin_tpu_torch.models.resnet import lecun_normal_
 from viscoin_tpu_torch.parallel import spatial as S
 
@@ -89,8 +90,7 @@ class LPIPS(nn.Module):
                 spatial: S.Spatial | None = None) -> torch.Tensor:
         """``spatial``: ``x`` and ``y`` are this rank's rows of H-sharded
         batches; the (B,) distances are whole on every rank."""
-        shift = torch.tensor(SHIFT, dtype=x.dtype, device=x.device)[:, None, None]
-        scale = torch.tensor(SCALE, dtype=x.dtype, device=x.device)[:, None, None]
+        shift, scale = channel_constant(SHIFT, x), channel_constant(SCALE, x)
         fx = self.vgg((x - shift) / scale, spatial)
         fy = self.vgg((y - shift) / scale, spatial)
         total = 0.0
@@ -120,8 +120,7 @@ class LPIPS(nn.Module):
         b_c / Nb)^2, in the inputs' dtype. For nearly equal inputs (PPL's
         pairs, epsilon = 1e-4 apart) the one-pass form's three fp32 sums
         cancel to rounding; this form keeps the difference."""
-        shift = torch.tensor(SHIFT, dtype=x.dtype, device=x.device)[:, None, None]
-        scale = torch.tensor(SCALE, dtype=x.dtype, device=x.device)[:, None, None]
+        shift, scale = channel_constant(SHIFT, x), channel_constant(SCALE, x)
         total = 0.0
         for i, (a, b) in enumerate(zip(self.vgg((x - shift) / scale),
                                        self.vgg((y - shift) / scale))):

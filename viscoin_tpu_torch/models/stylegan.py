@@ -332,6 +332,7 @@ class MappingNetworkAdapted(nn.Module):
         self.activation, self.lr_multiplier = activation, lr_multiplier
         self.g1 = [i for i in range(num_ws) if coarse_layer <= i <= mid_layer]
         self.g2 = [i for i in range(num_ws) if i < coarse_layer or i > mid_layer]
+        self.g2_before = sum(i < coarse_layer for i in self.g2)
         self.feats = {"g1": [z1_dim] + [w_dim] * num_layers,
                       "g2": [z2_dim] + [w_dim] * num_layers}
         for prefix, idxs in (("g1", self.g1), ("g2", self.g2)):
@@ -366,12 +367,14 @@ class MappingNetworkAdapted(nn.Module):
     def forward(self, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
         x1 = normalize_2nd_moment(flatten_concepts(z1).float())
         x2 = normalize_2nd_moment(z2.float())
-        styles = torch.zeros((x1.shape[0], self.num_ws, self.w_dim), device=x1.device)
-        if self.g1:
-            styles[:, self.g1] = self._run_group(x1, "g1", len(self.g1))
-        if self.g2:
-            styles[:, self.g2] = self._run_group(x2, "g2", len(self.g2))
-        return styles + self.fixed_w_avg[None, None, :]
+        # g1 is one run of indices and g2 those before and after it, so the
+        # styles in index order are one concatenation: an index list would be
+        # copied to the card on every call, which a CUDA graph cannot hold.
+        empty = (x1.shape[0], 0, self.w_dim)
+        h1 = self._run_group(x1, "g1", len(self.g1)) if self.g1 else x1.new_zeros(empty)
+        h2 = self._run_group(x2, "g2", len(self.g2)) if self.g2 else x2.new_zeros(empty)
+        k = self.g2_before
+        return torch.cat([h2[:, :k], h1, h2[:, k:]], dim=1) + self.fixed_w_avg[None, None, :]
 
 
 class MappingNetwork(nn.Module):

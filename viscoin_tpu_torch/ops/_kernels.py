@@ -13,7 +13,9 @@ own launch count (``bias_act.cu`` holds ``bias_act`` and its backward,
 ``bias_act_grad``). Every wrapper calls :func:`count_launch` right after its
 kernel launched successfully, and nowhere else, so a run can show that the
 main path went through the kernels (:func:`launch_counts`,
-:func:`reset_launch_counts`).
+:func:`reset_launch_counts`). A CUDA graph counts what it runs
+(:func:`add_launches`): its capture, which runs nothing, takes back what its
+wrappers counted, and each replay adds it again.
 
 Nothing here runs at import: this module imports on machines without
 ``nvcc`` or a card, where only the plain versions of the ops run.
@@ -59,6 +61,15 @@ build_log: dict[str, str] = {}
 def count_launch(name: str) -> None:
     with _lock:
         _launches[name] += 1
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Count ``times`` x ``counts`` launches that no wrapper counted: a CUDA
+    graph's replay runs again the kernels its capture recorded (``times``
+    -1 takes a capture's own count back)."""
+    with _lock:
+        for name, n in counts.items():
+            _launches[name] += times * n
 
 
 def launch_counts() -> dict[str, int]:

@@ -49,6 +49,7 @@ What differs from JAX, by design:
 from __future__ import annotations
 
 import copy
+import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -59,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from viscoin_tpu_torch.data.transforms import device_preprocess
 from viscoin_tpu_torch.models.bundle import VisCoINModels
+from viscoin_tpu_torch.ops import _kernels
 from viscoin_tpu_torch.parallel.mesh import Mesh, all_mean, all_reduce_grads, broadcast_tree
 from viscoin_tpu_torch.parallel.spatial import bundle_spatial, spatial_for
 from viscoin_tpu_torch.train import losses as L
@@ -68,6 +70,7 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_TARGETS = ("lpips", "classifier", "gan")
 _SAMPLER_TAG = 0x53414D50  # "SAMP": keeps sampler seeds apart from step seeds
 _RANK_TAG = 0x52414E4B  # "RANK": a rank's own seeds under data parallelism
+GRAPH_WARMUP = 1  # eager passes of the step's region on a side stream before its capture
 TRAIN_METRICS = ("acc_loss", "cr_loss", "of_loss", "ortho_loss", "rec_loss", "gan_loss",
                  "inter_loss")
 
@@ -411,6 +414,50 @@ def make_loss_fn(models: VisCoINModels, generator_gan, lpips_module,
     return loss_fn
 
 
+def eager_reason(device, mesh=None, remat: str = "") -> str | None:
+    """Why a step whose inputs live on ``device`` runs eagerly, or None when
+    it runs as a CUDA graph: "not_cuda"; "model_parallel" (a model axis:
+    the halo exchanges are collectives inside the forward and backward);
+    "remat" (a recompute sets its generator's state, which no capture
+    holds). A data-parallel ``mesh`` alone takes the graph: its gradient
+    all-reduce and its metrics' mean run after it, in the eager update."""
+    if torch.device(device).type != "cuda":
+        return "not_cuda"
+    if getattr(mesh, "model_axis", None) is not None:
+        return "model_parallel"
+    if _remat_targets(remat):
+        return "remat"
+    return None
+
+
+def _kernel_settings() -> tuple:
+    """The global settings that choose the kernels a capture records: TF32,
+    cuDNN's choice of algorithm, deterministic algorithms."""
+    b = torch.backends
+    return (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic,
+            b.cudnn.benchmark, torch.are_deterministic_algorithms_enabled())
+
+
+@dataclass
+class _StepGraph:
+    """One captured forward and backward of the step and what it reads and
+    writes: the state and frozen modules it was captured for (held, so that
+    their ids in the cache's key stay theirs), the static inputs (None where
+    the call passed none), the graph's own generator (None: the step draws
+    from the default generator), the metrics stacked in ``names``' order,
+    every trainable parameter with its static gradient (None where it gets
+    none), and the hand-written kernels' launches of one replay."""
+
+    owner: tuple
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list
+    generator: torch.Generator | None
+    names: tuple[str, ...]
+    metrics: torch.Tensor
+    grads: list
+    launches: dict[str, int]
+
+
 def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
                     cfg: VisCoINTrainingParams, preprocess: bool = True,
                     external_fakes: bool = False, mesh=None):
@@ -422,7 +469,25 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
     ``labels`` (B,), ``rng`` the step's generator (:func:`step_generator`),
     ``fake`` (B, 3, H, W) from :func:`make_sample_fakes`, required with
     ``external_fakes`` (without, the step samples the frozen original
-    generator itself). The state is updated in place and returned.
+    generator itself). The state is updated in place and returned; the
+    metrics are tensors of this call's own.
+
+    On a card (:func:`eager_reason` None) the step's forward and backward,
+    from the preprocess to ``total.backward()``, run as one CUDA graph: the
+    first call with given input shapes and dtypes and a given side of the
+    ``cd_fid_iteration`` gate warms the region up on a side stream
+    (``GRAPH_WARMUP`` passes, their gradients discarded) and captures it;
+    every call copies its inputs into the graph's, sets the graph's
+    generator to ``rng``'s state, replays, and leaves ``rng`` advanced as
+    the eager step would. The draws, and so the step, are the eager step's
+    bit for bit. The update stays eager. One graph is kept at a time (it
+    holds a pool of the step's activations): other inputs, the gate's other
+    side or other kernel settings (TF32, cuDNN's algorithms, deterministic
+    algorithms) capture anew. Where CUDA refuses a capture (a RuntimeError)
+    the step stays eager for those inputs; any other error raises.
+    ``utils/tracing.py::graph_counts`` counts how each step ran. The
+    kernels' launch counters count the warm-up and each replay, not the
+    capture, which runs nothing (``ops/_kernels.py::add_launches``).
 
     With a data-parallel ``mesh`` the inputs are this rank's slice of the
     global batch, the update takes the gradients' mean over the ranks and
@@ -430,25 +495,104 @@ def make_train_step(models: VisCoINModels, generator_gan, lpips_module,
     the images are also this rank's rows along H (``fake`` too)."""
     schedule = make_lr_schedule(cfg.learning_rate, cfg.iterations)
     loss_fn = make_loss_fn(models, generator_gan, lpips_module, cfg, mesh)
+    graphs: dict[tuple, _StepGraph | None] = {}  # at most one; None: its capture failed
+
+    def forward_backward(state: TrainState, frozen, images_u8, labels, fake, dropout_mask,
+                         rng) -> dict[str, torch.Tensor]:
+        with tracing.span("viscoin_step.preprocess"):
+            if preprocess:
+                flips = torch.rand(images_u8.shape[0], device=images_u8.device,
+                                   generator=rng) < 0.5
+                real = device_preprocess(images_u8, flips)
+            else:
+                real = images_u8
+        state.opt.zero_grad(set_to_none=True)
+        state.gan_opt.zero_grad(set_to_none=True)
+        total, metrics = loss_fn(state.params, frozen, real, labels, state.step, rng, fake,
+                                 dropout_mask)
+        with tracing.span("viscoin_step.backward"):
+            total.backward()
+        return metrics
+
+    def capture(state: TrainState, frozen, inputs: list, rng) -> _StepGraph:
+        device = inputs[0].device
+        static = [None if t is None else t.clone() for t in inputs]
+        params = [p for grp in state.params.values() for p in grp.values()]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):  # draws from a generator of its own
+                warm = torch.Generator(device=device)
+                if rng is not None:
+                    warm.set_state(rng.get_state())
+                forward_backward(state, frozen, *static, warm)
+        torch.cuda.current_stream(device).wait_stream(side)
+        for p in params:
+            p.grad = None
+        gen = None if rng is None else torch.Generator(device=device)
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        before = _kernels.launch_counts()
+        try:
+            # thread_local: a loader's thread may place the next batch meanwhile.
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                metrics = forward_backward(state, frozen, *static, gen)
+                stacked = torch.stack(list(metrics.values()))
+        finally:  # the capture launched nothing; each replay counts what it recorded
+            launches = {n: m - before[n] for n, m in _kernels.launch_counts().items()}
+            _kernels.add_launches(launches, -1)
+        return _StepGraph((state, frozen), graph, static, gen, tuple(metrics), stacked,
+                          [(p, p.grad) for p in params], launches)
+
+    def replay(g: _StepGraph, inputs: list, rng) -> dict[str, torch.Tensor]:
+        for dst, src in zip(g.inputs, inputs):
+            if dst is not None:
+                dst.copy_(src)
+        if g.generator is not None:
+            g.generator.set_state(rng.get_state())
+        with tracing.span("viscoin_step.replay"):
+            g.graph.replay()
+        _kernels.add_launches(g.launches)
+        if g.generator is not None:
+            rng.set_state(g.generator.get_state())
+        for p, grad in g.grads:
+            p.grad = grad
+        return dict(zip(g.names, g.metrics.clone().unbind()))
+
+    def graphed(state: TrainState, frozen, inputs: list, rng) -> dict[str, torch.Tensor] | None:
+        """The metrics of the step run as its CUDA graph, captured first if
+        need be; None where CUDA refused the capture."""
+        key = (state.step > cfg.cd_fid_iteration, id(state), id(frozen), inputs[0].device,
+               rng is None, _kernel_settings(),
+               *(None if t is None else (tuple(t.shape), t.dtype) for t in inputs))
+        if key not in graphs:
+            graphs.clear()
+            try:
+                graphs[key] = capture(state, frozen, inputs, rng)
+            except RuntimeError as e:  # CUDA refused the capture: the eager step runs
+                graphs[key] = None
+                warnings.warn(f"the VisCoIN step stays eager for these inputs: its CUDA graph "
+                              f"capture failed ({e})", RuntimeWarning, stacklevel=3)
+                return None
+            tracing.count_graph("captures")
+        g = graphs[key]
+        if g is None:
+            return None
+        tracing.count_graph("replays")
+        return replay(g, inputs, rng)
 
     def train_step(state: TrainState, frozen, images_u8, labels, rng, fake=None,
                    dropout_mask=None):
         if external_fakes and fake is None:
             raise ValueError("this step takes its synthetic batch from outside (external_fakes)")
         with tracing.span("viscoin_step"):
-            with tracing.span("viscoin_step.preprocess"):
-                if preprocess:
-                    flips = torch.rand(images_u8.shape[0], device=images_u8.device,
-                                       generator=rng) < 0.5
-                    real = device_preprocess(images_u8, flips)
-                else:
-                    real = images_u8
-            state.opt.zero_grad(set_to_none=True)
-            state.gan_opt.zero_grad(set_to_none=True)
-            total, metrics = loss_fn(state.params, frozen, real, labels, state.step, rng, fake,
-                                     dropout_mask)
-            with tracing.span("viscoin_step.backward"):
-                total.backward()
+            inputs = [images_u8, labels, fake, dropout_mask]
+            reason = eager_reason(images_u8.device, mesh, cfg.remat)
+            metrics = None if reason is not None else graphed(state, frozen, inputs, rng)
+            if metrics is None:
+                tracing.count_graph("eager", reason or "capture_failed")
+                metrics = forward_backward(state, frozen, *inputs, rng)
             with tracing.span("viscoin_step.update"):
                 optimizer_update(state, cfg, schedule, mesh)
             if mesh is not None:

@@ -10,18 +10,27 @@ launched inside it is attributed to it by the profiler's launch events.
 
 Names are dotted paths, a child carrying its parent's name:
 ``viscoin_step.backward`` inside ``viscoin_step``.
+
+The counter of how the VisCoIN steps ran (:func:`graph_counts`): "captures"
+(the step captured its CUDA graph, then replayed it), "replays" (every step
+that ran as a replay, the capturing one included) and "eager", each eager
+step also under "eager.<reason>" (``train/viscoin.py::eager_reason``, or
+"capture_failed"). Inside a replay no span of the captured region records:
+``viscoin_step.replay`` stands for all of them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from collections import Counter
 
 import torch
 import torch.autograd.profiler as _profiler
 
 PREFIX = "vt."
 _OFF = contextlib.nullcontext()
+_GRAPH_COUNTS: Counter = Counter()
 
 
 def span(name: str):
@@ -48,3 +57,20 @@ def timed(name: str | None, timings: dict | None, key: str):
         timings[f"n_{key}"] = timings.get(f"n_{key}", 0) + 1
         timings[f"max_{key}"] = max(timings.get(f"max_{key}", 0.0), dt)
         timings.setdefault("seconds", {}).setdefault(key, []).append(dt)
+
+
+def count_graph(kind: str, reason: str | None = None) -> None:
+    """Count one step as ``kind`` ("captures", "replays" or "eager"), and
+    under "<kind>.<reason>" when a ``reason`` is given."""
+    _GRAPH_COUNTS[kind] += 1
+    if reason is not None:
+        _GRAPH_COUNTS[f"{kind}.{reason}"] += 1
+
+
+def graph_counts() -> Counter:
+    """The counted steps since :func:`reset_graph_counts`, by kind and reason."""
+    return Counter(_GRAPH_COUNTS)
+
+
+def reset_graph_counts() -> None:
+    _GRAPH_COUNTS.clear()
