@@ -44,6 +44,11 @@ from viscoin_tpu_torch.ops.upfirdn2d import (
     setup_filter,
 )
 
+# The kernels' element types: fp32 and the two 16-bit ones (a 16-bit plan,
+# 16-byte runs of 8 outputs, is the same for bf16 and fp16; each is walked).
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+DTYPE_IDS = ["fp32", "bf16", "fp16"]
+
 # The flagship generator (256², channel_base 16384, channel_max 512, batch 8):
 # the FIR after each up-conv sees (8, C_r, r+1, r+1), the skip-image
 # upsample (8, 3, r/2, r/2), for r = 8 .. 256.
@@ -186,7 +191,8 @@ def walk_fir(plan, x: np.ndarray) -> np.ndarray:
 
 
 def check_fir(x_nhwc: np.ndarray, taps, *, pallas: bool = True, **kw):
-    """Both dtypes' plans walked against the JAX kernel and oracle; 1e-5."""
+    """Each dtype's plan (fp32, and the 16-bit bf16 and fp16) walked against
+    the JAX kernel and oracle; 1e-5."""
     x = np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2))
     f = setup_filter(taps)
     want = jax_upfirdn2d_ref(x_nhwc, np.outer(f.numpy(), f.numpy()), **kw)
@@ -194,8 +200,8 @@ def check_fir(x_nhwc: np.ndarray, taps, *, pallas: bool = True, **kw):
     if pallas:
         wants.append(np.asarray(jax_upfirdn2d_pallas(jnp.asarray(x_nhwc), list(taps), **kw)))
     plans = []
-    for is_bf16 in (False, True):
-        plan = fir_plan(x.shape, _taps(f), is_bf16=is_bf16, **kw)
+    for dtype in DTYPES:
+        plan = fir_plan(x.shape, _taps(f), dtype=dtype, **kw)
         got = walk_fir(plan, x).transpose(0, 2, 3, 1)
         for w in wants:
             assert got.shape == w.shape
@@ -286,11 +292,11 @@ def axis_check(plan, axis: int, n_in: int, n_out: int, pad1: int):
     assert (cover == 1).all()
 
 
-@pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("shape,kw", path_fir_calls(),
                          ids=[f"{s}-up{kw['up']}" for s, kw in path_fir_calls()])
-def test_fir_plan_geometry_at_path_shapes(shape, kw, is_bf16):
-    plan = fir_plan(shape, _taps(setup_filter(F1D)), is_bf16=is_bf16, **kw)
+def test_fir_plan_geometry_at_path_shapes(shape, kw, dtype):
+    plan = fir_plan(shape, _taps(setup_filter(F1D)), dtype=dtype, **kw)
     assert plan.variant == VARIANTS[(4, kw["up"], 1)]
     assert plan.sliding == (kw["up"] == 1)
     assert plan.smem_bytes <= SMEM_LIMIT
@@ -370,15 +376,15 @@ def test_fir_plan_walk_discriminator_plans(case, side):
     assert {pl.variant for pl in plans} == {VARIANTS[(4, 1, 1)]}
 
 
-@pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("shape,kw,side", d_fir_calls(),
                          ids=[f"{s}-pad{kw['padding'][0]}{'-adj' if 'flip_filter' in kw else ''}"
                               for s, kw, _ in d_fir_calls()])
-def test_fir_plan_geometry_at_discriminator_shapes(shape, kw, side, is_bf16):
+def test_fir_plan_geometry_at_discriminator_shapes(shape, kw, side, dtype):
     """The discriminator's FIRs and their adjoints at every full-width shape
     (batch 16): the compiled (4, 1, 1) instantiation, each output once,
     every read in its window, shared memory within the card's limit."""
-    plan = fir_plan(shape, _taps(setup_filter(F1D)), is_bf16=is_bf16, **kw)
+    plan = fir_plan(shape, _taps(setup_filter(F1D)), dtype=dtype, **kw)
     assert plan.variant == VARIANTS[(4, 1, 1)] and plan.sliding
     assert plan.smem_bytes <= SMEM_LIMIT
     assert (plan.ho, plan.wo) == (side, side)
@@ -386,14 +392,14 @@ def test_fir_plan_geometry_at_discriminator_shapes(shape, kw, side, is_bf16):
     ragged_axis_check(plan, 1, shape[3], plan.wo, kw["padding"][1])
 
 
-@pytest.mark.parametrize("is_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("shape,kw", path_adjoint_calls(),
                          ids=[f"{s}-down{kw['down']}" for s, kw in path_adjoint_calls()])
-def test_fir_adjoint_plan_geometry_at_path_shapes(shape, kw, is_bf16):
+def test_fir_adjoint_plan_geometry_at_path_shapes(shape, kw, dtype):
     """The backward's FIR at every full-width path shape: the compiled
     (4, 1, 1) or (4, 1, 2) instantiation, each output once, every read in
     its window, shared memory within the card's limit."""
-    plan = fir_plan(shape, _taps(setup_filter(F1D)), is_bf16=is_bf16, **kw)
+    plan = fir_plan(shape, _taps(setup_filter(F1D)), dtype=dtype, **kw)
     assert plan.variant == VARIANTS[(4, 1, kw["down"])] and plan.sliding
     assert plan.smem_bytes <= SMEM_LIMIT
     r = shape[2]
@@ -446,7 +452,7 @@ def walk_bias_act(plan, x: torch.Tensor, b, **kw) -> torch.Tensor:
     return y.to(x.dtype).reshape(x.shape)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("shape", [(2, 5, 4, 3), (2, 3, 8, 8), (3, 16), (3, 7), (2, 4, 40),
                                    (2, 6, 1, 1)], ids=str)
 def test_bias_act_plan_walk_is_bit_equal_to_plain(shape, dtype):
@@ -454,7 +460,7 @@ def test_bias_act_plan_walk_is_bit_equal_to_plain(shape, dtype):
     x = (torch.randn(shape, generator=gen) * 2).to(dtype)
     b = torch.randn(shape[1], generator=gen)
     for aligned in (True, False):
-        plan = bias_act_plan(shape, dtype == torch.bfloat16, aligned)
+        plan = bias_act_plan(shape, dtype != torch.float32, aligned)
         for kw in (dict(act="lrelu", gain=math.sqrt(2.0)), dict(act="linear", gain=1.0, clamp=0.5),
                    dict(act="relu", gain=1.5), dict(act="lrelu", alpha=0.05, gain=1.0, clamp=1.0)):
             got = walk_bias_act(plan, x, b, **kw)
@@ -531,7 +537,7 @@ def test_bias_act_plan_at_path_shapes(is_bf16):
             assert plan.block_y == BIAS_ACT_THREADS * plan.vec // 16
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_bias_act_alignment_check_refuses_misaligned_view(dtype):
     """A contiguous view one element into its storage is not 16-byte aligned:
     the wrapper's check sends it to the scalar variant; so does a (B, F)
@@ -542,10 +548,10 @@ def test_bias_act_alignment_check_refuses_misaligned_view(dtype):
     y = torch.empty_like(x)
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     assert not vector_aligned(x, None, y)
-    assert bias_act_plan(shape, dtype == torch.bfloat16, vector_aligned(x, None, y)).vec == 1
+    assert bias_act_plan(shape, dtype != torch.float32, vector_aligned(x, None, y)).vec == 1
     x0 = base[:-1].view(shape)
     assert vector_aligned(x0, None, y)
-    assert bias_act_plan(shape, dtype == torch.bfloat16, True).vec > 1
+    assert bias_act_plan(shape, dtype != torch.float32, True).vec > 1
     feats = torch.zeros(2, 64, dtype=dtype)
     b = torch.zeros(65, dtype=dtype)[1:]
     assert not vector_aligned(feats, b, torch.empty_like(feats))

@@ -262,10 +262,11 @@ def classifier_from_tree(tree: dict, device="cuda"):
 
 def generator_from_tree(tree: dict, device="cuda"):
     """A ``Generator`` shaped as the {params, noise, moving_stats} tree says,
-    holding it."""
+    holding it, with the float16 blocks and clamp its "config" records."""
     from viscoin_tpu_torch.models.stylegan import Generator, generator_config_from_params
 
-    model = Generator(**generator_config_from_params(tree["params"]), device=device)
+    model = Generator(**generator_config_from_params(tree["params"], tree.get("config")),
+                      device=device)
     return load_jax_tree(model, {k: tree[k] for k in ("params", "noise", "moving_stats")})
 
 

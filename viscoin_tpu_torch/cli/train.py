@@ -30,6 +30,15 @@ dataset's ``gan`` transform, batch 16, ``--compute-dtype`` bfloat16,
 Metrics go to ``gan_<iterations>.jsonl``; at the end the EMA generator, with
 its tracked w_avg, is written to ``--output-weights`` in the npz layout that
 ``train viscoin`` reads at ``checkpoints/<dataset>/gan-<dataset>``.
+``--cfg paper1024`` takes stylegan2-ada-pytorch's published 1024² setting
+instead (``train/gan.py::GAN_PRESETS``): 8 mapping layers, channel base 32768,
+float16 in the blocks of the four top resolutions with float32 masters and
+losses, every activation clamped to ±256, global batch 32, lr 0.002, R1
+gamma 2, the path length on half the batch; ``--batch-size`` and
+``--learning-rate`` override its batch and lr where given, ``--channel-base``
+and ``--channel-max`` do not apply, and ``--model-parallel`` or an explicit
+``--compute-dtype bfloat16`` is refused. Its export records ``num_fp16_res``
+and ``conv_clamp`` beside the weights (the tree's "config").
 ``--fid-every N`` adds the upstream trainer's snapshot metric: every N
 iterations and at the last, the FID of ``--fid-samples`` (default 8192)
 EMA-generator samples against as many training images, logged to the jsonl
@@ -78,6 +87,16 @@ from viscoin_tpu_torch.parallel.mesh import destroy_mesh
 from viscoin_tpu_torch.utils.logging import configure_score_logging
 
 DEFAULT_FID_DETECTOR = "checkpoints/inception"
+GAN_CFGS = ("paper1024",)  # train/gan.py::GAN_PRESETS
+
+
+class _Given(argparse._StoreAction):
+    """A store action that also records its option's name in ``given`` (an
+    option given as its default is told apart from one left out)."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        super().__call__(parser, namespace, values, option_string)
+        namespace.given = set(getattr(namespace, "given", ())) | {self.dest}
 
 
 def add_parser(subparsers) -> argparse.ArgumentParser:
@@ -104,6 +123,7 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
     p.add_argument("--momentum", type=float, default=None,
                    help="[classifier] SGD momentum (default 0.9)")
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16",
+                   action=_Given,
                    help="Training compute precision: fp32 Adam masters and losses either way "
                         "(default: bfloat16)")
     p.add_argument("--debug-nans", action="store_true",
@@ -148,6 +168,10 @@ def add_parser(subparsers) -> argparse.ArgumentParser:
                         "(default 0 = off)")
     p.add_argument("--mirror", action=argparse.BooleanOptionalAction, default=True,
                    help="[gan] Dataset x-flip doubling (default on)")
+    p.add_argument("--cfg", choices=["auto", *GAN_CFGS], default="auto",
+                   help="[gan] auto: the options above; paper1024: stylegan2-ada-pytorch's "
+                        "1024² setting (fp16 in the four top resolutions, conv clamp 256, "
+                        "8 mapping layers, batch 32)")
     p.add_argument("--snapshot-every", type=int, default=0,
                    help="[gan] Write a fakes_<it>.png grid of 16 EMA-generator samples every "
                         "N iterations, from fixed latents; 0 disables")
@@ -175,6 +199,14 @@ def train(args: argparse.Namespace) -> None:
             args.parser.error(f"--fid-every needs a FID detector; none at {detector} (port one "
                               "with `python -m viscoin_tpu_torch port-weights inception`, or "
                               "pass --fid-detector)")
+        if args.cfg != "auto" and args.model_parallel > 1:
+            args.parser.error(f"--cfg {args.cfg} runs float16 blocks, which do not run on a "
+                              "model axis: drop --model-parallel")
+        if args.cfg != "auto" and "compute_dtype" in getattr(args, "given", ()) \
+                and args.compute_dtype != "float32":
+            args.parser.error(f"--cfg {args.cfg} sets its own precision (float16 blocks in "
+                              "float32 networks); --compute-dtype bfloat16 cannot combine "
+                              "with it")
     model_parallel = args.model_parallel if args.model_name in ("viscoin", "gan") else 1
     device = card_or_cpu(f"train {args.model_name}", args.device)
     workers = _spawned_workers(device, args.data_parallel, model_parallel)
@@ -201,7 +233,7 @@ def _train(args: argparse.Namespace, ds_kwargs: dict, mesh, device) -> None:
                    fid_detector_path=args.fid_detector_path, fid_every=args.fid_every,
                    fid_samples=args.fid_samples, mirror=args.mirror,
                    snapshot_every=args.snapshot_every, init_from=args.init_from,
-                   ema_rampup=args.ema_rampup,
+                   ema_rampup=args.ema_rampup, cfg=args.cfg,
                    prefetch=0 if args.prefetch is None else args.prefetch,
                    ds_kwargs=ds_kwargs, device=device, mesh=mesh,
                    **({"checkpoint_every": args.checkpoint_every}
@@ -481,19 +513,23 @@ def _train_concept2clip(latent_type: str, dataset: str, epochs, learning_rate, b
 
 
 def build_gan_modules(size: int, channel_base: int, channel_max: int, batch_size: int,
-                      device="cuda", seed: int = 0):
+                      device="cuda", seed: int = 0, *, mapping_layers: int = 2,
+                      num_fp16_res: int = 0, conv_clamp: float | None = None):
     """The ``train gan`` generator and discriminator, as the JAX command
     builds them: z 512, w 512, 2 mapping layers, the given channels, the
     mbstd group min(4, batch); random weights from ``seed`` (G) and
-    ``seed + 1`` (D), on ``device``."""
+    ``seed + 1`` (D), on ``device``. A preset (``--cfg``) also sets the
+    mapping depth, the float16 blocks and the clamp of both networks."""
     from viscoin_tpu_torch.models.bundle import init_models
     from viscoin_tpu_torch.models.stylegan import Discriminator, Generator
 
     generator = Generator(z_dim=512, w_dim=512, img_resolution=size, channel_base=channel_base,
-                          channel_max=channel_max, mapping_layers=2, device=device)
+                          channel_max=channel_max, mapping_layers=mapping_layers,
+                          conv_clamp=conv_clamp, num_fp16_res=num_fp16_res, device=device)
     discriminator = Discriminator(img_resolution=size, channel_base=channel_base,
                                   channel_max=channel_max,
-                                  mbstd_group_size=min(4, batch_size), device=device)
+                                  mbstd_group_size=min(4, batch_size), conv_clamp=conv_clamp,
+                                  num_fp16_res=num_fp16_res, device=device)
     return init_models(generator, seed), init_models(discriminator, seed + 1)
 
 
@@ -506,7 +542,8 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
                channel_base=16384, channel_max=512, resume_from=None, checkpoint_every=10_000,
                seed=0, compute_dtype="bfloat16", fid_detector_path=None,
                fid_every=0, fid_samples=8192, mirror=True, snapshot_every=0, init_from=None,
-               ema_rampup=None, ds_kwargs=None, prefetch=0, device="cuda", mesh=None):
+               ema_rampup=None, cfg="auto", ds_kwargs=None, prefetch=0, device="cuda",
+               mesh=None):
     """StyleGAN2 training (``epochs`` counts iterations): the metrics every
     100 iterations and the last to ``gan_<iterations>.jsonl``, the training
     state every ``checkpoint_every`` iterations (i > start) and at the end to
@@ -520,7 +557,8 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
     a data-parallel ``mesh`` each rank loads and steps on its shard of every
     global batch and samples its share of the FID fakes; on a 2-D one each
     data shard's ranks load its shard and each keeps its H rows of the
-    images; rank 0 logs and writes."""
+    images; rank 0 logs and writes. ``cfg`` a preset of ``GAN_PRESETS``
+    ("auto": the arguments alone)."""
     import json
 
     import numpy as np
@@ -531,6 +569,7 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
     from viscoin_tpu_torch.parallel.mesh import broadcast_tree, is_main
     from viscoin_tpu_torch.parallel.spatial import gan_spatial
     from viscoin_tpu_torch.train.gan import (
+        GAN_PRESETS,
         GANTrainingParams,
         create_gan_train_state,
         draw_step,
@@ -552,10 +591,13 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
     if init_from and resume_from:
         raise ValueError("--init-from is a fresh warm start (weights only); --resume "
                          "continues a run exactly: pick one")
-    cfg = GANTrainingParams(**{k: v for k, v in dict(
-        iterations=epochs, learning_rate=learning_rate, batch_size=batch_size,
-        compute_dtype=compute_dtype, mirror=mirror, ema_rampup=ema_rampup).items()
-        if v is not None})
+    preset = None if cfg == "auto" else GAN_PRESETS[cfg]
+    cfg_name = cfg
+    cfg = GANTrainingParams(**{**(preset["training"] if preset else {}), **{
+        k: v for k, v in dict(
+            iterations=epochs, learning_rate=learning_rate, batch_size=batch_size,
+            compute_dtype=None if preset else compute_dtype, mirror=mirror,
+            ema_rampup=ema_rampup).items() if v is not None}})
     # The JAX command's multi-process rules: a batch that divides over the
     # data axis, one loader shard per data shard (the same global order
     # everywhere); on a 2-D mesh, images whose H axis shards.
@@ -569,8 +611,15 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
     size = train_ds.out_size
     sp = gan_spatial(mesh, size)
     rows = slice(None) if sp is None else sp.rows(size)
-    generator, discriminator = build_gan_modules(size, channel_base, channel_max,
-                                                 cfg.batch_size, device, seed)
+    if preset is None:
+        generator, discriminator = build_gan_modules(size, channel_base, channel_max,
+                                                     cfg.batch_size, device, seed)
+    else:
+        m = preset["model"]
+        generator, discriminator = build_gan_modules(
+            size, m["channel_base"], m["channel_max"], cfg.batch_size, device, seed,
+            mapping_layers=m["mapping_layers"], num_fp16_res=m["num_fp16_res"],
+            conv_clamp=m["conv_clamp"])
     if is_main(mesh):
         configure_score_logging(f"gan_{cfg.iterations}.jsonl")
     logger = get_logger()
@@ -610,6 +659,8 @@ def _train_gan(dataset: str, learning_rate, epochs, batch_size, output_weights,
     resume_meta = {"batch_size": cfg.batch_size, "seed": seed, "augment": cfg.augment,
                    "compute_dtype": cfg.compute_dtype, "mirror": cfg.mirror,
                    "ema_rampup": cfg.ema_rampup}
+    if cfg_name != "auto":
+        resume_meta["cfg"] = cfg_name
     if resume_from:  # every rank reads the same state
         ckpt.restore_gan_train_state(state, resume_from, expect_meta=resume_meta)
     if mesh is not None:  # every rank starts from rank 0's weights and moments

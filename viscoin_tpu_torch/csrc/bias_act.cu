@@ -4,6 +4,10 @@
 // Replaces the TPU kernel viscoin_tpu/ops/bias_act.py::_bias_act_kernel
 // (launched by _bias_act_pallas through bias_act(impl="pallas")).
 //
+// Element types: fp32, bf16 and fp16 (the float16 blocks of a mixed-precision
+// StyleGAN2, stylegan2-ada's num_fp16_res), the Plan's `elem`; each reads and
+// writes its own type and computes in fp32.
+//
 //   y = clip(gain * act(x + b[c]), -clamp, clamp),  computed in fp32,
 //   act in {linear, relu, lrelu(alpha)}; clamp < 0 means no clamp.
 //
@@ -51,11 +55,11 @@
 // A 2-D block covers block_y rows by block_x * 4 vectors of one row's chunk,
 // so a small plane (4x4) shares a block with its neighbours instead of
 // leaving most threads idle. Accesses are 16 bytes wide (float4 in fp32,
-// 8 x bf16 in bf16) when the row length is a multiple of the vector width
+// 8 x 16-bit in bf16 and fp16) when the row length is a multiple of the vector width
 // and the pointers are 16-byte aligned (checked by the wrapper), else
 // scalar. There is no 64-bit divide: one 32-bit divide per thread finds its
 // row and chunk. The arithmetic is the plain version's, in fp32, rounded
-// once, so the result is bit-equal to it in fp32 and bf16.
+// once, so the result is bit-equal to it in fp32, bf16 and fp16.
 //
 // The launch geometry is planned in Python (ops/bias_act.py::bias_act_plan)
 // and arrives as one by-value parameter block.
@@ -65,12 +69,14 @@
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 enum Act { kLinear = 0, kRelu = 1, kLrelu = 2 };
+enum Elem { kF32 = 0, kBf16 = 1, kF16 = 2 };  // ops/bias_act.py::ELEM
 constexpr int kItems = 4;  // vectors per thread along its row (BIAS_ACT_ITEMS in bias_act.py)
 
 // Must match ops/bias_act.py::_BiasActParams field for field.
@@ -84,7 +90,7 @@ struct Plan {
   int block_x, block_y;
   int chunks;     // chunks per row
   int act;
-  int is_bf16;
+  int elem;  // Elem
   float alpha, gain, clamp;
 };
 
@@ -96,8 +102,12 @@ struct alignas(sizeof(T) * N) Pack {
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f(float& d, float v) { d = v; }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ void from_f(__nv_bfloat16& d, float v) {
   d = __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+__device__ __forceinline__ void from_f(__half& d, float v) {
+  d = __float2half_rn(v);  // round to nearest even, as torch's .to(float16)
 }
 
 template <typename T, int VEC, int MODE>
@@ -308,7 +318,7 @@ void launch(const void* x, const void* b, void* y, const Plan& p, cudaStream_t s
 
 static bool plan_ok(const Plan& p) {
   return p.blocks >= 1 && p.blocks <= 0x7fffffffLL && p.block_x * p.block_y == 256 &&
-         p.row_len % p.vec == 0 && p.channels >= 1;
+         p.row_len % p.vec == 0 && p.channels >= 1 && p.elem >= kF32 && p.elem <= kF16;
 }
 
 // `plan` points to a Plan (a void pointer keeps the entry point's linkage C).
@@ -317,11 +327,17 @@ extern "C" int viscoin_bias_act(const void* x, const void* b, void* y, const voi
   const Plan& p = *static_cast<const Plan*>(plan);
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.is_bf16) {
+  if (p.elem == kBf16) {
     if (p.vec == 8) {
       launch<__nv_bfloat16, 8>(x, b, y, p, s);
     } else {
       launch<__nv_bfloat16, 1>(x, b, y, p, s);
+    }
+  } else if (p.elem == kF16) {
+    if (p.vec == 8) {
+      launch<__half, 8>(x, b, y, p, s);
+    } else {
+      launch<__half, 1>(x, b, y, p, s);
     }
   } else {
     if (p.vec == 4) {
@@ -350,11 +366,17 @@ extern "C" int viscoin_bias_act_grad(const void* x, const void* b, const void* d
   float* dbf = static_cast<float*>(db);
   float* part = static_cast<float*>(partial);
   const float* addf = static_cast<const float*>(dy_add);
-  if (p.is_bf16) {
+  if (p.elem == kBf16) {
     if (p.vec == 8) {
       launch_grad<__nv_bfloat16, 8>(x, b, dy, addf, dx, dbf, part, p, s);
     } else {
       launch_grad<__nv_bfloat16, 1>(x, b, dy, addf, dx, dbf, part, p, s);
+    }
+  } else if (p.elem == kF16) {
+    if (p.vec == 8) {
+      launch_grad<__half, 8>(x, b, dy, addf, dx, dbf, part, p, s);
+    } else {
+      launch_grad<__half, 1>(x, b, dy, addf, dx, dbf, part, p, s);
     }
   } else {
     if (p.vec == 4) {

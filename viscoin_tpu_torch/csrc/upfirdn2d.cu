@@ -28,7 +28,10 @@
 //     thread slides a register window: 8 intermediate rows from (7*down+k)
 //     shared loads, and 16 bytes of outputs from 16-byte shared loads of the
 //     intermediate row, stored with one 16-byte store where the row allows.
-//   * fp32 accumulation; bf16 is rounded once, at the store.
+//   * fp32 accumulation; bf16 and fp16 are rounded once, at the store.
+//
+// Element types: fp32, bf16 and fp16 (the Plan's `elem`); the two 16-bit
+// types share one staging path and 16-byte runs of 8 outputs.
 //
 // Instantiations: (k, up, down) = (4, 1, 1) (the FIR after every up-conv),
 // (4, 2, 1) (the skip-image upsample), (4, 1, 2) (downsampling), and a
@@ -45,6 +48,7 @@
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +59,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRunRows = 8;  // intermediate rows per thread in the sliding vertical pass
+enum Elem { kF32 = 0, kBf16 = 1, kF16 = 2 };  // ops/upfirdn2d.py::ELEM
 
 // Must match ops/upfirdn2d.py::_FirParams field for field.
 struct Plan {
@@ -74,7 +79,7 @@ struct Plan {
   int tiles_x, tiles_y;
   int smem_bytes;
   int variant;
-  int is_bf16;
+  int elem;               // Elem
   int vec_store;          // wo and the output pointer allow 16-byte stores
   float ty[VISCOIN_UPFIRDN_MAX_TAPS];
   float tx[VISCOIN_UPFIRDN_MAX_TAPS];  // times the gain
@@ -126,10 +131,32 @@ __device__ __forceinline__ void store_run(__nv_bfloat16* dst, const float (&v)[8
   }
 }
 
+__device__ __forceinline__ void store_run(__half* dst, const float (&v)[8], bool vec, int n) {
+  if (vec) {
+    __align__(16) __half2 packed[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) packed[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(packed);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < n) dst[i] = __float2half_rn(v[i]);
+  }
+}
+
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+template <typename T16>
+__device__ __forceinline__ T16 zero16();
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero16<__nv_bfloat16>() { return __float2bfloat16(0.0f); }
+template <>
+__device__ __forceinline__ __half zero16<__half>() { return __float2half_rn(0.0f); }
+
 // Stage the window [np][lh][lw], zero outside the input; warps take rows.
 // fp32 goes through cp.async, so every load of the block is in flight at
-// once. bf16 goes through registers (2-byte elements on odd row widths fit no
-// cp.async size): each warp loads kStageRows rows of up to 160 columns before
+// once. bf16 and fp16 go through registers (2-byte elements on odd row widths
+// fit no cp.async size): each warp loads kStageRows rows of up to 160 columns before
 // it stores any, so its loads overlap instead of waiting one row at a time.
 constexpr int kStageRows = 2;
 
@@ -152,14 +179,15 @@ __device__ __forceinline__ void stage_window(const float* xin, float* xs, int ro
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void stage_window(const __nv_bfloat16* xin, float* xs, int rows, int lh,
+template <typename T16>
+__device__ __forceinline__ void stage_window(const T16* xin, float* xs, int rows, int lh,
                                              int lw, int h, int w, int iy0, int ix0, int warp,
                                              int lane) {
   constexpr int CU = 5;  // column blocks of 32 loaded ahead
   for (int r0 = warp; r0 < rows; r0 += kWarps * kStageRows) {
-    const __nv_bfloat16* src[kStageRows];
+    const T16* src[kStageRows];
     bool row_ok[kStageRows];
-    __nv_bfloat16 v[kStageRows][CU];
+    T16 v[kStageRows][CU];
 #pragma unroll
     for (int i = 0; i < kStageRows; ++i) {
       const int r = r0 + i * kWarps;
@@ -171,7 +199,7 @@ __device__ __forceinline__ void stage_window(const __nv_bfloat16* xin, float* xs
       for (int j = 0; j < CU; ++j) {
         const int gx = ix0 + lane + 32 * j;
         v[i][j] = row_ok[i] && lane + 32 * j < lw && gx >= 0 && gx < w ? src[i][gx]
-                                                                       : __float2bfloat16(0.0f);
+                                                                       : zero16<T16>();
       }
     }
 #pragma unroll
@@ -180,10 +208,10 @@ __device__ __forceinline__ void stage_window(const __nv_bfloat16* xin, float* xs
       if (r >= rows) break;
 #pragma unroll
       for (int j = 0; j < CU; ++j)
-        if (lane + 32 * j < lw) xs[r * lw + lane + 32 * j] = __bfloat162float(v[i][j]);
+        if (lane + 32 * j < lw) xs[r * lw + lane + 32 * j] = to_f(v[i][j]);
       for (int c = lane + 32 * CU; c < lw; c += 32) {
         const int gx = ix0 + c;
-        xs[r * lw + c] = row_ok[i] && gx >= 0 && gx < w ? __bfloat162float(src[i][gx]) : 0.0f;
+        xs[r * lw + c] = row_ok[i] && gx >= 0 && gx < w ? to_f(src[i][gx]) : 0.0f;
       }
     }
   }
@@ -343,6 +371,10 @@ extern "C" int viscoin_upfirdn2d(const void* x, void* y, const void* plan, void*
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(p.is_bf16 ? dispatch<__nv_bfloat16>(x, y, p, s)
-                                    : dispatch<float>(x, y, p, s));
+  switch (p.elem) {
+    case kF32: return static_cast<int>(dispatch<float>(x, y, p, s));
+    case kBf16: return static_cast<int>(dispatch<__nv_bfloat16>(x, y, p, s));
+    case kF16: return static_cast<int>(dispatch<__half>(x, y, p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -15,6 +15,15 @@ and the 4x4 constant in CHW, so ``utils/weights.py`` carries the JAX
 variables across by name. The discriminator's epilogue flattens its 4x4
 features in JAX's (h, w, c) order, so the ``fc`` weight is JAX's as it is.
 
+Mixed precision (stylegan2-ada-pytorch's ``num_fp16_res``): the G and D
+blocks at the ``num_fp16_res`` highest resolutions (from 8² up,
+:func:`fp16_resolution`) run their activations in float16, with float32
+weights cast at each use; G's running RGB image, the mapping and D's 4²
+epilogue stay float32. Such a block casts its input at entry and runs in the
+span ``g_fp16`` or ``d_fp16``. Every block call is counted by the dtype it
+ran in (``utils/tracing.py::precision_counts``). With ``num_fp16_res`` 0 no
+block casts (a bfloat16 run casts the whole network, ``train/gan.py``).
+
 ``noise_mode`` is "random" (drawn from the ``generator`` argument, a
 ``torch.Generator`` on the activations' device), "const" (the ``noise_const``
 buffers) or "none".
@@ -49,6 +58,7 @@ from viscoin_tpu_torch.ops import (
 from viscoin_tpu_torch.ops.bias_act import activation_funcs
 from viscoin_tpu_torch.parallel import spatial as S
 from viscoin_tpu_torch.parallel.mesh import all_gather_batch
+from viscoin_tpu_torch.utils import tracing
 
 RESAMPLE_FILTER = (1.0, 3.0, 3.0, 1.0)
 
@@ -57,6 +67,24 @@ def num_ws_for_resolution(img_resolution: int) -> int:
     """Style vectors of a skip synthesis pyramid: 1 conv at 4², 2 per higher
     block, +1 for the last toRGB (14 at 256²)."""
     return 2 * int(math.log2(img_resolution)) - 2
+
+
+def fp16_resolution(img_resolution: int, num_fp16_res: int) -> int:
+    """The lowest resolution whose blocks run in float16 (upstream's
+    ``max(2 ** (log2(res) + 1 - num_fp16_res), 8)``; above the image's when
+    ``num_fp16_res`` is 0)."""
+    return max(2 ** (int(math.log2(img_resolution)) + 1 - num_fp16_res), 8)
+
+
+def block_dtype(resolution: int, img_resolution: int, num_fp16_res: int):
+    """A block's compute dtype in a mixed-precision network: float16 from
+    :func:`fp16_resolution` up, float32 below; None (whatever comes in, no
+    cast) when ``num_fp16_res`` is 0."""
+    if num_fp16_res <= 0:
+        return None
+    if resolution >= fp16_resolution(img_resolution, num_fp16_res):
+        return torch.float16
+    return torch.float32
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -221,10 +249,13 @@ class SynthesisBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int,
                  img_channels: int, *, resample_filter=RESAMPLE_FILTER,
-                 conv_clamp: float | None = None, device="cuda"):
+                 conv_clamp: float | None = None, dtype: torch.dtype | None = None,
+                 device="cuda"):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.resolution = resolution
+        self.dtype = dtype  # None: no cast; float16 / float32 in a mixed-precision network
+        self.name = f"g{resolution}"
         self.resample_filter = setup_filter(list(resample_filter))
         if in_channels == 0:
             self.const = nn.Parameter(torch.empty(out_channels, 4, 4, device=device))
@@ -251,21 +282,37 @@ class SynthesisBlock(nn.Module):
         """ws_block: (B, num_conv + 1, w_dim). ``sp``: ``x`` and ``img`` come
         in the layout of the plan's plane "g.<res / 2>" and this block's
         planes are in that of "g.<res>" (a whole input is scattered after
-        the layer that reads it)."""
+        the layer that reads it). A float16 block returns ``x`` in float16
+        and ``img`` in float32."""
+        if self.dtype == torch.float16:
+            with tracing.fp16_region("g_fp16") as region:
+                x, img, ws_block = region.enter(x, img, ws_block)
+                x, img = self._forward(x, img, ws_block, noise_mode, generator, sp)
+                return region.exit(x, img)
+        return self._forward(x, img, ws_block, noise_mode, generator, sp)
+
+    def _forward(self, x, img, ws_block, noise_mode, generator, sp):
         src, dst = f"g.{self.resolution // 2}", f"g.{self.resolution}"
         if self.in_channels == 0:
             x = self.const[None].expand(ws_block.shape[0], -1, -1, -1)
+            if self.dtype is not None:
+                x = x.to(self.dtype)
             x = S.convert(x, sp, None, dst)
         else:
+            if self.dtype is not None:
+                x = x.to(self.dtype)
             x = self.conv0(x, ws_block[:, 0], noise_mode=noise_mode, generator=generator,
                            sp=S.at(sp, src))
             x = S.convert(x, sp, src, dst)
+        tracing.count_block(self.name, x.dtype)
         x = self.conv1(x, ws_block[:, self.num_conv - 1], noise_mode=noise_mode,
                        generator=generator, sp=S.at(sp, dst))
         if img is not None:
             img = S.convert(upsample2d(img, self.resample_filter, up=2, sp=S.at(sp, src)), sp,
                             src, dst)
         y = self.torgb(x, ws_block[:, self.num_conv], sp=S.at(sp, dst))
+        if self.dtype is not None:
+            y = y.float()  # the running image stays float32
         img = img + y if img is not None else y
         return x, img
 
@@ -276,16 +323,17 @@ class SynthesisNetwork(nn.Module):
     def __init__(self, *, w_dim: int = 512, img_resolution: int = 256, img_channels: int = 3,
                  channel_base: int = 32768, channel_max: int = 512,
                  conv_clamp: float | None = None, resample_filter=RESAMPLE_FILTER,
-                 device="cuda"):
+                 num_fp16_res: int = 0, device="cuda"):
         super().__init__()
         self.w_dim, self.img_resolution, self.img_channels = w_dim, img_resolution, img_channels
         self.channel_base, self.channel_max = channel_base, channel_max
+        self.num_fp16_res = num_fp16_res
         self.block_resolutions = [2**i for i in range(2, int(math.log2(img_resolution)) + 1)]
         for res in self.block_resolutions:
             self.add_module(f"b{res}", SynthesisBlock(
                 0 if res == 4 else self.channels(res // 2), self.channels(res), w_dim, res,
                 img_channels, resample_filter=resample_filter, conv_clamp=conv_clamp,
-                device=device))
+                dtype=block_dtype(res, img_resolution, num_fp16_res), device=device))
 
     def channels(self, res: int) -> int:
         return min(self.channel_base // res, self.channel_max)
@@ -412,17 +460,22 @@ class Generator(nn.Module):
 
     def __init__(self, *, z_dim: int = 512, w_dim: int = 512, img_resolution: int = 256,
                  img_channels: int = 3, mapping_layers: int = 2, channel_base: int = 32768,
-                 channel_max: int = 512, conv_clamp: float | None = None, device="cuda"):
+                 channel_max: int = 512, conv_clamp: float | None = None, num_fp16_res: int = 0,
+                 device="cuda"):
         super().__init__()
+        # The JAX module's hyperparameters; the port's num_fp16_res where it is set.
         self.config = dict(z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
                            img_channels=img_channels, mapping_layers=mapping_layers,
                            channel_base=channel_base, channel_max=channel_max,
                            conv_clamp=conv_clamp)
+        if num_fp16_res:
+            self.config["num_fp16_res"] = num_fp16_res
         self.z_dim, self.w_dim, self.img_resolution = z_dim, w_dim, img_resolution
+        self.num_fp16_res = num_fp16_res
         self.synthesis = SynthesisNetwork(
             w_dim=w_dim, img_resolution=img_resolution, img_channels=img_channels,
             channel_base=channel_base, channel_max=channel_max, conv_clamp=conv_clamp,
-            device=device)
+            num_fp16_res=num_fp16_res, device=device)
         self.mapping = MappingNetwork(z_dim=z_dim, w_dim=w_dim, num_ws=self.synthesis.num_ws,
                                       num_layers=mapping_layers, device=device)
 
@@ -456,12 +509,14 @@ def synthesis_config_from_params(syn: dict) -> dict:
             "img_channels": int(np.shape(syn[f"b{img_resolution}"]["torgb"]["weight"])[-1])}
 
 
-def generator_config_from_params(params: dict) -> dict:
+def generator_config_from_params(params: dict, recorded: dict | None = None) -> dict:
     """A :class:`Generator`'s constructor config from its params in the JAX
     layout (a ``train gan`` export or a ``port-weights stylegan`` output, as
     ``utils/checkpoints.py::restore_pytree`` reads them): resolution, image
     channels and widths from the synthesis blocks, latent sizes and depth
-    from the mapping. The dict of the JAX package's function of that name."""
+    from the mapping. The dict of the JAX package's function of that name,
+    plus ``num_fp16_res`` and ``conv_clamp`` where the export ``recorded``
+    them (its "config" entry, :func:`recorded_config`)."""
     import numpy as np
 
     syn = synthesis_config_from_params(params["synthesis"])
@@ -470,11 +525,31 @@ def generator_config_from_params(params: dict) -> dict:
     if not fcs:
         raise ValueError("params['mapping'] has no fc{i} layers — an adapted (VisCoIN) "
                          "mapping? config inference covers the original Generator only")
-    return {"z_dim": int(np.shape(mapping[fcs[0]]["weight"])[1]),
-            "w_dim": int(np.shape(mapping[fcs[-1]]["weight"])[0]),
-            "img_resolution": syn["img_resolution"], "mapping_layers": len(fcs),
-            "channel_base": syn["channel_base"], "channel_max": syn["channel_max"],
-            "img_channels": syn["img_channels"]}
+    out = {"z_dim": int(np.shape(mapping[fcs[0]]["weight"])[1]),
+           "w_dim": int(np.shape(mapping[fcs[-1]]["weight"])[0]),
+           "img_resolution": syn["img_resolution"], "mapping_layers": len(fcs),
+           "channel_base": syn["channel_base"], "channel_max": syn["channel_max"],
+           "img_channels": syn["img_channels"]}
+    if recorded:
+        if "num_fp16_res" in recorded:
+            out["num_fp16_res"] = int(np.asarray(recorded["num_fp16_res"]))
+        if "conv_clamp" in recorded:
+            out["conv_clamp"] = float(np.asarray(recorded["conv_clamp"]))
+    return out
+
+
+def recorded_config(generator: "Generator") -> dict:
+    """What a generator export records beside its weights (the tree's
+    "config" entry): ``num_fp16_res`` and ``conv_clamp`` where set, which its
+    params cannot tell; empty for the JAX package's configurations."""
+    import numpy as np
+
+    out = {}
+    if generator.num_fp16_res:
+        out["num_fp16_res"] = np.asarray(generator.num_fp16_res, np.int64)
+    if generator.config["conv_clamp"] is not None:
+        out["conv_clamp"] = np.asarray(generator.config["conv_clamp"], np.float32)
+    return out
 
 
 class MinibatchStdLayer(nn.Module):
@@ -521,9 +596,12 @@ class DiscriminatorBlock(nn.Module):
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int, *,
                  img_channels: int = 3, architecture: str = "resnet",
                  resample_filter=RESAMPLE_FILTER, conv_clamp: float | None = None,
-                 resolution: int | None = None, device="cuda"):
+                 resolution: int | None = None, dtype: torch.dtype | None = None,
+                 device="cuda"):
         super().__init__()
         self.in_channels, self.resolution = in_channels, resolution
+        self.dtype = dtype  # None: no cast; float16 / float32 in a mixed-precision network
+        self.name = f"d{resolution}"
         if in_channels == 0:
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, 1, activation="lrelu",
                                        conv_clamp=conv_clamp, device=device)
@@ -539,14 +617,27 @@ class DiscriminatorBlock(nn.Module):
     def forward(self, x, img, sp: S.Spatial | None = None):
         """``sp``: ``x`` and ``img`` come in the layout of the plan's plane
         "d.<resolution>" and the output goes in that of "d.<resolution / 2>"
-        (gathered where the plan stops sharding)."""
+        (gathered where the plan stops sharding). A float16 block takes its
+        inputs in any dtype and returns float16."""
+        if self.dtype == torch.float16:
+            with tracing.fp16_region("d_fp16") as region:
+                x, img = region.enter(x, img)
+                (x,) = region.exit(self._forward(x, img, sp))
+                return x
+        return self._forward(x, img, sp)
+
+    def _forward(self, x, img, sp):
         src = dst = None
         if sp is not None:
             src, dst = f"d.{self.resolution}", f"d.{self.resolution // 2}"
         on = S.at(sp, src)
+        if self.dtype is not None:
+            x = None if x is None else x.to(self.dtype)
+            img = None if img is None else img.to(self.dtype)
         if self.in_channels == 0:
             x_in = self.fromrgb(img, sp=on)
             x = x_in if x is None else x + x_in
+        tracing.count_block(self.name, x.dtype)
         y = self.skip(x, gain=math.sqrt(0.5), sp=on) if self.skip is not None else None
         x = self.conv0(x, sp=on)
         x = self.conv1(x, gain=math.sqrt(0.5) if y is not None else 1.0, sp=on)
@@ -560,18 +651,23 @@ class Discriminator(nn.Module):
 
     def __init__(self, *, img_resolution: int = 256, img_channels: int = 3,
                  channel_base: int = 32768, channel_max: int = 512, mbstd_group_size: int = 4,
-                 conv_clamp: float | None = None, device="cuda"):
+                 conv_clamp: float | None = None, num_fp16_res: int = 0, device="cuda"):
         super().__init__()
+        # The JAX module's hyperparameters; the port's num_fp16_res where it is set.
         self.config = dict(img_resolution=img_resolution, img_channels=img_channels,
                            channel_base=channel_base, channel_max=channel_max,
                            mbstd_group_size=mbstd_group_size, conv_clamp=conv_clamp)
+        if num_fp16_res:
+            self.config["num_fp16_res"] = num_fp16_res
         self.channel_base, self.channel_max = channel_base, channel_max
+        self.num_fp16_res = num_fp16_res
         self.resolutions = [2**i for i in range(int(math.log2(img_resolution)), 2, -1)]
         for i, res in enumerate(self.resolutions):
             self.add_module(f"b{res}", DiscriminatorBlock(
                 0 if i == 0 else self.channels(res), self.channels(res),
                 self.channels(res // 2), img_channels=img_channels, conv_clamp=conv_clamp,
-                resolution=res, device=device))
+                resolution=res, dtype=block_dtype(res, img_resolution, num_fp16_res),
+                device=device))
         ch4 = self.channels(4)
         self.mbstd = MinibatchStdLayer(mbstd_group_size)
         self.conv = Conv2dLayer(ch4 + 1, ch4, 3, activation="lrelu", conv_clamp=conv_clamp,
@@ -598,6 +694,8 @@ class Discriminator(nn.Module):
         for i, res in enumerate(self.resolutions):
             x = getattr(self, f"b{res}")(x, img if i == 0 else None, sp=spatial)
         on = S.at(spatial, "d.4")
+        if self.num_fp16_res:
+            x = x.float()  # the epilogue runs in float32
         x = S.convert(self.conv(self.mbstd(x, mesh, sp=on), sp=on), spatial, "d.4", None)
         # JAX flattens NHWC: the fc's input runs over (h, w, c).
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

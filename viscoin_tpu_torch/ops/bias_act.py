@@ -61,6 +61,8 @@ activation_funcs: dict[str, _ActSpec] = {
 }
 
 KERNEL_ACTS = {"linear": 0, "relu": 1, "lrelu": 2}
+# The kernels' element types (``Elem`` in csrc/bias_act.cu).
+ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def bias_act(
@@ -260,7 +262,7 @@ class _BiasActParams(ctypes.Structure):
     _fields_ = [("rows", ctypes.c_longlong), ("row_len", ctypes.c_longlong),
                 ("blocks", ctypes.c_longlong)] + [
         (name, ctypes.c_int) for name in (
-            "channels", "bias_mode", "vec", "block_x", "block_y", "chunks", "act", "is_bf16")
+            "channels", "bias_mode", "vec", "block_x", "block_y", "chunks", "act", "elem")
     ] + [(name, ctypes.c_float) for name in ("alpha", "gain", "clamp")]
 
 
@@ -280,17 +282,18 @@ class BiasActPlan(NamedTuple):
     blocks: int
 
 
-def bias_act_plan(shape: tuple[int, ...], is_bf16: bool, aligned: bool) -> BiasActPlan:
+def bias_act_plan(shape: tuple[int, ...], is_16bit: bool, aligned: bool) -> BiasActPlan:
     """Plan the kernel's launch for an input of ``shape`` (rank >= 2, bias
-    on dim 1). ``aligned``: every pointer the vector accesses touch is
-    16-byte aligned (:func:`vector_aligned`)."""
+    on dim 1) of 2-byte elements (bf16, fp16) or 4-byte ones (fp32).
+    ``aligned``: every pointer the vector accesses touch is 16-byte aligned
+    (:func:`vector_aligned`)."""
     channels = shape[1]
     hw = math.prod(shape[2:])
     if hw == 1:
         rows, row_len, mode = shape[0], channels, 1
     else:
         rows, row_len, mode = shape[0] * channels, hw, 0
-    width = 8 if is_bf16 else 4
+    width = 8 if is_16bit else 4
     vec = width if aligned and row_len % width == 0 else 1
     nvec = row_len // vec
     block_x = min(BIAS_ACT_THREADS, 1 << max(0, nvec - 1).bit_length())
@@ -315,12 +318,12 @@ def vector_aligned(x: torch.Tensor, b: torch.Tensor | None, *others: torch.Tenso
 
 
 @functools.lru_cache(maxsize=1024)
-def _params(shape, is_bf16, aligned, act, alpha, gain, clamp) -> _BiasActParams:
-    plan = bias_act_plan(shape, is_bf16, aligned)
+def _params(shape, dtype, aligned, act, alpha, gain, clamp) -> _BiasActParams:
+    plan = bias_act_plan(shape, dtype != torch.float32, aligned)
     return _BiasActParams(rows=plan.rows, row_len=plan.row_len, blocks=plan.blocks,
                           channels=plan.channels, bias_mode=plan.bias_mode, vec=plan.vec,
                           block_x=plan.block_x, block_y=plan.block_y, chunks=plan.chunks,
-                          act=KERNEL_ACTS[act], is_bf16=int(is_bf16),
+                          act=KERNEL_ACTS[act], elem=ELEM[dtype],
                           alpha=0.2 if alpha is None else alpha, gain=gain,
                           clamp=-1.0 if clamp is None else clamp)
 
@@ -330,8 +333,8 @@ def _kernel_inputs(name: str, x, b):
     in x's type and device."""
     if not x.is_cuda:
         raise ValueError(f"{name} kernel takes CUDA tensors, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in ELEM:
+        raise TypeError(f"{name} kernel takes float32, bfloat16 or float16, got {x.dtype}")
     x = x.contiguous()
     if b is not None:
         if b.shape != (x.shape[1],):
@@ -342,7 +345,7 @@ def _kernel_inputs(name: str, x, b):
 
 
 def _kernel_params(x, aligned, act, alpha, gain, clamp) -> _BiasActParams:
-    return _params(tuple(x.shape), x.dtype == torch.bfloat16, aligned, act,
+    return _params(tuple(x.shape), x.dtype, aligned, act,
                    None if alpha is None else float(alpha), float(gain),
                    None if clamp is None else float(clamp))
 

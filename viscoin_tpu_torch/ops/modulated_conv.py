@@ -7,7 +7,12 @@ scaling decomposition around one dense batched conv,
     demod[b, co] = rsqrt((styles[b]^2) @ (sum_{kh,kw} w^2)[co, :]^T + 1e-8),
 
 with the demodulation coefficients in fp32 and, when the compute dtype is
-not fp32, the reference's pre-normalisation of ``w`` and ``styles``.
+not fp32, a pre-normalisation of ``w`` and ``styles`` that keeps the
+16-bit products in range: in bfloat16 the JAX package's (``w`` over its
+root mean square per output channel, ``styles`` over their largest
+magnitude per sample), in float16 stylegan2-ada-pytorch's (``w`` times
+``1 / sqrt(fan_in) / max |w|`` per output channel, ``styles`` over their
+largest magnitude). Both are identities under demodulation.
 """
 
 from __future__ import annotations
@@ -37,7 +42,11 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, styles: torch.Tensor, *,
             :func:`conv2d_resample`); ``noise`` then holds the same rows.
     """
     compute_dtype = x.dtype
-    if demodulate and compute_dtype != torch.float32:
+    if demodulate and compute_dtype == torch.float16:
+        fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+        w = w * (1.0 / fan_in**0.5 / w.abs().amax(dim=(1, 2, 3), keepdim=True))
+        styles = styles / styles.abs().amax(dim=1, keepdim=True)
+    elif demodulate and compute_dtype != torch.float32:
         w = w * torch.rsqrt(w.square().mean(dim=(1, 2, 3), keepdim=True) + 1e-8)
         styles = styles / styles.abs().amax(dim=1, keepdim=True)
 

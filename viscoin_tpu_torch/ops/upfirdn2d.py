@@ -230,6 +230,8 @@ TILE_OUTPUTS = 2048         # outputs per block the tile and planes-per-block ai
 SMEM_LIMIT = 232_448        # shared memory one block may use on Hopper (227 KB)
 VARIANTS = {(4, 1, 1): 0, (4, 2, 1): 1, (4, 1, 2): 2}  # (taps, up, down) -> instantiation
 RUNTIME_VARIANT = 3         # any other separable filter, pads and factors, per axis
+# The kernel's element types (``Elem`` in csrc/upfirdn2d.cu).
+ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 class _FirParams(ctypes.Structure):
@@ -239,7 +241,7 @@ class _FirParams(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "h", "w", "ho", "wo", "upy", "upx", "downy", "downx", "pady0", "padx0",
             "ky", "kx", "th", "tw", "lg_th", "lg_xruns", "ppb", "lh", "lw", "lwp",
-            "xs_floats", "tiles_x", "tiles_y", "smem_bytes", "variant", "is_bf16",
+            "xs_floats", "tiles_x", "tiles_y", "smem_bytes", "variant", "elem",
             "vec_store")
     ] + [("ty", ctypes.c_float * MAX_KERNEL_TAPS), ("tx", ctypes.c_float * MAX_KERNEL_TAPS)]
 
@@ -294,7 +296,7 @@ class FirPlan:
     blocks: int
     smem_bytes: int
     variant: int
-    is_bf16: bool
+    dtype: torch.dtype  # float32, or a 16-bit type: bfloat16, float16
     vec_store: bool
 
     @property
@@ -341,7 +343,7 @@ class FirPlan:
             lg_xruns=(self.tw // self.vo).bit_length() - 1, ppb=self.ppb, lh=self.lh,
             lw=self.lw, lwp=self.lwp, xs_floats=self.xs_floats, tiles_x=self.tiles_x,
             tiles_y=self.tiles_y, smem_bytes=self.smem_bytes, variant=self.variant,
-            is_bf16=int(self.is_bf16), vec_store=int(self.vec_store))
+            elem=ELEM[self.dtype], vec_store=int(self.vec_store))
         p.ty[:] = taps.tolist()
         p.tx[:] = (taps * np.float32(self.gain)).tolist()
         return p
@@ -349,9 +351,9 @@ class FirPlan:
 
 def fir_plan(shape: tuple[int, int, int, int], taps: tuple[float, ...], *, up=1, down=1,
              padding=0, flip_filter: bool = False, gain: float = 1.0,
-             is_bf16: bool = False) -> FirPlan:
-    """Plan the kernel's launch for a (B, C, H, W) input and 1-D ``taps``
-    (as given to :func:`upfirdn2d`)."""
+             dtype: torch.dtype = torch.float32) -> FirPlan:
+    """Plan the kernel's launch for a (B, C, H, W) input of ``dtype`` and
+    1-D ``taps`` (as given to :func:`upfirdn2d`)."""
     k = len(taps)
     if not 1 <= k <= MAX_KERNEL_TAPS:
         raise ValueError(f"upfirdn2d kernel takes 1 to {MAX_KERNEL_TAPS} taps, got {k}")
@@ -365,7 +367,9 @@ def fir_plan(shape: tuple[int, int, int, int], taps: tuple[float, ...], *, up=1,
     if ho < 1 or wo < 1:
         raise ValueError(f"upfirdn2d output would be empty ({ho}x{wo})")
     planes = B * C
-    vo = 8 if is_bf16 else 4
+    if dtype not in ELEM:
+        raise TypeError(f"upfirdn2d kernel takes float32, bfloat16 or float16, got {dtype}")
+    vo = 4 if dtype == torch.float32 else 8
     variant = VARIANTS.get((k, upy, downy), RUNTIME_VARIANT) \
         if (upy, downy) == (upx, downx) else RUNTIME_VARIANT
     sliding = variant != RUNTIME_VARIANT and upx == 1
@@ -398,7 +402,7 @@ def fir_plan(shape: tuple[int, int, int, int], taps: tuple[float, ...], *, up=1,
                    pad0=(pady0, padx0), taps=t, gain=float(gain), th=th, tw=tw, vo=vo, ppb=ppb,
                    lh=lh, lw=lw, lwp=lwp, xs_floats=xs_floats, tiles_y=tiles_y,
                    tiles_x=tiles_x, blocks=blocks, smem_bytes=4 * (xs_floats + ppb * th * lwp),
-                   variant=variant, is_bf16=is_bf16, vec_store=wo % vo == 0)
+                   variant=variant, dtype=dtype, vec_store=wo % vo == 0)
 
 
 def _hashable(v):
@@ -432,8 +436,8 @@ def _taps(f) -> tuple[float, ...]:
 def _upfirdn2d_cuda(x, f, up, down, padding, flip_filter, gain):
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d kernel takes CUDA tensors, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in ELEM:
+        raise TypeError(f"upfirdn2d kernel takes float32, bfloat16 or float16, got {x.dtype}")
     fn = _kernels.entry("upfirdn2d")
     x = x.contiguous()
     key = (x.shape, x.dtype, _taps(f), _hashable(up), _hashable(down), _hashable(padding),
@@ -444,7 +448,7 @@ def _upfirdn2d_cuda(x, f, up, down, padding, flip_filter, gain):
             _plans.clear()
         plan = _plans[key] = fir_plan(tuple(x.shape), key[2], up=key[3], down=key[4],
                                       padding=key[5], flip_filter=key[6], gain=key[7],
-                                      is_bf16=x.dtype == torch.bfloat16)
+                                      dtype=x.dtype)
     y = torch.empty((x.shape[0], x.shape[1], plan.ho, plan.wo), device=x.device,
                     dtype=x.dtype)
     if y.data_ptr() % 16:

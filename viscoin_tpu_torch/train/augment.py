@@ -18,12 +18,13 @@ host in fp32, as JAX composes them on the device; where no image of the
 batch is warped (or recoloured), the warp (or the colour product) is not
 run, since it would return the images unchanged.
 
-:func:`twopass_warp` samples bilinearly with two batched products against
-dense per-line interpolation matrices (``torch.einsum``, not a kernel of
-the JAX package's): about H * W^2 elements per image and pass, 67 MB in
-fp32 at 256². As JAX does with ``jax.checkpoint``, the warp is recomputed in
-the backward (``torch.utils.checkpoint``) instead of keeping them, and R1's
-second order differentiates through the recompute.
+:func:`twopass_warp` samples bilinearly in two passes, each output the
+two samples its source position falls between, gathered and weighted
+(:func:`_lerp`): what JAX's dense per-line interpolation matrices compute
+(about H * W^2 elements per image and pass, 4.3 GB in fp32 at 1024²),
+without building them. As JAX does with ``jax.checkpoint``, the warp is
+recomputed in the backward (``torch.utils.checkpoint``), and R1's second
+order differentiates through the recompute.
 """
 
 from __future__ import annotations
@@ -112,9 +113,23 @@ def draw_augment(batch: int, generator: torch.Generator) -> AugmentDraws:
     return AugmentDraws(**out)
 
 
-def _hat(u: torch.Tensor) -> torch.Tensor:
-    """The bilinear interpolation kernel max(0, 1 - |u|)."""
-    return torch.clamp_min(1.0 - u.abs(), 0.0)
+def _lerp(src: torch.Tensor, pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum over s of hat(s - pos) * src[..., s, ...] along ``dim`` (2 or 3),
+    ``pos`` (B, H, W) giving each output's source position (broadcast over
+    the channels): the two samples floor(pos) and floor(pos) + 1 with the
+    weights 1 - frac and frac, zero outside the plane; what one row of a
+    dense interpolation matrix of hat weights computes."""
+    n = src.shape[dim]
+    p0 = torch.floor(pos)
+    frac = pos - p0
+    out = None
+    for at, weight in ((p0, 1.0 - frac), (p0 + 1.0, frac)):
+        inside = (at >= 0) & (at <= n - 1)
+        index = at.clamp(0, n - 1).long()[:, None].expand(-1, src.shape[1], -1, -1)
+        w = torch.where(inside, weight, 0.0)[:, None].to(src.dtype)
+        term = torch.gather(src, dim, index) * w
+        out = term if out is None else out + term
+    return out
 
 
 def _warp(images: torch.Tensor, A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -127,21 +142,18 @@ def _warp(images: torch.Tensor, A: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     xs = torch.arange(W, dtype=torch.float32, device=images.device)
     ys = torch.arange(H, dtype=torch.float32, device=images.device)
 
-    # Pass 1: source-y positions (B, x, Y) -> S1 (B, x, Y, y).
+    # Pass 1: along y, at the source-y positions on the sheared lines (B, x, Y).
     syp = ((a10 / a00) * (xs[None, :, None] - cx - vx)
            + (det / a00) * (ys[None, None, :] - cy) + cy + vy)
-    S1 = _hat(ys[None, None, None, :] - syp[..., None]).to(images.dtype)
-    tmp = torch.einsum("bxYy,bcyx->bcYx", S1, images)
-
-    # Pass 2: the exact source-x positions (B, Y, X) -> S2 (B, Y, X, x).
+    tmp = _lerp(images, syp.transpose(1, 2), 2)
+    # Pass 2: along x, at the exact source-x positions (B, Y, X).
     sx = a00 * (xs[None, None, :] - cx) + a01 * (ys[None, :, None] - cy) + cx + vx
-    S2 = _hat(xs[None, None, None, :] - sx[..., None]).to(images.dtype)
-    return torch.einsum("bYXx,bcYx->bcYX", S2, tmp)
+    return _lerp(tmp, sx, 3)
 
 
 def twopass_warp(images: torch.Tensor, A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Affine bilinear warp as two batched products with dense per-line
-    interpolation matrices, recomputed in the backward.
+    """Affine bilinear warp in two gathered passes, recomputed in the
+    backward.
 
     Samples ``src = A @ (p - c) + c + v`` per output pixel ``p`` ((x, y)
     coordinates, ``c`` the image centre), zero outside the image. Pass 1

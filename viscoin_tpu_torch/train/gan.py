@@ -25,6 +25,15 @@ What differs from JAX, by design:
     the r_t accumulator stays on the card and is read once per
     ``ada_interval`` steps.
 
+Mixed precision (``num_fp16_res`` of the generator and discriminator,
+``models/stylegan.py``): the blocks at the top resolutions run in float16
+inside fp32 networks, and every gradient goes through stylegan2-ada-pytorch's
+sanitizer before its Adam step (non-finite elements replaced: NaN by 0, ±inf
+by ±1e5; one pass over the flattened gradients, the replaced elements counted
+on the device, ``utils/tracing.py::precision_counts``). Such networks take the
+fp32 ``compute_dtype`` and no model axis. :data:`GAN_PRESETS` holds the
+published configurations (``train gan --cfg``).
+
 The in-loop FID (``make_gan_fid_fns``, ``accumulate_*_fid_stats``) samples
 the EMA generator with latents and synthesis noise from generators seeded
 per batch, as the draws of a step are.
@@ -71,6 +80,24 @@ from viscoin_tpu_torch.train.augment import AugmentDraws, ada_update, augment, d
 from viscoin_tpu_torch.train.viscoin import fold_seed, make_cast, rank_seed
 from viscoin_tpu_torch.utils import tracing
 
+# Published configurations: stylegan2-ada-pytorch's train.py cfg_specs with the
+# trainer's fixed settings (which every cfg takes unless --fp32 is given).
+# "model": the G and D constructor settings (the resolution is the data's);
+# "training": GANTrainingParams fields; "ref_gpus": the published card count
+# (the batch is the global one).
+GAN_PRESETS = {
+    "paper1024": {  # arXiv:2006.06676, FFHQ and MetFaces at 1024²
+        "model": dict(z_dim=512, w_dim=512, mapping_layers=8, channel_base=32768,
+                      channel_max=512, mbstd_group_size=4, num_fp16_res=4, conv_clamp=256.0),
+        "training": dict(batch_size=32, learning_rate=0.002, beta1=0.0, beta2=0.99,
+                         r1_gamma=2.0, r1_interval=16, style_mixing_prob=0.9, ppl_weight=2.0,
+                         ppl_interval=4, pl_batch_shrink=2, ppl_decay=0.01, w_avg_beta=0.995,
+                         ema_kimg=10.0, ema_rampup=0.0, augment="ada", ada_target=0.6,
+                         ada_interval=4, ada_kimg=500.0, compute_dtype="float32"),
+        "ref_gpus": 8,
+    },
+}
+
 _NOISE_TAGS = {"g": 1, "d": 2, "ppl": 3}  # synthesis noise generators of a step's phases
 _DEVICE_TAG = 0x44455643  # "DEVC": the device generator of a step's tensors
 
@@ -89,6 +116,7 @@ class GANTrainingParams:
     ppl_weight: float = 2.0
     ppl_interval: int = 4  # lazy path-length cadence (G)
     ppl_decay: float = 0.01  # EMA decay of the path-length target
+    pl_batch_shrink: int = 1  # the path length runs on the first batch // shrink rows
     w_avg_beta: float = 0.995
     ema_kimg: float = 10.0  # generator weight EMA half-life (thousand images)
     ema_rampup: float = 0.0  # > 0 caps the half-life at rampup * images seen
@@ -165,11 +193,16 @@ def export_generator_vars(state: GANTrainState) -> dict:
     """The EMA generator's variables in the JAX package's layout ({params,
     noise, moving_stats}), with the tracked w_avg as
     ``moving_stats/mapping/w_avg``: what ``train viscoin`` and JAX's
-    ``restore_pytree`` read."""
+    ``restore_pytree`` read; and, for a generator with float16 blocks or a
+    clamp, their settings as "config" (``models/stylegan.py::recorded_config``)."""
+    from viscoin_tpu_torch.models.stylegan import recorded_config
     from viscoin_tpu_torch.utils.weights import module_to_jax_tree
 
     tree = module_to_jax_tree(state.g_ema)
     tree["moving_stats"] = {"mapping": {"w_avg": state.w_avg.float().cpu().numpy()}}
+    recorded = recorded_config(state.g_ema)
+    if recorded:
+        tree["config"] = recorded
     return tree
 
 
@@ -439,6 +472,14 @@ def make_gan_loss_fns(generator, discriminator, cfg: GANTrainingParams, mesh: Me
         return cast_groups({"p": params})["p"]
 
     sp = S.gan_spatial(mesh, generator.img_resolution)
+    if mixed_precision(generator, discriminator):
+        if cfg.compute_dtype != "float32":
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: networks with float16 blocks "
+                             "(num_fp16_res) keep float32 masters, losses and low-resolution "
+                             "blocks; a global bfloat16 cast cannot combine with them")
+        if sp is not None:
+            raise ValueError("networks with float16 blocks (num_fp16_res) do not run on a model "
+                             "axis (--model-parallel)")
 
     if cfg.augment not in ("ada", "fixed", "none"):
         raise ValueError(f"augment={cfg.augment!r}: expected ada|fixed|none")
@@ -538,6 +579,22 @@ def preprocess_real(images_u8: torch.Tensor, flips: torch.Tensor | None) -> torc
     return x
 
 
+def mixed_precision(generator, discriminator) -> bool:
+    """Whether either network runs blocks in float16."""
+    return bool(getattr(generator, "num_fp16_res", 0) or getattr(discriminator, "num_fp16_res", 0))
+
+
+def _sanitized(grads: list) -> list:
+    """stylegan2-ada-pytorch's ``nan_to_num(nan=0, posinf=1e5, neginf=-1e5)``
+    of every gradient, as one pass over them flattened; the replaced
+    elements are counted on the device (never read here)."""
+    with tracing.span("gan_step.sanitize"):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        tracing.count_nonfinite(torch.isfinite(flat).logical_not_().sum())
+        flat = torch.nan_to_num_(flat, nan=0.0, posinf=1e5, neginf=-1e5)
+        return [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def _grads(loss, params: list) -> list:
     return list(torch.autograd.grad(loss, params, materialize_grads=True))
 
@@ -581,6 +638,16 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams,
     fns = make_gan_loss_fns(generator, discriminator, cfg, mesh)
     g_loss_fn, d_loss_fn, ppl_penalty = fns["g_loss_fn"], fns["d_loss_fn"], fns["ppl_penalty"]
     dt = fns["dt"]
+    mixed = mixed_precision(generator, discriminator)
+
+    def update(opt, params: list, grads: list) -> None:
+        """Adam on ``grads``, reduced over the ranks and, for networks with
+        float16 blocks, sanitized; the list's tensors are replaced at each
+        stage, so no earlier stage's gradients outlive it."""
+        grads[:] = _reduced(grads, mesh)
+        if mixed:
+            grads[:] = _sanitized(grads)
+        _adam_step(opt, params, grads)
 
     def step(state: GANTrainState, images, draws: GANStepDraws):
         with tracing.span("gan_step"):
@@ -602,13 +669,16 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams,
             pl_len, new_pl_mean = torch.zeros((), device=x.device), state.pl_mean
             if i % cfg.ppl_interval == 0 and cfg.ppl_weight > 0:
                 with tracing.span("gan_step.path_length"):
+                    zp, pl_y = draws.zp, draws.pl_y
+                    if cfg.pl_batch_shrink > 1:  # upstream's pl_batch_shrink: the first rows
+                        rows = max(1, zp.shape[0] // cfg.pl_batch_shrink)
+                        zp, pl_y = zp[:rows], pl_y[:rows]
                     scaled, (pl_len, new_pl_mean) = ppl_penalty(
-                        g_named, draws.zp.to(dt), draws.noise_seeds["ppl"], draws.pl_y,
-                        state.pl_mean)
+                        g_named, zp.to(dt), draws.noise_seeds["ppl"], pl_y, state.pl_mean)
                     g_grads = [a + b for a, b in zip(g_grads, _grads(scaled, g_list))]
                     pl_len, new_pl_mean = pl_len.detach(), new_pl_mean.detach()
             with tracing.span("gan_step.g_update"):
-                _adam_step(state.g_opt, g_list, _reduced(g_grads, mesh))
+                update(state.g_opt, g_list, g_grads)
 
             # The D phase, against the updated generator, with R1 on cadence.
             with tracing.span("gan_step.d_forward"):
@@ -619,10 +689,8 @@ def make_gan_train_step(generator, discriminator, cfg: GANTrainingParams,
             with tracing.span("gan_step.d_backward"):
                 d_grads = _grads(d_loss, d_list)
             with tracing.span("gan_step.d_update"):
-                # Each list goes once used: the unreduced one when reduced, the reduced one
-                # after the update (the step's peak memory holds neither longer).
-                d_grads = _reduced(d_grads, mesh)
-                _adam_step(state.d_opt, d_list, d_grads)
+                # The gradients go once used (the step's peak memory holds them no longer).
+                update(state.d_opt, d_list, d_grads)
                 del d_grads
 
             with torch.no_grad(), tracing.span("gan_step.ema_ada"):
